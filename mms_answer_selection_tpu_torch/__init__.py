@@ -6,7 +6,8 @@ conv weights in the parameter dict, ``(Nq, C)`` score matrices), so the
 two can be held against each other on the same inputs and weights.
 
 This package imports ``torch`` and never ``jax``.  The MaxSim scorers on
-the serving path are hand-written CUDA kernels (``csrc/``) built with
+the serving path and the bilinear pair maps on the training path (forward
+and backward) are hand-written CUDA kernels (``csrc/``) built with
 ``nvcc`` on their first CUDA launch (``ops/_build.py``); on CPU tensors the
 same entry points run their plain PyTorch versions.
 """

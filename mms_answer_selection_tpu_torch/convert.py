@@ -11,25 +11,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-def _to_torch(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_torch(v, device) for k, v in tree.items()}
-    return torch.as_tensor(np.array(tree, copy=True), device=device)
-
-
-def _to_numpy(tree):
-    if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+from .utils.tree import tree_map
 
 
 def params_from_numpy(params_np, state_np, device):
     """(params, state) of numpy arrays -> the same trees as tensors on
     ``device`` (copies: no tensor aliases a caller's array)."""
-    return _to_torch(params_np, device), _to_torch(state_np, device)
+    def to_torch(x):
+        return torch.as_tensor(np.array(x, copy=True), device=device)
+    return tree_map(to_torch, params_np), tree_map(to_torch, state_np)
 
 
 def params_to_numpy(params, state):
     """Inverse of ``params_from_numpy``."""
-    return _to_numpy(params), _to_numpy(state)
+    def to_numpy(t):
+        return t.detach().cpu().numpy()
+    return tree_map(to_numpy, params), tree_map(to_numpy, state)

@@ -36,6 +36,7 @@ from ..ops import (
     softmax_cross_entropy,
 )
 from ..utils import fillers
+from ..utils.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,13 +107,14 @@ def _spatial_after_blocks(cfg: MMSQAConfig) -> tuple[int, int, int]:
 
 
 def mms_qa_init(cfg: MMSQAConfig, *, generator: torch.Generator,
-                device=None):
+                pretrained=None, device=None):
     """Build float32 (params, state), drawing from ``generator`` in the
-    order embed, sim (xavier only), conv blocks, fc1, fc2."""
+    order embed, sim (xavier only), conv blocks, fc1, fc2.  ``pretrained``
+    (n, D) vectors overwrite embedding rows [0, n) (``embed_init``)."""
     params: dict = {}
     state: dict = {}
     params["embed"] = embed_init(
-        generator, cfg.vocab_size, cfg.embed_dim,
+        generator, cfg.vocab_size, cfg.embed_dim, pretrained=pretrained,
         minval=-cfg.embed_init_range, maxval=cfg.embed_init_range,
         device=device)
     if cfg.sim_mode == 2:
@@ -197,3 +199,28 @@ def mms_qa_apply(params, state, batch, cfg: MMSQAConfig, *, train: bool,
     if "label" in batch:
         out["loss"] = softmax_cross_entropy(logits, batch["label"])
     return out, new_state
+
+
+def param_spec(params, cfg: MMSQAConfig):
+    """Per-parameter (lr_mult, decay_mult) tree matching the recipe's
+    ParamSpecs: embed w (1, 0) and b (2, 0); sim W and bias (1, 1); conv w
+    (1, 1) and b (2, 0); BN scale and shift (1, 0) (running statistics live
+    in the state, untouched by the solver); fc w (1, 0) and b (2, 0);
+    anything else (1, 1)."""
+    spec = {}
+    for name, sub in params.items():
+        if name == "embed":
+            spec[name] = {"w": (1.0, 0.0)}
+            if "b" in sub:
+                spec[name]["b"] = (2.0, 0.0)
+        elif name == "sim":
+            spec[name] = {k: (1.0, 1.0) for k in sub}
+        elif name.startswith("conv"):
+            spec[name] = {"w": (1.0, 1.0), "b": (2.0, 0.0)}
+        elif name.startswith("bn"):
+            spec[name] = {"scale": (1.0, 0.0), "shift": (1.0, 0.0)}
+        elif name.startswith("fc"):
+            spec[name] = {"w": (1.0, 0.0), "b": (2.0, 0.0)}
+        else:
+            spec[name] = tree_map(lambda _: (1.0, 1.0), sub)
+    return spec

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, loaded with ``ctypes``: pointers and the stream travel as
-``c_void_p``, sizes as ``c_int``, and every C entry point returns the
-``cudaError_t`` of its launch.  Nothing includes PyTorch's headers, so a
-build takes seconds.
+``nvcc`` compiles every ``csrc/*.cu`` into an object, one process per
+source, all started together, and links the objects into one shared
+library with a plain C interface, loaded with ``ctypes``: pointers and the
+stream travel as ``c_void_p``, sizes as ``c_int``, and every C entry point
+returns the ``cudaError_t`` of its launch.  Nothing includes PyTorch's
+headers, so a build takes seconds.
 
 The library lands in ``<package>/build/`` under a name keyed on a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one
@@ -27,14 +28,18 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: (..., nq, r, c, w2p, dp, tc, nwarps, q_per_block, device,
-# stream) -> cudaError_t
+# C signatures -> cudaError_t.  MaxSim: (pointers..., nq, r, c, w2p, dp, tc,
+# nwarps, q_per_block, device, stream); pair maps: (pointers..., n, w1, w2,
+# d, m[, samples per dW chunk], device, stream)
 _SIGNATURES = {
     "maxsim_bf16": [_P, _P, _P] + [_I] * 9 + [_P],
     "maxsim_int8": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    "pair_maps_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    "pair_maps_bwd_qa": [_P] * 6 + [_I] * 6 + [_P],
+    "pair_maps_bwd_w": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 
@@ -60,7 +65,7 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libmaxsim_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[Path, float]:
@@ -72,15 +77,33 @@ def build() -> tuple[Path, float]:
     if so.exists():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    objs = [tmp.with_suffix(f".{src.stem}.o") for src in _sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for obj, src in zip(objs, _sources()))]
+    logs, failed = [], []
+    for cmd, proc in jobs:      # wait for every compile, failed or not
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    so.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so, seconds
 

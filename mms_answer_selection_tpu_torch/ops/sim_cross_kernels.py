@@ -1,12 +1,17 @@
-"""Retrieval-path MaxSim scoring under the learned bilinear metric
-(counterpart of the serving half of ``ops/sim_cross_pallas.py``).
+"""Kernels of the learned bilinear metric (counterpart of
+``ops/sim_cross_pallas.py``): the training-path pair maps and the
+retrieval-path MaxSim scorers.
 
-score(q, c) = sum_m sum_i max_j q_i^T W_m c_j.  The queries are projected
-through the M metric matrices once (``project_queries*``), giving R = M*W1
-rows per query; each candidate is packed once (``pack_candidate_pool*``);
-the scorers then compute sum_r max_j <qw_r, c_j> for every (query,
-candidate) pair without materializing the (Nq*R) x (C*W2) similarity
-tensor.
+Pair maps: out[n, i, j, m] = q_{n,i}^T W_m a_{n,j}, NHWC (N, W1, W2, M), as
+a ``torch.autograd.Function`` whose backward is the closed form of the
+reference's custom VJP (dQ, dA in one kernel, dW in another).
+
+MaxSim: score(q, c) = sum_m sum_i max_j q_i^T W_m c_j.  The queries are
+projected through the M metric matrices once (``project_queries*``),
+giving R = M*W1 rows per query; each candidate is packed once
+(``pack_candidate_pool*``); the scorers then compute sum_r max_j <qw_r,
+c_j> for every (query, candidate) pair without materializing the (Nq*R) x
+(C*W2) similarity tensor.
 
 Packed formats (this port's own; the reference padded D to 128 lanes):
 
@@ -22,10 +27,10 @@ Packed formats (this port's own; the reference padded D to 128 lanes):
 W2P = round_up(W2, 8) in both.  Scorers take any Dp, so the reference
 packers' 128-lane outputs score here too.
 
-Each scorer is a wrapper over a hand-written CUDA kernel (``csrc/``).  On
-CPU tensors the wrapper runs the plain PyTorch version beside it; on CUDA
-tensors it launches the kernel or raises.  ``LAUNCH_COUNTS`` counts kernel
-launches.
+Each entry point is a wrapper over a hand-written CUDA kernel (``csrc/``).
+On CPU tensors the wrapper runs the plain PyTorch version beside it; on
+CUDA tensors it launches the kernel or raises.  ``LAUNCH_COUNTS`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -37,21 +42,160 @@ from . import _build
 NEG_INF = -1e30
 
 # kernel name -> launches since the counter was last reset
-LAUNCH_COUNTS = {"maxsim_bf16": 0, "maxsim_int8": 0}
+LAUNCH_COUNTS = {"maxsim_bf16": 0, "maxsim_int8": 0, "pair_maps_fwd": 0,
+                 "pair_maps_bwd_qa": 0, "pair_maps_bwd_w": 0}
 
-# How far a kernel may stray from its plain version on the same packed
-# operands, as a fraction of the row's largest |score|.  int8: each row's
-# term is the same three IEEE float32 products in both, only the order of
-# the sum over rows differs.  bf16: the tensor cores also accumulate each
-# 16-term dot product in their own order and rounding.
-KERNEL_VS_PLAIN_RTOL = {"maxsim_bf16": 1e-4, "maxsim_int8": 1e-5}
+# How far a kernel may stray from its plain version on the same operands.
+# MaxSim, as a fraction of the row's largest |score|: int8, each row's term
+# is the same three IEEE float32 products in both, only the order of the
+# sum over rows differs; bf16, the tensor cores also accumulate each
+# 16-term dot product in their own order and rounding.  Pair maps, as a
+# fraction of the output's (out, dQ, dA or dW) largest |value|: float32
+# FMAs in both, only the order of the sums over D, W1, W2, M and the batch
+# differs (no TF32, no reduced precision).
+KERNEL_VS_PLAIN_RTOL = {"maxsim_bf16": 1e-4, "maxsim_int8": 1e-5,
+                        "pair_maps_fwd": 1e-5, "pair_maps_bwd_qa": 1e-5,
+                        "pair_maps_bwd_w": 1e-5}
 
 _SMEM_BYTES = 232448   # dynamic shared memory one sm_90 block may use
 _PLAIN_CHUNK_BYTES = 1 << 30  # similarity slab the plain versions hold
+PAIR_MAPS_MAX_W = 64   # largest W1, W2 the pair-map kernels take (MAXW)
+_DW_CHUNK = 8          # samples one dW block sums before the partials' sum
+_GRID_Y = 65535        # largest gridDim.y and gridDim.z of a launch
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+# ---------------------------------------------------------------- pair maps
+def bilinear_pair_maps_plain(q, a, w):
+    """Plain PyTorch version of ``pair_maps_fwd``: (N, W1, D), (N, W2, D),
+    (M, D, D) -> (N, W1, W2, M).  On CUDA this needs
+    ``torch.backends.cuda.matmul.allow_tf32`` off (the default)."""
+    return torch.einsum("nid,mde,nje->nijm", q, w, a)
+
+
+def bilinear_pair_maps_grads_plain(q, a, w, g, *, need_qa=True,
+                                   need_w=True):
+    """Plain PyTorch version of the two backward kernels: the closed forms
+    of the reference's custom VJP for g = dL/dout (N, W1, W2, M).  Returns
+    (dQ, dA, dW); a gradient not asked for is None."""
+    dq = da = dw = None
+    if need_qa:
+        dq = torch.einsum("nijm,mde,nje->nid", g, w, a)
+        da = torch.einsum("nijm,mde,nid->nje", g, w, q)
+    if need_w:
+        dw = torch.einsum("nid,nijm,nje->mde", q, g, a)
+    return dq, da, dw
+
+
+def pair_maps_fwd(q, a, w):
+    """The forward map (N, W1, W2, M): the ``pair_maps_fwd`` kernel on CUDA
+    tensors, ``bilinear_pair_maps_plain`` on CPU tensors."""
+    n, w1, w2, d, m = _pair_maps_shapes(q, a, w)
+    if _on_cpu(q, a, w):
+        return bilinear_pair_maps_plain(q, a, w)
+    _check_pair_maps_cuda(q, a, w)
+    out = torch.empty((n, w1, w2, m), dtype=torch.float32, device=q.device)
+    _launch("pair_maps_fwd", q, q.data_ptr(), a.data_ptr(), w.data_ptr(),
+            out.data_ptr(), n, w1, w2, d, m)
+    return out
+
+
+def pair_maps_bwd_qa(q, a, w, g):
+    """(dQ, dA) for g = dL/dout: the ``pair_maps_bwd_qa`` kernel on CUDA
+    tensors, the plain closed forms on CPU tensors.  On CUDA a strided
+    ``g`` (the conv's input gradient can arrive as one) is copied to a
+    dense one first."""
+    if _on_cpu(q, a, w, g):
+        return bilinear_pair_maps_grads_plain(q, a, w, g, need_w=False)[:2]
+    g = g.contiguous()
+    n, w1, w2, d, m = _check_pair_maps_cuda(q, a, w, g=g)
+    dq, da = torch.empty_like(q), torch.empty_like(a)
+    _launch("pair_maps_bwd_qa", q, q.data_ptr(), a.data_ptr(), w.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), da.data_ptr(), n, w1, w2, d, m)
+    return dq, da
+
+
+def pair_maps_bwd_w(q, a, w, g):
+    """dW for g = dL/dout, summed over the batch in a fixed order (two runs
+    give the same bits): the ``pair_maps_bwd_w`` kernel on CUDA tensors,
+    the plain closed form on CPU tensors.  ``w`` gives only the shape.  A
+    strided ``g`` is copied to a dense one first, as in
+    ``pair_maps_bwd_qa``."""
+    if _on_cpu(q, a, w, g):
+        return bilinear_pair_maps_grads_plain(q, a, w, g, need_qa=False)[2]
+    g = g.contiguous()
+    n, w1, w2, d, m = _check_pair_maps_cuda(q, a, w, g=g)
+    dw = torch.empty_like(w)
+    chunks = -(-n // _DW_CHUNK)
+    part = torch.empty((chunks,) + tuple(w.shape), dtype=torch.float32,
+                       device=w.device) if chunks > 1 else dw
+    _launch("pair_maps_bwd_w", q, q.data_ptr(), a.data_ptr(), g.data_ptr(),
+            dw.data_ptr(), part.data_ptr(), n, w1, w2, d, m, _DW_CHUNK)
+    return dw
+
+
+class BilinearPairMaps(torch.autograd.Function):
+    """out = q W a^T per measure, with the closed-form backward:
+    ``pair_maps_fwd`` forward, ``pair_maps_bwd_qa`` (dQ and dA) and
+    ``pair_maps_bwd_w`` (dW) backward, each only when a gradient it makes
+    is needed."""
+
+    @staticmethod
+    def forward(ctx, q, a, w):
+        ctx.save_for_backward(q, a, w)
+        return pair_maps_fwd(q, a, w)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, a, w = ctx.saved_tensors
+        need_q, need_a, need_w = ctx.needs_input_grad
+        dq = da = dw = None
+        if need_q or need_a:
+            dq, da = pair_maps_bwd_qa(q, a, w, g)
+        if need_w:
+            dw = pair_maps_bwd_w(q, a, w, g)
+        return dq if need_q else None, da if need_a else None, dw
+
+
+def bilinear_pair_maps(q, a, w):
+    """Fused SimCross mode-2 map: q (N, W1, D), a (N, W2, D), w (M, D, D)
+    -> (N, W1, W2, M) float32, differentiable in all three.
+
+    CUDA operands must be contiguous float32 with W1, W2 <= 64; any D and M
+    are taken (D is tiled)."""
+    return BilinearPairMaps.apply(q, a, w)
+
+
+def _pair_maps_shapes(q, a, w):
+    if q.ndim != 3 or a.ndim != 3 or w.ndim != 3 or q.shape[0] != a.shape[0] \
+            or not q.shape[2] == a.shape[2] == w.shape[1] == w.shape[2]:
+        raise ValueError(f"expected q (N, W1, D), a (N, W2, D), w (M, D, D),"
+                         f" got {tuple(q.shape)}, {tuple(a.shape)}, "
+                         f"{tuple(w.shape)}")
+    n, w1, d = q.shape
+    return n, w1, a.shape[1], d, w.shape[0]
+
+
+def _check_pair_maps_cuda(q, a, w, **more):
+    _check_cuda_operands(align=4, q=(q, torch.float32), a=(a, torch.float32),
+                         w=(w, torch.float32),
+                         **{k: (v, torch.float32) for k, v in more.items()})
+    n, w1, w2, d, m = _pair_maps_shapes(q, a, w)
+    if 0 in (n, w1, w2, d, m) or max(w1, w2) > PAIR_MAPS_MAX_W \
+            or m > _GRID_Y or d > _GRID_Y * 32 or n > _GRID_Y * _DW_CHUNK:
+        raise ValueError(f"the pair-map kernels take 1 <= W1, W2 <= "
+                         f"{PAIR_MAPS_MAX_W}, M <= {_GRID_Y}, D <= "
+                         f"{_GRID_Y * 32}, N <= {_GRID_Y * _DW_CHUNK} and "
+                         f"non-empty operands, got N={n} W1={w1} W2={w2} "
+                         f"D={d} M={m}")
+    if "g" in more and tuple(more["g"].shape) != (n, w1, w2, m):
+        raise ValueError(f"gradient {tuple(more['g'].shape)} does not match "
+                         f"the map {(n, w1, w2, m)}")
+    return n, w1, w2, d, m
 
 
 def _project(q_tokens, w):
@@ -256,18 +400,18 @@ def _on_cpu(*tensors) -> bool:
         raise ValueError(f"operands on different devices: {sorted(map(str, devices))}")
     dev = devices.pop()
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no MaxSim kernel for device {dev}")
+        raise ValueError(f"no kernel for device {dev}")
     return dev.type == "cpu"
 
 
-def _check_cuda_operands(**operands):
+def _check_cuda_operands(align=16, **operands):
     for name, (t, dtype) in operands.items():
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def _launch_shape(nq: int, cand_smem_bytes: int) -> tuple[int, int, int]:

@@ -1,14 +1,23 @@
 """Word-by-word similarity maps (counterpart of ``ops/similarity.py``).
 
-These are plain products in the reference too (einsums outside any Pallas
-kernel), so they stay ``torch.einsum`` here.  All return NHWC
-``(N, W1, W2, M|1)``.  On CUDA a float32 ``einsum`` runs in full float32
-unless the caller has turned ``torch.backends.cuda.matmul.allow_tf32`` on.
+All return NHWC ``(N, W1, W2, M|1)``.  The cosine and inverse-euclidean
+maps are plain products in the reference too (einsums outside any Pallas
+kernel), so they stay ``torch.einsum`` here; on CUDA a float32 ``einsum``
+runs in full float32 unless the caller has turned
+``torch.backends.cuda.matmul.allow_tf32`` on.
+
+The learned bilinear map computes what the reference's Pallas pair-map
+kernel computes (its model calls the equivalent einsum, which ties with
+the kernel on the TPU), so here it goes through ``bilinear_pair_maps``:
+the hand-written forward and backward kernels on CUDA tensors, their plain
+einsum versions on CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .sim_cross_kernels import bilinear_pair_maps
 
 
 def sim_cross_inv_euclidean(q, a):
@@ -34,7 +43,7 @@ def sim_cross_bilinear(q, a, w, bias=None):
 
     q: (N, W1, D), a: (N, W2, D), w: (M, D, D), bias: (M, W1, W2) or None.
     """
-    out = torch.einsum("nid,mde,nje->nijm", q, w, a)
+    out = bilinear_pair_maps(q, a, w)
     if bias is not None:
         out = out + bias.permute(1, 2, 0)[None]
     return out

@@ -28,6 +28,7 @@ from ..ops.sim_cross_kernels import (
     project_queries,
     project_queries_int8,
 )
+from ..utils.tree import tree_map
 
 POOL_DTYPES = ("bf16", "int8")
 
@@ -77,7 +78,7 @@ class QueryEngine:
             raise ValueError(f"pool_dtype must be one of {POOL_DTYPES}, got "
                              f"{pool_dtype!r}")
         self.device = resolve_device(device)
-        self.params = _to_device(params, self.device)
+        self.params = tree_map(lambda t: t.to(self.device), params)
         self.cfg = cfg
         self.pool_dtype = pool_dtype
         self.pool = None
@@ -173,12 +174,7 @@ class QueryEngine:
                  "answer": torch.as_tensor(candidate_ids, device=self.device),
                  "overlap_feat": torch.as_tensor(overlap_feat,
                                                  device=self.device)}
-        out, _ = mms_qa_apply(self.params, _to_device(state, self.device),
-                              batch, self.cfg, train=False)
+        state = tree_map(lambda t: t.to(self.device), state)
+        out, _ = mms_qa_apply(self.params, state, batch, self.cfg,
+                              train=False)
         return out["prob"][:, 1]
-
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)

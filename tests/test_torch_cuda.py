@@ -152,3 +152,139 @@ def test_engine_on_cuda_matches_engine_on_cpu(pool_dtype):
     pinned = torch.cat([sep[:, :1], sep[:, 1:] & sep[:, :-1], sep[:, -1:]], 1)
     assert torch.equal(gi[pinned], ci[pinned])
     assert torch.allclose(grv, crv, atol=1e-5)
+
+
+# ------------------------------------------------------------ pair maps
+# (N, W1, W2, D, M): V4 at batch 50, a ragged batch of 7 and of 1, V4_WIDE's
+# D = 300, and the kernels' edges (W = 64, D not a multiple of 32, M = 1)
+PAIR_SHAPES = [(50, 40, 40, 50, 4), (7, 40, 40, 50, 4), (1, 40, 40, 50, 4),
+               (50, 40, 40, 300, 4), (7, 40, 40, 300, 4),
+               (3, 64, 5, 33, 1), (2, 9, 64, 70, 3)]
+
+
+def _pair_operands(dev, n, w1, w2, d, m, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + n * 7 + d)
+    q = torch.randn((n, w1, d), generator=g, device=dev) * 0.3
+    a = torch.randn((n, w2, d), generator=g, device=dev) * 0.3
+    w = torch.randn((m, d, d), generator=g, device=dev) * 0.05
+    gr = torch.randn((n, w1, w2, m), generator=g, device=dev)
+    return q, a, w, gr
+
+
+def _assert_close_to_max(got, want, rtol):
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= rtol, rel
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES)
+def test_pair_map_kernels_match_plain(shape):
+    dev = _cuda()
+    q, a, w, g = _pair_operands(dev, *shape)
+    n0 = dict(T.LAUNCH_COUNTS)
+    tq, ta, tw = (x.clone().requires_grad_(True) for x in (q, a, w))
+    out = T.bilinear_pair_maps(tq, ta, tw)
+    out.backward(g)
+    torch.cuda.synchronize()
+    for name in ("pair_maps_fwd", "pair_maps_bwd_qa", "pair_maps_bwd_w"):
+        assert T.LAUNCH_COUNTS[name] == n0[name] + 1, name
+    _assert_close_to_max(out, T.bilinear_pair_maps_plain(q, a, w),
+                         T.KERNEL_VS_PLAIN_RTOL["pair_maps_fwd"])
+    dq, da, dw = T.bilinear_pair_maps_grads_plain(q, a, w, g)
+    rtol = T.KERNEL_VS_PLAIN_RTOL
+    _assert_close_to_max(tq.grad, dq, rtol["pair_maps_bwd_qa"])
+    _assert_close_to_max(ta.grad, da, rtol["pair_maps_bwd_qa"])
+    _assert_close_to_max(tw.grad, dw, rtol["pair_maps_bwd_w"])
+
+
+def test_pair_map_dw_is_deterministic():
+    dev = _cuda()
+    q, a, w, g = _pair_operands(dev, 50, 40, 40, 50, 4)
+    runs = []
+    for _ in range(2):
+        tw = w.clone().requires_grad_(True)
+        T.bilinear_pair_maps(q, a, tw).backward(g)
+        runs.append(tw.grad)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_pair_map_backward_takes_a_strided_gradient():
+    dev = _cuda()
+    q, a, w, g = _pair_operands(dev, 4, 40, 40, 50, 4)
+    gt = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert not gt.is_contiguous()
+    tw = w.clone().requires_grad_(True)
+    T.bilinear_pair_maps(q, a, tw).backward(gt)
+    _assert_close_to_max(tw.grad, T.bilinear_pair_maps_grads_plain(
+        q, a, w, g)[2], T.KERNEL_VS_PLAIN_RTOL["pair_maps_bwd_w"])
+
+
+def test_pair_map_wrapper_raises_on_what_the_kernels_do_not_take():
+    dev = _cuda()
+    q, a, w, _ = _pair_operands(dev, 2, 65, 40, 8, 2)
+    n0 = dict(T.LAUNCH_COUNTS)
+    with pytest.raises(ValueError):          # W1 > 64
+        T.bilinear_pair_maps(q, a, w)
+    q, a, w, _ = _pair_operands(dev, 2, 40, 40, 8, 2)
+    with pytest.raises(TypeError):
+        T.bilinear_pair_maps(q.double(), a.double(), w.double())
+    with pytest.raises(ValueError):
+        T.bilinear_pair_maps(q.transpose(1, 2).contiguous().transpose(1, 2),
+                             a, w)
+    with pytest.raises(ValueError):
+        T.bilinear_pair_maps(q, a.cpu(), w)
+    assert T.LAUNCH_COUNTS == n0
+
+
+def test_pair_map_backward_launches_only_what_is_needed():
+    dev = _cuda()
+    q, a, w, g = _pair_operands(dev, 3, 40, 40, 50, 4)
+    n0 = dict(T.LAUNCH_COUNTS)
+    T.bilinear_pair_maps(q, a, w.clone().requires_grad_(True)).backward(g)
+    assert T.LAUNCH_COUNTS["pair_maps_bwd_w"] == n0["pair_maps_bwd_w"] + 1
+    assert T.LAUNCH_COUNTS["pair_maps_bwd_qa"] == n0["pair_maps_bwd_qa"]
+    with torch.no_grad():
+        T.bilinear_pair_maps(q, a, w)
+    assert T.LAUNCH_COUNTS["pair_maps_fwd"] == n0["pair_maps_fwd"] + 2
+
+
+def test_train_step_on_cuda_matches_cpu():
+    """One V4 train step (dropout off, xavier W, batch 50) on the card and
+    on the CPU from the same params and batch.  Loss within 1e-5 relative;
+    every param within rtol 1e-4 + atol 1e-5, except the conv biases:
+    each feeds a train-mode BN, so its true gradient is 0 and both devices
+    move it by AdaDelta's normalized step in a direction set by rounding
+    noise, at most lr_mult(2) * sqrt(delta / (1 - momentum))."""
+    dev = _cuda()
+    from mms_answer_selection_tpu_torch.training import (
+        SolverConfig, Trainer, TrainerConfig)
+    from mms_answer_selection_tpu_torch.utils.tree import tree_map
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(TM.MMSQAConfig(), vocab_size=500,
+                              sim_weight_init="xavier", sim_dropout=0.0,
+                              fc1_dropout=0.0)
+    tcfg = TrainerConfig(solver=SolverConfig(), batch_size=50)
+    g = torch.Generator().manual_seed(4)
+    batch = {"question": torch.randint(0, 500, (50, 40), generator=g),
+             "answer": torch.randint(0, 500, (50, 40), generator=g),
+             "overlap_feat": torch.rand((50, 2), generator=g),
+             "label": (torch.rand((50,), generator=g) < 0.3).int()}
+    out = {}
+    for where in ("cpu", "cuda"):
+        tr = Trainer(cfg, tcfg, device=where)
+        p, s, o = tr.init()
+        b = {k: v.to(where) for k, v in batch.items()}
+        out[where] = tree_map(lambda t: t.cpu(), dict(zip(
+            ("p", "s", "o", "loss"), tr._train_step(p, s, o, b, 0))))
+    cpu, card = out["cpu"], out["cuda"]
+    assert abs(float(card["loss"]) / float(cpu["loss"]) - 1) <= 1e-5
+    band = 2 * (5e-7 / 0.05) ** 0.5
+    for name in cpu["p"]:
+        for k, want in cpu["p"][name].items():
+            got = card["p"][name][k]
+            if name.startswith("conv") and k == "b":
+                assert float((got - want).abs().max()) <= 2 * band
+            else:
+                assert torch.allclose(got, want, rtol=1e-4, atol=1e-5), \
+                    (name, k, float((got - want).abs().max()))

@@ -159,3 +159,26 @@ def test_convert_round_trip_copies():
         np.testing.assert_array_equal(a, b)
     params["embed"]["w"][0, 0] = 123.0        # no aliasing of the input
     assert params_np["embed"]["w"][0, 0] != 123.0
+
+
+def test_init_writes_pretrained_vectors():
+    cfg = dataclasses.replace(WIDE_END, vocab_size=12)
+    pre = np.random.default_rng(3).normal(size=(10, 8)).astype(np.float32)
+    tp, _ = T.mms_qa_init(_tcfg(cfg), generator=torch.Generator(),
+                          pretrained=pre)
+    jp, _ = J.mms_qa_init(jax.random.PRNGKey(0), cfg, pretrained=pre)
+    np.testing.assert_array_equal(tp["embed"]["w"][:10].numpy(),
+                                  np.asarray(jp["embed"]["w"][:10]))
+    with pytest.raises(ValueError):
+        T.mms_qa_init(_tcfg(cfg), generator=torch.Generator(),
+                      pretrained=pre[:, :5])
+
+
+@pytest.mark.parametrize("name", ["V3", "V4", "V5"])
+def test_param_spec_matches_jax(name):
+    jcfg = dataclasses.replace(getattr(J, name), vocab_size=30)
+    jp, _ = J.mms_qa_init(jax.random.PRNGKey(0), jcfg)
+    tp, _ = T.mms_qa_init(_tcfg(jcfg), generator=torch.Generator())
+    tp["extra"] = {"v": torch.zeros(2), "deep": {"u": torch.zeros(1)}}
+    jp = dict(jp, extra={"v": np.zeros(2), "deep": {"u": np.zeros(1)}})
+    assert T.param_spec(tp, _tcfg(jcfg)) == J.param_spec(jp, jcfg)

@@ -156,3 +156,28 @@ def test_fillers_ranges_and_generator():
     assert float(x.abs().max()) <= s
     assert torch.equal(x, fillers.xavier(torch.Generator().manual_seed(1),
                                          (12, 3)))
+
+
+@pytest.mark.parametrize("bias_term", [True, False])
+def test_embed_init_pretrained_rows(bias_term):
+    pre = _np((4, 6))
+    got = tops.embed_init(torch.Generator().manual_seed(0), 9, 6,
+                          pretrained=pre, bias_term=bias_term)
+    want = jops.embed_init(jax.random.PRNGKey(0), 9, 6, pretrained=pre,
+                           bias_term=bias_term)
+    assert sorted(got) == sorted(want)
+    # the pretrained rows are written as given, the rest stay uniform
+    np.testing.assert_array_equal(got["w"][:4].numpy(),
+                                  np.asarray(want["w"][:4]))
+    assert float(got["w"][4:].abs().max()) <= 0.08
+    if bias_term:
+        assert torch.equal(got["b"], torch.zeros(6))
+
+
+@pytest.mark.parametrize("shape", [(3, 5), (10, 6)])
+def test_embed_init_refuses_what_jax_refuses(shape):
+    pre = _np(shape)          # wrong width; more rows than the vocab
+    with pytest.raises(ValueError):
+        jops.embed_init(jax.random.PRNGKey(0), 9, 6, pretrained=pre)
+    with pytest.raises(ValueError):
+        tops.embed_init(torch.Generator(), 9, 6, pretrained=pre)
