@@ -7,11 +7,16 @@ Drives the port's two main paths (``mms_answer_selection_tpu_torch``) once
 at the V4 recipe's widths, after building the hand-written kernels from
 ``mms_answer_selection_tpu_torch/csrc``:
 
-* serving: holds the MaxSim kernels against their plain PyTorch versions,
-  builds a 262,144-candidate bf16 and int8 ``QueryEngine`` over random
-  weights made from a seed, answers 256 queries and a rerank on each, and
-  checks the answers against a brute-force plain scoring and the rerank's
-  probabilities against the same pairs scored on the CPU;
+* serving: holds the MaxSim kernels against their plain PyTorch versions
+  (and the int4 kernel against the int8 kernel on the unpacked codes),
+  builds a 262,144-candidate bf16, int8 and int4 ``QueryEngine`` over
+  random weights made from a seed, answers 256 queries and a rerank on
+  each, and checks the answers against a brute-force plain scoring, the
+  rerank's probabilities against the same pairs scored on the CPU, and
+  chunked against unchunked scoring; then the index lifecycle (remove,
+  add, compact, save and load), the IVF index (probe-all against brute
+  force, recall and latency at nprobe 1 and 8, the T=8 coarse shortlist),
+  and the three dtypes at 1,048,576 candidates scored in chunks;
 * training: holds the pair-map forward and backward kernels against their
   plain versions at V4 and V4_WIDE widths and at every batch size the
   main paths give them (and dW against itself, bit for bit), one train
@@ -46,6 +51,11 @@ D, W1, W2, M = 50, 40, 40, 4      # V4: embed_dim, question/answer length
 VOCAB = 50_000
 POOL = 262_144
 N_QUERIES, N_RERANK, K, SHORTLIST = 256, 32, 10, 50
+BIG_POOL, CHUNK = 1_048_576, 131_072   # the README's 1M pool, in chunks
+LIFE_POOL, LIFE_CHUNK, LIFE_RESERVE = 20_000, 8192, 1000
+# IVF: bench.py's topic pool and its ~2 clusters per latent topic
+IVF_CLUSTERS, IVF_TOKENS, IVF_SHORTLIST, IVF_QUERIES = 1024, 8, 1024, 64
+N_CHECK = 4                       # queries held against brute force
 KERNEL_POOLS = (8192, 8192 + 37)  # one ragged: the last tile is partial
 KERNEL_NQ = (1, 16, N_RERANK, N_QUERIES)  # latency, a batch, the main path
 TIMED_NQ, TIMED_POOL = 16, 8192
@@ -69,11 +79,13 @@ PALLAS = "mms_answer_selection_tpu/ops/sim_cross_pallas.py:"
 KERNELS = {  # kernel -> (source, the TPU kernel it replaces)
     "maxsim_bf16": (CSRC + "maxsim_bf16.cu", PALLAS + "190"),
     "maxsim_int8": (CSRC + "maxsim_int8.cu", PALLAS + "534"),
+    "maxsim_int4": (CSRC + "maxsim_int8.cu", PALLAS + "799"),
     "pair_maps_fwd": (CSRC + "pair_maps.cu", PALLAS + "85"),
     "pair_maps_bwd_qa": (CSRC + "pair_maps.cu", PALLAS + "156"),
     "pair_maps_bwd_w": (CSRC + "pair_maps.cu", PALLAS + "156"),
 }
-MAXSIM = ("maxsim_bf16", "maxsim_int8")
+MAXSIM = ("maxsim_bf16", "maxsim_int8", "maxsim_int4")
+POOL_DTYPES = ("bf16", "int8", "int4")
 
 
 def log(msg: str) -> None:
@@ -315,6 +327,243 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
     return launches
 
 
+def plain_scores(eng, query_ids):
+    """(Nq, C) scores of the engine's pool by the plain PyTorch versions,
+    one chunk at a time."""
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+
+    plain = {"bf16": sk.bilinear_maxsim_scores_plain,
+             "int8": sk.bilinear_maxsim_scores_int8_plain,
+             "int4": sk.bilinear_maxsim_scores_int4_plain}[eng.pool_dtype]
+    proj = eng.project(eng.query_tokens(query_ids))
+    out = []
+    for a in range(0, eng.pool_size, eng.chunk_size):
+        b = min(eng.pool_size, a + eng.chunk_size)
+        aux = () if eng.aux is None else (eng.aux[a:b],)
+        out.append(plain(*proj, eng.pool[a:b], *aux))
+    return torch.cat(out, 1)
+
+
+def check_topk(eng, query_ids, vals, idx, what: str) -> None:
+    """The engine's top-k on a few queries must be the brute-force plain
+    top-k, up to the kernel's tolerance."""
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+
+    full = plain_scores(eng, query_ids)
+    tol = sk.KERNEL_VS_PLAIN_RTOL["maxsim_" + eng.pool_dtype] \
+        * full.abs().amax(dim=1, keepdim=True)
+    got = torch.gather(full, 1, idx)
+    if ((got - vals).abs() > tol).any():
+        raise AssertionError(f"{what}: engine scores differ from plain")
+    kth = full.topk(idx.shape[1], dim=1).values[:, -1:]
+    if (got < kth - tol).any():
+        raise AssertionError(f"{what}: engine top-{idx.shape[1]} is not the "
+                             f"top-{idx.shape[1]}")
+
+
+def same_topk(got, want) -> bool:
+    """Equal scores, and equal indices wherever a score is not tied with a
+    neighbour (among tied scores the scan order decides)."""
+    (gv, gi), (wv, wi) = [(v.cpu(), i.cpu()) for v, i in (got, want)]
+    if not torch.equal(gv, wv):
+        return False
+    tied = torch.zeros_like(wv, dtype=torch.bool)
+    tied[:, 1:] |= wv[:, 1:] == wv[:, :-1]
+    tied[:, :-1] |= wv[:, :-1] == wv[:, 1:]
+    return torch.equal(gi[~tied], wi[~tied])
+
+
+def gib(eng) -> float:
+    return sum(t.numel() * t.element_size() for t in (eng.pool, eng.aux)
+               if t is not None) / 2**30
+
+
+def lifecycle_phase(params, state, cfg, cand_ids, queries, dev) -> None:
+    """Remove, add, compact, save and load on the card, for each dtype,
+    on a pool of LIFE_POOL candidates scored in chunks of LIFE_CHUNK."""
+    import tempfile
+
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+    from mms_answer_selection_tpu_torch.serve import QueryEngine
+
+    q = queries[:8]
+    for pd in POOL_DTYPES:
+        eng = QueryEngine(params, cfg, pool_dtype=pd, chunk_size=LIFE_CHUNK,
+                          device=dev).build_index(cand_ids[:LIFE_POOL],
+                                                  reserve=LIFE_RESERVE)
+        _, top = eng.query(q, k=K)
+        dead = sorted(set(top[:, :3].flatten().tolist()) | {0, LIFE_POOL - 1})
+        eng.remove_candidates(dead)
+        vals, idx = eng.query(q, k=K)
+        _, ridx = eng.query_rerank(state, q, k=K, shortlist=SHORTLIST)
+        if set(idx.flatten().tolist()) & set(dead) \
+                or set(ridx.flatten().tolist()) & set(dead):
+            raise AssertionError(f"lifecycle {pd}: a removed row came back")
+        check_topk(eng, q, vals, idx, f"lifecycle {pd} after remove")
+        # added rows are found: a copy of each query's best live hit, past
+        # the reserve (so the pool grows), is in the top-K with its
+        # original's score
+        best = idx[:, 0]
+        extra = cand_ids[LIFE_POOL:LIFE_POOL + LIFE_RESERVE + 10]
+        new = eng.add_candidates(torch.cat([extra, cand_ids[best]]))
+        copies = new[-len(best):]
+        vals2, idx2 = eng.query(q, k=K)
+        tol = sk.KERNEL_VS_PLAIN_RTOL["maxsim_" + pd] * vals2.abs().amax()
+        for i, row in enumerate(idx2.tolist()):
+            if int(best[i]) not in row or int(copies[i]) not in row \
+                    or abs(vals2[i, row.index(int(copies[i]))]
+                           - vals2[i, row.index(int(best[i]))]) > tol:
+                raise AssertionError(f"lifecycle {pd}: an added row was not "
+                                     f"found")
+        check_topk(eng, q, vals2, idx2, f"lifecycle {pd} after add")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "index.npz")
+            eng.save_index(path)
+            other = QueryEngine(params, cfg, pool_dtype=pd,
+                                chunk_size=LIFE_CHUNK, device=dev)
+            other.load_index(path)
+        loaded = other.query(q, k=K)
+        if not (torch.equal(loaded[0], vals2) and torch.equal(loaded[1], idx2)):
+            raise AssertionError(f"lifecycle {pd}: a reloaded index answers "
+                                 f"differently")
+        n_before = eng.pool_size
+        mapping = eng.compact()
+        after = eng.query(q, k=K)
+        keep = torch.ones(n_before, dtype=torch.bool)
+        keep[dead] = False
+        if not (torch.equal(mapping[keep], torch.arange(int(keep.sum())))
+                and (mapping[dead] == -1).all()
+                and same_topk(after, (vals2, mapping[idx2.cpu()]))):
+            raise AssertionError(f"lifecycle {pd}: compact's map is wrong")
+        log(f"lifecycle {pd} at {LIFE_POOL} (+{LIFE_RESERVE} reserve, chunk "
+            f"{LIFE_CHUNK}): {len(dead)} removed never returned (query and "
+            f"rerank), {len(new)} added ({len(best)} copies found at the "
+            f"top), save/load equal, compact {n_before} -> {eng.pool_size} "
+            f"map ok")
+
+
+def topic_pool(params, gen, dev):
+    """bench.py's IVF regime, a trained-model proxy: 512 latent topics,
+    each vocabulary slice's embeddings a topic center plus token noise, W
+    identity-dominant plus noise, each candidate's tokens from one topic,
+    each query's from two (interleaved).  (Under the random weights of the
+    other phases no router beats the probed fraction.)  Returns the
+    params, POOL candidate ids and IVF_QUERIES query ids."""
+    n_topics = 512
+    slice_w = VOCAB // n_topics
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev)
+
+    v_topic = (torch.arange(VOCAB, device=dev) // slice_w).clamp(
+        max=n_topics - 1)
+    centers = rand(n_topics, D)
+    topical = {"embed": {**params["embed"], "w": 0.3 * (
+                   0.6 * centers[v_topic] + 0.8 * rand(VOCAB, D))},
+               "sim": {**params["sim"], "w": 0.2 * torch.eye(D, device=dev)
+                       + rand(M, D, D) * 0.05}}
+    topical = {**params, **topical}
+    cand = ints(n_topics, POOL)[:, None] * slice_w + ints(slice_w, POOL, W2)
+    q_mix = ints(n_topics, IVF_QUERIES, 2)[:, torch.arange(W1) % 2]
+    queries = q_mix * slice_w + ints(slice_w, IVF_QUERIES, W1)
+    return topical, cand, queries
+
+
+def ivf_phase(params, cfg, gen, dev, card: str) -> None:
+    """IVF over a topic-structured POOL of bf16 and of int8 (``topic_pool``):
+    build, probe-all against brute force, recall@10 and 1-query p50 at
+    nprobe 1 and 8, and the T=8 coarse shortlist; the path must launch
+    both kernels."""
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+    from mms_answer_selection_tpu_torch.serve import QueryEngine
+    from mms_answer_selection_tpu_torch.serve.ivf import ivf_recall
+
+    topical, cand, q = topic_pool(params, gen, dev)
+    engines = {pd: QueryEngine(topical, cfg, pool_dtype=pd, chunk_size=CHUNK,
+                               device=dev).build_index(cand)
+               for pd in ("bf16", "int8")}
+    for name in sk.LAUNCH_COUNTS:
+        sk.LAUNCH_COUNTS[name] = 0
+    results = {}
+    for pd, eng in engines.items():            # the IVF path, once
+        t0 = time.perf_counter()
+        ivf = eng.build_ivf(n_clusters=IVF_CLUSTERS, seed=SEED,
+                            coarse_tokens=IVF_TOKENS)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        results[pd] = (build_s, eng.query(q[:N_CHECK], k=K),
+                       eng.query_ivf(q[:N_CHECK], k=K, nprobe=IVF_CLUSTERS),
+                       ivf.query_coarse(q, k=K, shortlist=IVF_SHORTLIST))
+        torch.cuda.synchronize()
+    launches = dict(sk.LAUNCH_COUNTS)
+    log(f"launches on the IVF path: {launches}")
+    for name in ("maxsim_bf16", "maxsim_int8"):
+        if launches[name] < 1:
+            raise AssertionError(f"the IVF path never launched {name}")
+    for pd, (build_s, brute, probe_all, coarse) in results.items():
+        eng, ivf = engines[pd], engines[pd].ivf
+        if not same_topk(probe_all, brute):
+            raise AssertionError(f"IVF {pd}: probe-all differs from brute "
+                                 f"force")
+        if coarse[0].shape != (IVF_QUERIES, K) \
+                or not torch.isfinite(coarse[0]).all():
+            raise AssertionError(f"IVF {pd}: bad coarse result")
+        _, brute_idx = eng.query(q, k=K)
+        brute_ms = sync_ms(lambda: eng.query(q[:1], k=K), 20)
+        line = []
+        for nprobe in (1, 8):
+            rec = ivf_recall(eng, q, k=K, nprobe=nprobe, brute_idx=brute_idx)
+            ms = sync_ms(lambda: eng.query_ivf(q[:1], k=K, nprobe=nprobe), 20)
+            line.append(f"nprobe {nprobe}: recall@{K} {rec:.4f}, 1q p50 "
+                        f"{ms:.3f} ms")
+        rec = ivf_recall(eng, q, k=K, method="coarse",
+                         shortlist=IVF_SHORTLIST, brute_idx=brute_idx)
+        ms = sync_ms(lambda: ivf.query_coarse(q[:1], k=K,
+                                              shortlist=IVF_SHORTLIST), 20)
+        log(f"IVF {pd} at {eng.pool_size} (topic pool): {ivf.n_clusters} "
+            f"clusters, bucket {ivf.bucket}, spilled {ivf.spilled}, built in "
+            f"{build_s:.3f} s (T={IVF_TOKENS} mini pool included); probe-all "
+            f"= brute force on {N_CHECK} queries; brute force 1q p50 "
+            f"{brute_ms:.3f} ms; " + "; ".join(line) + f"; coarse T="
+            f"{IVF_TOKENS} S={IVF_SHORTLIST}: recall@{K} {rec:.4f}, 1q p50 "
+            f"{ms:.3f} ms (recall over {IVF_QUERIES} queries) [{card}]")
+
+
+def scale_phase(params, state, cfg, queries, gen, dev, card: str) -> None:
+    """Each dtype at BIG_POOL candidates scored in chunks of CHUNK: build
+    time, pool size, brute-force check, query p50 at 256 and 1 queries,
+    and the int4 rerank p50."""
+    from mms_answer_selection_tpu_torch.serve import QueryEngine
+
+    cand = torch.randint(0, VOCAB, (BIG_POOL, W2), generator=gen, device=dev)
+    q_rerank = queries[:N_RERANK]
+    for pd in ("int8", "int4", "bf16"):
+        t0 = time.perf_counter()
+        eng = QueryEngine(params, cfg, pool_dtype=pd, chunk_size=CHUNK,
+                          device=dev).build_index(cand)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        vals, idx = eng.query(queries[:N_CHECK], k=K)
+        check_topk(eng, queries[:N_CHECK], vals, idx, f"{pd} at {BIG_POOL}")
+        full = sync_ms(lambda: eng.query(queries, k=K), 3)
+        one = sync_ms(lambda: eng.query(queries[:1], k=K), 10)
+        rr = ""
+        if pd == "int4":
+            ms = sync_ms(lambda: eng.query_rerank(
+                state, q_rerank, k=K, shortlist=SHORTLIST), 5)
+            rr = f", query_rerank {N_RERANK}q S={SHORTLIST} p50 {ms:.3f} ms"
+        log(f"scale {pd} at {BIG_POOL} (chunks of {CHUNK}): built in "
+            f"{build_s:.3f} s, pool {gib(eng):.3f} GiB, top-{K} = brute force "
+            f"on {N_CHECK} queries; query {N_QUERIES}q p50 {full:.3f} ms "
+            f"({N_QUERIES * BIG_POOL / full * 1e3:.4g} pairs/s), query 1q p50 "
+            f"{one:.3f} ms{rr} [{card}]")
+        del eng
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -364,15 +613,19 @@ def main() -> int:
         q = normal(nq, W1, D, scale=0.3)
         cand = normal(c, W2, D, scale=0.3)
         if name == "maxsim_int8":
-            qw, qs = sk.project_queries_int8(q, w_rand)
-            pool, aux = sk.pack_candidate_pool_int8(cand)
-            return (qw, qs, pool, aux)
+            return (*sk.project_queries_int8(q, w_rand),
+                    *sk.pack_candidate_pool_int8(cand))
+        if name == "maxsim_int4":
+            return (*sk.project_queries_int4(q, w_rand),
+                    *sk.pack_candidate_pool_int4(cand))
         return (sk.project_queries(q, w_rand), sk.pack_candidate_pool(cand))
 
     scorers = {"maxsim_bf16": (sk.bilinear_maxsim_scores,
                                sk.bilinear_maxsim_scores_plain),
                "maxsim_int8": (sk.bilinear_maxsim_scores_int8,
-                               sk.bilinear_maxsim_scores_int8_plain)}
+                               sk.bilinear_maxsim_scores_int8_plain),
+               "maxsim_int4": (sk.bilinear_maxsim_scores_int4,
+                               sk.bilinear_maxsim_scores_int4_plain)}
     for name, (kernel, plain) in scorers.items():
         rtol = sk.KERNEL_VS_PLAIN_RTOL[name]
         for nq in KERNEL_NQ:
@@ -388,9 +641,19 @@ def main() -> int:
                 row_max = ref.abs().amax(dim=1, keepdim=True)
                 rel = float((err / row_max).max())
                 max_err[name] = max(max_err[name], float(err.max()))
+                same = ""
+                if name == "maxsim_int4":
+                    qw, qs, pool, aux = args
+                    as_int8 = sk.bilinear_maxsim_scores_int8(
+                        qw, qs, sk.unpack_int4(pool), aux)
+                    if not torch.equal(out, as_int8):
+                        raise AssertionError(
+                            "maxsim_int4 differs from maxsim_int8 on the "
+                            "unpacked codes")
+                    same = "; bit-identical to maxsim_int8 on the unpacked codes"
                 log(f"check {name} nq={nq} C={c}: max_abs_err "
                     f"{float(err.max()):.3e}, max_rel_err {rel:.3e} "
-                    f"(rtol {rtol:g} of the row's max |score|)")
+                    f"(rtol {rtol:g} of the row's max |score|){same}")
                 if rel > rtol:
                     raise AssertionError(f"{name} disagrees with its plain "
                                          f"version: {rel:.3e} > {rtol:g}")
@@ -412,14 +675,14 @@ def main() -> int:
     q_rerank = queries[:N_RERANK]
 
     engines, results = {}, {}
-    for pd in ("bf16", "int8"):
+    for pd in POOL_DTYPES:
         t0 = time.perf_counter()
-        engines[pd] = QueryEngine(params, cfg, pool_dtype=pd,
+        engines[pd] = QueryEngine(params, cfg, pool_dtype=pd, chunk_size=CHUNK,
                                   device=dev).build_index(cand_ids)
         torch.cuda.synchronize()
         log(f"engine {pd}: built {POOL} candidates in "
-            f"{time.perf_counter() - t0:.3f} s, pool "
-            f"{engines[pd].pool.numel() * engines[pd].pool.element_size() / 2**30:.3f} GiB")
+            f"{time.perf_counter() - t0:.3f} s, pool {gib(engines[pd]):.3f} "
+            f"GiB, scored in chunks of {CHUNK}")
 
     for name in sk.LAUNCH_COUNTS:
         sk.LAUNCH_COUNTS[name] = 0
@@ -444,25 +707,14 @@ def main() -> int:
         if rvals.shape != (N_RERANK, K) or not torch.isfinite(rvals).all() \
                 or rvals.min() < 0 or rvals.max() > 1:
             raise AssertionError(f"{pd}: bad rerank probabilities")
-        # brute force, plain version, on a few queries: the engine's top-k
-        # must be the true top-k up to the kernel tolerance
-        n_chk = 4
-        rtol = sk.KERNEL_VS_PLAIN_RTOL["maxsim_" + pd]
-        qt = eng.params["embed"]["w"][queries[:n_chk]] + eng.params["embed"]["b"]
-        if pd == "int8":
-            qw, qs = sk.project_queries_int8(qt, params["sim"]["w"])
-            full = sk.bilinear_maxsim_scores_int8_plain(qw, qs, eng.pool,
-                                                        eng.aux)
-        else:
-            full = sk.bilinear_maxsim_scores_plain(
-                sk.project_queries(qt, params["sim"]["w"]), eng.pool)
-        tol = rtol * full.abs().amax(dim=1, keepdim=True)
-        got = torch.gather(full, 1, idx[:n_chk])
-        if ((got - vals[:n_chk]).abs() > tol).any():
-            raise AssertionError(f"{pd}: engine scores differ from plain")
-        kth = full.topk(K, dim=1).values[:, -1:]
-        if (got < kth - tol).any():
-            raise AssertionError(f"{pd}: engine top-{K} is not the top-{K}")
+        check_topk(eng, queries[:N_CHECK], vals[:N_CHECK], idx[:N_CHECK], pd)
+        # chunked scoring gives the unchunked scores and order, bit for bit
+        eng.chunk_size = POOL
+        flat = eng.query(queries, k=K)
+        eng.chunk_size = CHUNK
+        if not (torch.equal(flat[0], vals) and torch.equal(flat[1], idx)):
+            raise AssertionError(f"{pd}: chunked top-{K} differs from "
+                                 f"unchunked")
         # the rerank returns members of the shortlist, scored by the model
         _, short = eng.query(q_rerank, k=SHORTLIST)
         if not (ridx[:, :, None] == short[:, None, :]).any(-1).all():
@@ -480,13 +732,24 @@ def main() -> int:
             raise AssertionError(f"{pd}: rerank probs differ from the same "
                                  f"pairs scored on the CPU by {rr_err:.3e}")
         log(f"engine {pd}: {N_QUERIES} queries k={K} and rerank {N_RERANK} "
-            f"x S={SHORTLIST} ok (rerank P vs CPU max abs diff {rr_err:.3e}, "
-            f"tol {PROB_ATOL:g}); top-1 score "
+            f"x S={SHORTLIST} ok (top-{K} = brute force on {N_CHECK} queries;"
+            f" chunked = unchunked; rerank P vs CPU max abs diff "
+            f"{rr_err:.3e}, tol {PROB_ATOL:g}); top-1 score "
             f"{float(vals[0, 0]):.4f}, top-1 rerank prob {float(rvals[0, 0]):.4f}")
-    b_idx, i_idx = results["bf16"][1], results["int8"][1]
-    agree = (i_idx[:, :, None] == b_idx[:, None, :]).any(-1).float().mean()
-    log(f"int8 vs bf16 top-{K} agreement over {N_QUERIES} queries: "
-        f"{float(agree):.4f}")
+    b_idx = results["bf16"][1]
+    for pd in ("int8", "int4"):
+        agree = (results[pd][1][:, :, None] == b_idx[:, None, :]).any(-1) \
+            .float().mean()
+        _, short = engines[pd].query(queries, k=SHORTLIST)
+        recall = (b_idx[:, :, None] == short[:, None, :]).any(-1).float() \
+            .mean()
+        log(f"{pd} vs bf16 over {N_QUERIES} queries at {POOL}: top-{K} "
+            f"agreement {float(agree):.4f}, bf16 top-{K} in {pd} top-"
+            f"{SHORTLIST} recall {float(recall):.4f}")
+
+    # ------------------------------------------- lifecycle, IVF, 1M pools
+    lifecycle_phase(params, state, cfg, cand_ids, queries, dev)
+    ivf_phase(params, cfg, gen, dev, card)
 
     # ------------------------------------------------------------- training
     train_launches = train_phase(dev, normal, card, max_err, timed)
@@ -506,19 +769,17 @@ def main() -> int:
         full = sync_ms(lambda: eng.query(queries, k=K), 5)
         rr = sync_ms(lambda: eng.query_rerank(state, q_rerank, k=K,
                                               shortlist=SHORTLIST), 10)
-        qt = eng.params["embed"]["w"][queries] + eng.params["embed"]["b"]
-        if pd == "int8":
-            ops = (*sk.project_queries_int8(qt, params["sim"]["w"]),
-                   eng.pool, eng.aux)
-            scan = event_ms(lambda: sk.bilinear_maxsim_scores_int8(*ops), 5)
-        else:
-            ops = (sk.project_queries(qt, params["sim"]["w"]), eng.pool)
-            scan = event_ms(lambda: sk.bilinear_maxsim_scores(*ops), 5)
+        ops = (*eng.project(eng.query_tokens(queries)), eng.pool) \
+            + (() if eng.aux is None else (eng.aux,))
+        scan = event_ms(lambda: scorers["maxsim_" + pd][0](*ops), 5)
         log(f"time engine {pd} at {POOL}: query 1q p50 {one:.3f} ms, "
             f"query {N_QUERIES}q p50 {full:.3f} ms "
-            f"({N_QUERIES * POOL / full * 1e3:.4g} pairs/s; kernel alone "
-            f"{scan:.3f} ms), query_rerank {N_RERANK}q S={SHORTLIST} p50 "
-            f"{rr:.3f} ms [{card}]")
+            f"({N_QUERIES * POOL / full * 1e3:.4g} pairs/s; kernel alone, "
+            f"unchunked, {scan:.3f} ms), query_rerank {N_RERANK}q "
+            f"S={SHORTLIST} p50 {rr:.3f} ms [{card}]")
+    del engines, results
+    torch.cuda.empty_cache()
+    scale_phase(params, state, cfg, queries, gen, dev, card)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     log(json.dumps({"kernels": [

@@ -1,9 +1,10 @@
-// int8 MaxSim scorer for the learned bilinear metric.
+// int8 and int4 MaxSim scorers for the learned bilinear metric.
 //
 // Replaces: mms_answer_selection_tpu/ops/sim_cross_pallas.py,
 // _maxsim_int8_tokmaj_kernel (the serving default, reached through
 // bilinear_maxsim_scores_int8(layout="tokmaj")), and by its scores
-// _maxsim_int8_kernel (layout="candmaj"), which computes the same numbers.
+// _maxsim_int8_kernel (layout="candmaj"), which computes the same numbers;
+// and bilinear_maxsim_scores_int4, which runs those bodies on +-7 codes.
 //
 // Computes out[q, c] = sum_r ((max_j dot32(qw[q, r], pool[c, j])) * sq[q, r])
 //                      * sc[c]  +  mask[c]
@@ -27,6 +28,16 @@
 // max folded on int32 in registers and across the quad, the two scales
 // applied once per (row, candidate) after the max, and the row sum reduced
 // across the warp in a fixed order.  No similarity value leaves registers.
+//
+// int4 (maxsim_int4): the pool holds two 4-bit two's-complement codes per
+// byte (lane 2i low nibble, lane 2i+1 high), so a candidate is Dp/2 bytes
+// per token, half of int8's bytes read.  The staging loop reads 16 packed
+// bytes at a time and sign-extends the 32 nibbles into the same padded int8
+// tile; from there the int8 path runs unchanged, so the scores equal the
+// int8 kernel's on the unpacked codes, bit for bit.  What bounds it is
+// still the tensor-core work: Hopper's wgmma has no 4-bit input and the
+// H100 data sheet gives no int4 tensor-core rate, so int4 buys capacity and
+// bytes read, not operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,6 +48,19 @@ namespace {
 
 __device__ __forceinline__ uint32_t ld_u32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 8 packed nibbles (lane k in bits 4k..4k+3) -> 8 sign-extended int8 lanes:
+// lanes 0-3 in lo, 4-7 in hi
+__device__ __forceinline__ void unpack8(uint32_t w, uint32_t& lo,
+                                        uint32_t& hi) {
+  const uint32_t even = w & 0x0F0F0F0Fu;         // lanes 0, 2, 4, 6
+  const uint32_t odd = (w >> 4) & 0x0F0F0F0Fu;   // lanes 1, 3, 5, 7
+  // per byte: (n ^ 8) - 8 sign-extends a 4-bit value
+  const uint32_t e = __vsub4(even ^ 0x08080808u, 0x08080808u);
+  const uint32_t o = __vsub4(odd ^ 0x08080808u, 0x08080808u);
+  lo = __byte_perm(e, o, 0x5140);  // e0 o0 e1 o1
+  hi = __byte_perm(e, o, 0x7362);  // e2 o2 e3 o3
 }
 
 // D += A (16x32, row-major) * B (32x8, column-major), s8 -> s32
@@ -52,11 +76,12 @@ __device__ __forceinline__ void mma_s8_16832(int (&d)[4],
 
 // KS: 32-lane k-steps along Dp (Dp = 32 * KS).  Same block shape as the
 // bf16 kernel: tc <= 32 candidates per tile, lane j owns candidate j.
-template <int KS>
+// PACKED4: the pool holds two int4 codes per byte (Dp/2 bytes per token).
+template <int KS, bool PACKED4>
 __global__ void __launch_bounds__(256)
 maxsim_int8_kernel(const int8_t* __restrict__ qw,
                    const float* __restrict__ qs,
-                   const int8_t* __restrict__ pool,
+                   const uint8_t* __restrict__ pool,
                    const __nv_bfloat16* __restrict__ aux,
                    float* __restrict__ out, int nq, int r, int c, int w2p,
                    int tc, int q_per_block) {
@@ -68,12 +93,32 @@ maxsim_int8_kernel(const int8_t* __restrict__ qw,
 
   const int c0 = blockIdx.x * tc;
   const int n_c = min(tc, c - c0);
-  const uint4* src =
-      reinterpret_cast<const uint4*>(pool + (size_t)c0 * w2p * DP);
-  for (int i = threadIdx.x; i < n_c * w2p * CH; i += blockDim.x) {
-    const int row = i / CH;
-    *reinterpret_cast<uint4*>(tile + row * SROW + (i - row * CH) * 16) =
-        src[i];
+  if constexpr (PACKED4) {
+    // 16 packed bytes -> 32 int8 lanes of the staged row
+    constexpr int PCH = DP / 32;  // 16-byte packed chunks per token row
+    const uint4* src =
+        reinterpret_cast<const uint4*>(pool + (size_t)c0 * w2p * (DP / 2));
+    for (int i = threadIdx.x; i < n_c * w2p * PCH; i += blockDim.x) {
+      const int row = i / PCH;
+      const uint4 v = src[i];
+      uint4 a, b;
+      unpack8(v.x, a.x, a.y);
+      unpack8(v.y, a.z, a.w);
+      unpack8(v.z, b.x, b.y);
+      unpack8(v.w, b.z, b.w);
+      uint4* dst =
+          reinterpret_cast<uint4*>(tile + row * SROW + (i - row * PCH) * 32);
+      dst[0] = a;
+      dst[1] = b;
+    }
+  } else {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(pool + (size_t)c0 * w2p * DP);
+    for (int i = threadIdx.x; i < n_c * w2p * CH; i += blockDim.x) {
+      const int row = i / CH;
+      *reinterpret_cast<uint4*>(tile + row * SROW + (i - row * CH) * 16) =
+          src[i];
+    }
   }
   __syncthreads();
 
@@ -151,42 +196,62 @@ maxsim_int8_kernel(const int8_t* __restrict__ qw,
   }
 }
 
-template <int KS>
+template <int KS, bool PACKED4>
 int launch(const void* qw, const void* qs, const void* pool, const void* aux,
            void* out, int nq, int r, int c, int w2p, int tc, int nwarps,
            int q_per_block, cudaStream_t stream) {
   const size_t smem = (size_t)tc * w2p * (KS * 32 + 16);
   cudaError_t err = cudaFuncSetAttribute(
-      maxsim_int8_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      maxsim_int8_kernel<KS, PACKED4>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((c + tc - 1) / tc, (nq + q_per_block - 1) / q_per_block);
-  maxsim_int8_kernel<KS><<<grid, 32 * nwarps, smem, stream>>>(
+  maxsim_int8_kernel<KS, PACKED4><<<grid, 32 * nwarps, smem, stream>>>(
       static_cast<const int8_t*>(qw), static_cast<const float*>(qs),
-      static_cast<const int8_t*>(pool),
+      static_cast<const uint8_t*>(pool),
       static_cast<const __nv_bfloat16*>(aux), static_cast<float*>(out), nq, r,
       c, w2p, tc, q_per_block);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int maxsim_int8(const void* qw, const void* qs, const void* pool,
-                           const void* aux, void* out, int nq, int r, int c,
-                           int w2p, int dp, int tc, int nwarps,
-                           int q_per_block, int device, void* stream) {
+template <bool PACKED4>
+int dispatch(const void* qw, const void* qs, const void* pool,
+             const void* aux, void* out, int nq, int r, int c, int w2p,
+             int dp, int tc, int nwarps, int q_per_block, int device,
+             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dp) {
-    case 32: return launch<1>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 64: return launch<2>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 96: return launch<3>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 128: return launch<4>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 160: return launch<5>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 192: return launch<6>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 224: return launch<7>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 256: return launch<8>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
+    case 32: return launch<1, PACKED4>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
+    case 64: return launch<2, PACKED4>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
+    case 96: return launch<3, PACKED4>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
+    case 128: return launch<4, PACKED4>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
+    case 160: return launch<5, PACKED4>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
+    case 192: return launch<6, PACKED4>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
+    case 224: return launch<7, PACKED4>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
+    case 256: return launch<8, PACKED4>(qw, qs, pool, aux, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// pool: (C, W2P, Dp) int8
+extern "C" int maxsim_int8(const void* qw, const void* qs, const void* pool,
+                           const void* aux, void* out, int nq, int r, int c,
+                           int w2p, int dp, int tc, int nwarps,
+                           int q_per_block, int device, void* stream) {
+  return dispatch<false>(qw, qs, pool, aux, out, nq, r, c, w2p, dp, tc,
+                         nwarps, q_per_block, device, stream);
+}
+
+// pool: (C, W2P, Dp/2) uint8, two int4 codes per byte; dp is the unpacked
+// lane count
+extern "C" int maxsim_int4(const void* qw, const void* qs, const void* pool,
+                           const void* aux, void* out, int nq, int r, int c,
+                           int w2p, int dp, int tc, int nwarps,
+                           int q_per_block, int device, void* stream) {
+  return dispatch<true>(qw, qs, pool, aux, out, nq, r, c, w2p, dp, tc,
+                        nwarps, q_per_block, device, stream);
 }

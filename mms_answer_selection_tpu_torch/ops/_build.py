@@ -37,6 +37,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "maxsim_bf16": [_P, _P, _P] + [_I] * 9 + [_P],
     "maxsim_int8": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    "maxsim_int4": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "pair_maps_fwd": [_P] * 4 + [_I] * 6 + [_P],
     "pair_maps_bwd_qa": [_P] * 6 + [_I] * 6 + [_P],
     "pair_maps_bwd_w": [_P] * 5 + [_I] * 7 + [_P],

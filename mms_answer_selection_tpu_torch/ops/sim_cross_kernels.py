@@ -23,8 +23,13 @@ Packed formats (this port's own; the reference padded D to 128 lanes):
   scale per candidate, padded token rows duplicating token 0; aux (C, 2)
   bf16 holds the candidate scale (lane 0) and an additive mask (lane 1).
   Queries carry one f32 scale per projected row.
+* int4: the int8 layout on the +-7 grid, stored two codes per byte: pool
+  (C, W2P, Dp/2) uint8, lane 2i in the low nibble and lane 2i+1 in the
+  high one, each 4-bit two's complement.  The candidate scale comes from
+  the 99.5th percentile of |value|, not the max.  Queries stay +-7 codes
+  in int8 (they are small), with one f32 scale per row.
 
-W2P = round_up(W2, 8) in both.  Scorers take any Dp, so the reference
+W2P = round_up(W2, 8) in all three.  Scorers take any Dp, so the reference
 packers' 128-lane outputs score here too.
 
 Each entry point is a wrapper over a hand-written CUDA kernel (``csrc/``).
@@ -42,20 +47,24 @@ from . import _build
 NEG_INF = -1e30
 
 # kernel name -> launches since the counter was last reset
-LAUNCH_COUNTS = {"maxsim_bf16": 0, "maxsim_int8": 0, "pair_maps_fwd": 0,
-                 "pair_maps_bwd_qa": 0, "pair_maps_bwd_w": 0}
+LAUNCH_COUNTS = {"maxsim_bf16": 0, "maxsim_int8": 0, "maxsim_int4": 0,
+                 "pair_maps_fwd": 0, "pair_maps_bwd_qa": 0,
+                 "pair_maps_bwd_w": 0}
 
 # How far a kernel may stray from its plain version on the same operands.
-# MaxSim, as a fraction of the row's largest |score|: int8, each row's term
-# is the same three IEEE float32 products in both, only the order of the
-# sum over rows differs; bf16, the tensor cores also accumulate each
-# 16-term dot product in their own order and rounding.  Pair maps, as a
-# fraction of the output's (out, dQ, dA or dW) largest |value|: float32
-# FMAs in both, only the order of the sums over D, W1, W2, M and the batch
-# differs (no TF32, no reduced precision).
+# MaxSim, as a fraction of the row's largest |score|: int8 and int4, each
+# row's term is the same three IEEE float32 products in both, only the
+# order of the sum over rows differs; bf16, the tensor cores also
+# accumulate each 16-term dot product in their own order and rounding.
+# Pair maps, as a fraction of the output's (out, dQ, dA or dW) largest
+# |value|: float32 FMAs in both, only the order of the sums over D, W1, W2,
+# M and the batch differs (no TF32, no reduced precision).
 KERNEL_VS_PLAIN_RTOL = {"maxsim_bf16": 1e-4, "maxsim_int8": 1e-5,
-                        "pair_maps_fwd": 1e-5, "pair_maps_bwd_qa": 1e-5,
-                        "pair_maps_bwd_w": 1e-5}
+                        "maxsim_int4": 1e-5, "pair_maps_fwd": 1e-5,
+                        "pair_maps_bwd_qa": 1e-5, "pair_maps_bwd_w": 1e-5}
+
+INT4_BOUND = 7.0
+INT4_CLIP_QUANTILE = 0.995  # the reference's candidate-scale percentile
 
 _SMEM_BYTES = 232448   # dynamic shared memory one sm_90 block may use
 _PLAIN_CHUNK_BYTES = 1 << 30  # similarity slab the plain versions hold
@@ -225,6 +234,13 @@ def mask_out_candidates(pool, start: int):
     return pool
 
 
+def mask_candidate_rows(pool, rows):
+    """Mark the given candidate rows as padding (tombstones), in place;
+    returns ``pool``."""
+    pool[rows, :, -1] = NEG_INF
+    return pool
+
+
 def project_queries(q_tokens, w):
     """(Nq, W1, D) x (M, D, D) -> (Nq, M*W1, Dp) bf16: projected in
     float32, then cast; the last lane is 1.0 to activate the pool's mask
@@ -283,12 +299,13 @@ def bilinear_maxsim_scores_reference(q_tokens, cand_tokens, w):
 
 
 # ---------------------------------------------------------------- int8 path
-def _quantize(x, absmax):
-    """Symmetric int8 codes: scale = max(absmax, 1e-12) / 127, codes =
-    clip(round_half_even(x / scale), -127, 127).  Divides by the scale, as
-    the reference does, so the codes come out the same."""
-    scale = torch.clamp(absmax, min=1e-12) / 127.0
-    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
+def _quantize(x, absmax, bound: float = 127.0):
+    """Symmetric int8 codes: scale = max(absmax, 1e-12) / bound, codes =
+    clip(round_half_even(x / scale), -bound, bound).  Divides by the scale,
+    as the reference does, so the codes come out the same."""
+    scale = torch.clamp(absmax, min=1e-12) / bound
+    codes = torch.clamp(torch.round(x / scale), -bound, bound)
+    return codes.to(torch.int8), scale
 
 
 def pack_candidate_pool_int8(tokens):
@@ -314,12 +331,24 @@ def mask_out_candidates_int8(aux, start: int):
     return aux
 
 
+def mask_candidate_rows_int8(aux, rows):
+    """Mark the given candidate rows as padding (tombstones: scale 0,
+    additive -1e30), in place; returns ``aux``."""
+    aux[rows, 0] = 0.0
+    aux[rows, 1] = NEG_INF
+    return aux
+
+
 def project_queries_int8(q_tokens, w):
     """(Nq, W1, D) x (M, D, D) -> (qw_i8 (Nq, R, Dp) int8, q_scales (Nq, R)
     float32), one symmetric scale per projected row."""
+    return _project_quantized(q_tokens, w, 127.0)
+
+
+def _project_quantized(q_tokens, w, bound: float):
     qw = _project(q_tokens, w)
     nq, r, d = qw.shape
-    q, scale = _quantize(qw, qw.abs().amax(dim=-1, keepdim=True))
+    q, scale = _quantize(qw, qw.abs().amax(dim=-1, keepdim=True), bound)
     out = torch.zeros((nq, r, _round_up(d, 32)), dtype=torch.int8,
                       device=qw.device)
     out[:, :, :d] = q
@@ -356,35 +385,152 @@ def bilinear_maxsim_scores_int8(qw_i8, q_scales, pool_i8, aux):
     The query-row scales are rounded to bf16 here, as the reference does.
     CPU tensors: the plain version.  CUDA tensors: the ``maxsim_int8``
     kernel (Dp a multiple of 32 up to 256)."""
-    nq, r, dp = _check_shapes(qw_i8, pool_i8)
-    c, w2p = pool_i8.shape[0], pool_i8.shape[1]
+    return _maxsim_quantized("maxsim_int8", bilinear_maxsim_scores_int8_plain,
+                             torch.int8, 1, qw_i8, q_scales, pool_i8, aux)
+
+
+def _maxsim_quantized(name, plain, pool_dtype, lanes_per_byte, qw,
+                      q_scales, pool, aux):
+    """The int8 and int4 wrappers: checks, then the plain version on CPU
+    tensors or kernel ``name`` on CUDA ones (the staged tile is int8 in
+    both, so they share a launch shape)."""
+    nq, r, dp = _check_shapes(qw, pool, lanes_per_byte)
+    c, w2p = pool.shape[0], pool.shape[1]
     if tuple(q_scales.shape) != (nq, r) or tuple(aux.shape) != (c, 2):
         raise ValueError(f"q_scales {tuple(q_scales.shape)} / aux "
-                         f"{tuple(aux.shape)} do not fit qw {tuple(qw_i8.shape)}"
-                         f" and pool {tuple(pool_i8.shape)}")
-    if _on_cpu(qw_i8, q_scales, pool_i8, aux):
-        return bilinear_maxsim_scores_int8_plain(qw_i8, q_scales, pool_i8,
-                                                 aux)
-    _check_cuda_operands(qw_i8=(qw_i8, torch.int8),
+                         f"{tuple(aux.shape)} do not fit qw {tuple(qw.shape)}"
+                         f" and pool {tuple(pool.shape)}")
+    if _on_cpu(qw, q_scales, pool, aux):
+        return plain(qw, q_scales, pool, aux)
+    _check_cuda_operands(qw=(qw, torch.int8),
                          q_scales=(q_scales, torch.float32),
-                         pool_i8=(pool_i8, torch.int8),
+                         pool=(pool, pool_dtype),
                          aux=(aux, torch.bfloat16))
     if dp % 32 or dp > 256:
-        raise ValueError(f"maxsim_int8 takes Dp in 32..256 step 32, got {dp}")
+        raise ValueError(f"{name} takes Dp in 32..256 step 32, got {dp}")
     sq = q_scales.to(torch.bfloat16).to(torch.float32)
-    out = torch.empty((nq, c), dtype=torch.float32, device=qw_i8.device)
+    out = torch.empty((nq, c), dtype=torch.float32, device=qw.device)
     tc, nwarps, qpb = _launch_shape(nq, w2p * (dp + 16))
-    _launch("maxsim_int8", qw_i8, qw_i8.data_ptr(), sq.data_ptr(),
-            pool_i8.data_ptr(), aux.data_ptr(), out.data_ptr(), nq, r, c,
-            w2p, dp, tc, nwarps, qpb)
+    _launch(name, qw, qw.data_ptr(), sq.data_ptr(), pool.data_ptr(),
+            aux.data_ptr(), out.data_ptr(), nq, r, c, w2p, dp, tc, nwarps,
+            qpb)
     return out
 
 
+# ---------------------------------------------------------------- int4 path
+def _fma_f32(a, b, c):
+    """round_f32(a * b + c) with one rounding, for float32 tensors: the
+    product is exact in float64, the sum is rounded to odd there (TwoSum
+    gives its error), and the float64 -> float32 cast then rounds as a
+    fused multiply-add would."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    away = torch.where(err > 0, torch.inf, -torch.inf).to(s)
+    return torch.where(inexact_even, torch.nextafter(s, away), s).float()
+
+
+def _quantile_rows(x, q: float):
+    """Per-row quantile of (C, n) float32 values, as ``jnp.quantile``'s
+    linear method computes it on XLA's CPU backend: position q * (n - 1)
+    in float32, w = position - floor(position), then low * (1 - w) fused
+    into the add of high * w (rounded on its own).  The two order
+    statistics come from a top-k of the row's largest values (a partial
+    sort), which takes any number of elements."""
+    n = x.shape[1]
+    pos = torch.tensor(q, dtype=torch.float32) * torch.tensor(
+        n - 1, dtype=torch.float32)
+    lo = min(max(int(torch.floor(pos)), 0), n - 1)
+    hi = min(max(int(torch.ceil(pos)), 0), n - 1)
+    w_hi = pos - torch.floor(pos)
+    w_lo = torch.tensor(1.0, dtype=torch.float32) - w_hi
+    # the (n - lo) largest values, descending: the last one is order
+    # statistic lo, the one before it order statistic hi
+    top = torch.topk(x, n - lo, dim=1, sorted=True).values
+    low_v, high_v = top[:, n - lo - 1], top[:, n - hi - 1]
+    return _fma_f32(low_v, w_lo.to(x.device), high_v * w_hi.to(x.device))
+
+
+def pack_int4(codes):
+    """(..., Dp) int8 codes in [-8, 7], Dp even -> (..., Dp/2) uint8: lane
+    2i in the low nibble, lane 2i+1 in the high nibble."""
+    u = codes.to(torch.uint8) & 0x0F
+    return u[..., 0::2] | (u[..., 1::2] << 4)
+
+
+def unpack_int4(packed):
+    """Inverse of ``pack_int4``: (..., Dp/2) uint8 -> (..., Dp) int8, each
+    nibble sign-extended ((n ^ 8) - 8)."""
+    lo = ((packed & 0x0F).to(torch.int8) ^ 8) - 8
+    hi = ((packed >> 4).to(torch.int8) ^ 8) - 8
+    return torch.stack([lo, hi], dim=-1).flatten(-2)
+
+
+def pack_candidate_pool_int4(tokens, clip_quantile: float | None
+                             = INT4_CLIP_QUANTILE):
+    """(C, W2, D) -> (pool_i4 (C, W2P, Dp/2) uint8, aux (C, 2) bf16 with
+    lane 0 = per-candidate scale, lane 1 = additive mask).
+
+    scale = max(quantile(|tokens of c|, clip_quantile), 1e-12) / 7 (the
+    max when ``clip_quantile`` is None), codes clip(round(x / scale), -7,
+    7), padded token rows duplicating token 0, as the reference packs them.
+    Capacity-only, as in the reference: about 0.6 top-10 agreement with
+    bf16, so serve it behind ``query_rerank``."""
+    c, w2, d = tokens.shape
+    tokens = tokens.to(torch.float32)
+    mags = tokens.abs().reshape(c, w2 * d)
+    absmax = (mags.amax(dim=1) if clip_quantile is None
+              else _quantile_rows(mags, clip_quantile))
+    q, scale = _quantize(tokens, absmax[:, None, None], INT4_BOUND)
+    codes = torch.zeros((c, _round_up(w2, 8), _round_up(d, 32)),
+                        dtype=torch.int8, device=tokens.device)
+    codes[:, :w2, :d] = q
+    codes[:, w2:, :d] = q[:, :1, :]
+    aux = torch.zeros((c, 2), dtype=torch.bfloat16, device=tokens.device)
+    aux[:, 0] = scale[:, 0, 0].to(torch.bfloat16)
+    return pack_int4(codes), aux
+
+
+def project_queries_int4(q_tokens, w):
+    """(Nq, W1, D) x (M, D, D) -> (qw (Nq, R, Dp) int8 codes in [-7, 7],
+    q_scales (Nq, R) float32), one symmetric scale per projected row."""
+    return _project_quantized(q_tokens, w, INT4_BOUND)
+
+
+# the aux layout is int8's, so masking is too
+mask_out_candidates_int4 = mask_out_candidates_int8
+mask_candidate_rows_int4 = mask_candidate_rows_int8
+
+
+def bilinear_maxsim_scores_int4_plain(qw_i4, q_scales, pool_i4, aux):
+    """Plain PyTorch version of the int4 kernel: the nibbles unpacked, then
+    the int8 plain version, which is exact on +-7 codes."""
+    return bilinear_maxsim_scores_int8_plain(qw_i4, q_scales,
+                                             unpack_int4(pool_i4), aux)
+
+
+def bilinear_maxsim_scores_int4(qw_i4, q_scales, pool_i4, aux):
+    """int4 MaxSim: operands from ``project_queries_int4`` and
+    ``pack_candidate_pool_int4`` -> (Nq, C) float32 approximate scores.
+
+    CPU tensors: the plain version.  CUDA tensors: the ``maxsim_int4``
+    kernel (Dp a multiple of 32 up to 256, so Dp/2 packed bytes per
+    token); its scores equal the ``maxsim_int8`` kernel's on the unpacked
+    codes, bit for bit."""
+    return _maxsim_quantized("maxsim_int4", bilinear_maxsim_scores_int4_plain,
+                             torch.uint8, 2, qw_i4, q_scales, pool_i4, aux)
+
+
 # ------------------------------------------------------------- launch glue
-def _check_shapes(qw, pool):
-    if qw.ndim != 3 or pool.ndim != 3 or qw.shape[2] != pool.shape[2]:
-        raise ValueError(f"expected qw (Nq, R, Dp) and pool (C, W2P, Dp), "
-                         f"got {tuple(qw.shape)} and {tuple(pool.shape)}")
+def _check_shapes(qw, pool, lanes_per_byte: int = 1):
+    """(Nq, R, Dp) of qw against a pool (C, W2P, Dp / lanes_per_byte)."""
+    if qw.ndim != 3 or pool.ndim != 3 \
+            or qw.shape[2] != pool.shape[2] * lanes_per_byte:
+        raise ValueError(f"expected qw (Nq, R, Dp) and pool (C, W2P, "
+                         f"Dp/{lanes_per_byte}), got {tuple(qw.shape)} and "
+                         f"{tuple(pool.shape)}")
     if 0 in qw.shape or 0 in pool.shape:
         raise ValueError(f"empty operand: qw {tuple(qw.shape)}, pool "
                          f"{tuple(pool.shape)}")

@@ -7,8 +7,11 @@ machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: ``KERNEL_VS_PLAIN_RTOL`` of the row's max |score| (reasons
-beside its definition in ``ops/sim_cross_kernels.py``); masked int8
-candidates must score the mask exactly.
+beside its definition in ``ops/sim_cross_kernels.py``); masked int8 and
+int4 candidates must score the mask exactly; the int4 kernel must give the
+int8 kernel's bits on the unpacked codes, and chunked scoring, IVF
+probe-all and a reloaded index the unchunked engine's bits (each pair's
+score is computed alone, whatever the launch shape).
 """
 
 import dataclasses
@@ -81,6 +84,27 @@ def test_int8_kernel_matches_plain(shape):
     assert torch.equal(got[:, c - 2:], want[:, c - 2:])
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_int4_kernel_matches_plain_and_int8_kernel(shape):
+    dev = _cuda()
+    q, cand, w = _operands(dev, *shape)
+    qi, qs = T.project_queries_int4(q, w)
+    pool, aux = T.pack_candidate_pool_int4(cand)
+    c = shape[1]
+    aux = T.mask_candidate_rows_int4(aux, torch.tensor([0, c - 1],
+                                                       device=dev))
+    n0 = dict(T.LAUNCH_COUNTS)
+    got = T.bilinear_maxsim_scores_int4(qi, qs, pool, aux)
+    torch.cuda.synchronize()
+    assert T.LAUNCH_COUNTS["maxsim_int4"] == n0["maxsim_int4"] + 1
+    want = T.bilinear_maxsim_scores_int4_plain(qi, qs, pool, aux)
+    _assert_close(got[:, 1:c - 1], want[:, 1:c - 1],
+                  T.KERNEL_VS_PLAIN_RTOL["maxsim_int4"])
+    assert torch.equal(got[:, [0, c - 1]], want[:, [0, c - 1]])
+    as_int8 = T.bilinear_maxsim_scores_int8(qi, qs, T.unpack_int4(pool), aux)
+    assert torch.equal(got, as_int8)
+
+
 def test_masked_bf16_candidates_never_win():
     dev = _cuda()
     q, cand, w = _operands(dev, 4, 100, 40, 5, 4, 50)
@@ -105,6 +129,23 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     p8, aux = T.pack_candidate_pool_int8(cand)
     with pytest.raises(TypeError):
         T.bilinear_maxsim_scores_int8(qi, qs.double(), p8, aux)
+    q4, qs4 = T.project_queries_int4(q, w)
+    p4, aux4 = T.pack_candidate_pool_int4(cand)
+    with pytest.raises(TypeError):           # packed bytes must be uint8
+        T.bilinear_maxsim_scores_int4(q4, qs4, p4.view(torch.int8), aux4)
+    with pytest.raises(ValueError):          # the unpacked pool's width
+        T.bilinear_maxsim_scores_int4(q4, qs4, T.unpack_int4(p4), aux4)
+    with pytest.raises(ValueError):          # not contiguous
+        T.bilinear_maxsim_scores_int4(q4, qs4, p4.transpose(0, 1)
+                                      .contiguous().transpose(0, 1), aux4)
+    with pytest.raises(ValueError):          # operands on two devices
+        T.bilinear_maxsim_scores_int4(q4, qs4, p4.cpu(), aux4)
+    with pytest.raises(ValueError):          # Dp the kernel has no path for
+        T.bilinear_maxsim_scores_int4(
+            torch.zeros((2, 3, 288), dtype=torch.int8, device=dev),
+            qs4[:, :3].contiguous(),
+            torch.zeros((5, 8, 144), dtype=torch.uint8, device=dev),
+            aux4[:5])
     assert T.LAUNCH_COUNTS == n0
 
 
@@ -117,9 +158,7 @@ def test_topk_tie_rule_on_cuda():
     assert idx[:, 1:].tolist() == [[0, 1, 2, 3, 4, 5]] * 3
 
 
-@pytest.mark.parametrize("pool_dtype", ["bf16", "int8"])
-def test_engine_on_cuda_matches_engine_on_cpu(pool_dtype):
-    dev = _cuda()
+def _v4_engine_inputs():
     cfg = dataclasses.replace(TM.MMSQAConfig(), vocab_size=500,
                               sim_weight_init="xavier")
     params, state = TM.mms_qa_init(cfg, generator=torch.Generator()
@@ -129,6 +168,13 @@ def test_engine_on_cuda_matches_engine_on_cpu(pool_dtype):
     state = {k: {"mean": v["mean"], "var": v["var"] + 1.0}
              for k, v in state.items()}
     cand = torch.randint(0, 500, (3000, 40), generator=g)
+    return cfg, params, state, cand, g
+
+
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8", "int4"])
+def test_engine_on_cuda_matches_engine_on_cpu(pool_dtype):
+    dev = _cuda()
+    cfg, params, state, cand, g = _v4_engine_inputs()
     queries = torch.randint(0, 500, (6, 40), generator=g)
     # copy query 0's best candidate to another row: the two tie for first
     # place, and the lower index must come first on the card too
@@ -152,6 +198,62 @@ def test_engine_on_cuda_matches_engine_on_cpu(pool_dtype):
     pinned = torch.cat([sep[:, :1], sep[:, 1:] & sep[:, :-1], sep[:, -1:]], 1)
     assert torch.equal(gi[pinned], ci[pinned])
     assert torch.allclose(grv, crv, atol=1e-5)
+
+
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8", "int4"])
+def test_chunked_tombstones_and_reload_on_cuda(pool_dtype, tmp_path):
+    dev = _cuda()
+    cfg, params, state, cand, g = _v4_engine_inputs()
+    queries = torch.randint(0, 500, (6, 40), generator=g)
+    eng = QueryEngine(params, cfg, pool_dtype=pool_dtype, device=dev)
+    eng.build_index(cand[:2500], reserve=100)
+    flat = eng.query(queries, k=50)
+    eng.chunk_size = 700                    # 4 chunks, the last ragged
+    chunked = eng.query(queries, k=50)
+    assert all(torch.equal(a, b) for a, b in zip(flat, chunked))
+    # tombstones: every query's top 3 and a few more never come back
+    dead = set(flat[1][:, :3].flatten().tolist()) | {0, 2499}
+    eng.remove_candidates(sorted(dead))
+    vals, idx = eng.query(queries, k=50)
+    assert not set(idx.flatten().tolist()) & dead
+    _, ridx = eng.query_rerank(state, queries, k=5, shortlist=30)
+    assert not set(ridx.flatten().tolist()) & dead
+    # added rows are found: a copy of query 0's best live hit
+    best = int(idx[0, 0])
+    new = eng.add_candidates(cand[best:best + 1].to(dev))
+    assert int(new[0]) == 2500
+    top2 = eng.query(queries[:1], k=2)[1][0].tolist()
+    assert top2 == [best, 2500]
+    eng.save_index(str(tmp_path / "index.npz"))
+    other = QueryEngine(params, cfg, pool_dtype=pool_dtype, device=dev)
+    other.load_index(str(tmp_path / "index.npz"))
+    assert all(torch.equal(a, b) for a, b in
+               zip(other.query(queries, k=50), eng.query(queries, k=50)))
+    mapping = eng.compact()
+    assert int(mapping[best]) >= 0 and all(int(mapping[d]) == -1
+                                           for d in dead)
+    after = eng.query(queries, k=10)[1].cpu()
+    before = other.query(queries, k=10)[1].cpu()
+    assert torch.equal(mapping[before], after)
+
+
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8"])
+def test_ivf_probe_all_equals_brute_force_on_cuda(pool_dtype):
+    dev = _cuda()
+    cfg, params, _, cand, g = _v4_engine_inputs()
+    queries = torch.randint(0, 500, (3, 40), generator=g)
+    eng = QueryEngine(params, cfg, pool_dtype=pool_dtype, device=dev)
+    eng.build_index(cand)
+    eng.remove_candidates([5, 6])
+    n0 = dict(T.LAUNCH_COUNTS)
+    ivf = eng.build_ivf(n_clusters=16, coarse_tokens=4)
+    bv, bi = eng.query(queries, k=10)
+    pv, pi = eng.query_ivf(queries, k=10, nprobe=16)
+    assert torch.equal(pv, bv) and torch.equal(pi, bi)
+    cv, ci = ivf.query_coarse(queries, k=10, shortlist=len(cand))
+    assert torch.equal(cv, bv) and torch.equal(ci, bi)
+    assert T.LAUNCH_COUNTS["maxsim_" + pool_dtype] > n0["maxsim_" + pool_dtype]
+    assert T.LAUNCH_COUNTS["maxsim_bf16"] > n0["maxsim_bf16"]  # mini pool
 
 
 # ------------------------------------------------------------ pair maps

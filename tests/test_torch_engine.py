@@ -169,7 +169,7 @@ def test_engine_guards():
     with pytest.raises(RuntimeError):
         eng.query(torch.zeros((1, 6), dtype=torch.int64))
     with pytest.raises(ValueError):
-        QueryEngine(params, TCFG, pool_dtype="int4", device="cpu")
+        QueryEngine(params, TCFG, pool_dtype="fp8", device="cpu")
     with pytest.raises(ValueError):
         QueryEngine(params, dataclasses.replace(TCFG, sim_mode=0),
                     device="cpu")
