@@ -26,13 +26,21 @@ at the V4 recipe's widths, after building the hand-written kernels from
   against the CPU's and scoring them through ``trec_eval`` against the
   in-process MAP/MRR;
 
-and times the kernels, the engine and the train step.
+and times the kernels, the engine and the train step.  The pair-map
+kernels are timed at batch 50 and 1024 (D = 50) and at V4_WIDE's D = 300
+(the forward also at the rerank's pairs), in turns with their einsums,
+each as a burst of launches between two CUDA events with the host's
+enqueue kept off the clock; every kernel's time is printed beside its
+bound (bytes over the HBM rate or operations over the peak, whichever is
+larger).
 
 Exits non-zero, before printing any result, when no CUDA device is present
 or any phase fails.  The last line of stdout is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists every kernel with its launches on the main path,
-its error against the plain version and both times.
+its error against the plain version, its time, the plain version's, the
+bound and what sets it, and the one-call library time (null where no
+single PyTorch call computes the function).
 """
 
 from __future__ import annotations
@@ -60,18 +68,36 @@ KERNEL_POOLS = (8192, 8192 + 37)  # one ragged: the last tile is partial
 KERNEL_NQ = (1, 16, N_RERANK, N_QUERIES)  # latency, a batch, the main path
 TIMED_NQ, TIMED_POOL = 16, 8192
 FIT_STEPS, TEST_INTERVAL, BATCH = 301, 100, 50
-# training: (N, D) pair-map checks at W1 = W2 = 40, M = 4: V4 at batch 50,
-# ragged batches, the rerank's Nq x S pairs, V4_WIDE's D = 300 (the dev
-# and test split sizes, which the evals give the kernel, join them once
-# the corpus is made); the recipe-sized synthetic corpus
-PAIR_CHECKS = ((BATCH, D), (7, D), (1, D), (N_RERANK * SHORTLIST, D),
-               (BATCH, 300))
+# training: (N, D) pair-map checks at W1 = W2 = 40, M = 4: V4 at batch 50
+# and 1024, ragged batches, the rerank's Nq x S pairs, V4_WIDE's D = 300,
+# and D not a multiple of 4 on either side of a 32 boundary (the dev and
+# test split sizes, which the evals give the kernel, join them once the
+# corpus is made); the recipe-sized synthetic corpus
+PAIR_CHECKS = ((BATCH, D), (7, D), (1, D), (1024, D),
+               (N_RERANK * SHORTLIST, D), (BATCH, 300), (BATCH, 33),
+               (BATCH, 301))
+# pair-map times: the recipe's batch, batch 1024, V4_WIDE; the forward also
+# at the rerank's Nq x S pairs.  The kernels line reports the first.
+PAIR_TIMED = ((BATCH, D), (1024, D), (BATCH, 300))
+FWD_TIMED = ((N_RERANK * SHORTLIST, D),)
 TRAIN_Q, DEV_Q, TEST_Q = 1250, 65, 68
 # |P(correct)| card vs CPU on the same weights and pairs: float32 on both,
 # only the summation order of the pair maps, convs and MLP differs
 PROB_ATOL = 1e-4
 STEP_BATCHES = (50, 256, 1024)
 ADADELTA_STEP = (5e-7 / 0.05) ** 0.5   # lr * sqrt(delta / (1 - momentum))
+
+# the H100 SXM's published peaks (NVIDIA data sheet, dense): bytes/s of
+# HBM3, and operations/s by operand type.  The pair maps' products must be
+# float32-accurate; the card's fastest way to that is 3xTF32 on the tensor
+# cores (three TF32 products per float32 one, the forward's design), 495 /
+# 3 = 165 TFLOP/s, above the 67 TFLOP/s of float32 FMAs, so their bound
+# counts every product at that rate.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"3xtf32": 495e12 / 3, "bf16": 989e12, "int8": 1979e12}
+BOUND_TYPE = {"maxsim_bf16": "bf16", "maxsim_int8": "int8",
+              "maxsim_int4": "int8", "pair_maps_fwd": "3xtf32",
+              "pair_maps_bwd_qa": "3xtf32", "pair_maps_bwd_w": "3xtf32"}
 
 ROOT = Path(__file__).resolve().parent
 CSRC = "mms_answer_selection_tpu_torch/csrc/"
@@ -106,20 +132,55 @@ def sync_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def event_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` in ms from CUDA events (warm)."""
+def burst_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn`` in ms: ``reps`` calls enqueued
+    back to back behind a sleeping kernel, so the host's enqueue stays off
+    the clock, between two CUDA events, divided by ``reps`` (warm)."""
     for _ in range(3):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)   # ~25 ms, longer than the enqueue
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(name: str, ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the peak for the kernel's operand
+    type; and which of the two it is."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[BOUND_TYPE[name]] * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                              "bytes")
+
+
+def pair_bound(name: str, n: int, d: int) -> tuple[float, str]:
+    """``bound_ms`` of a pair-map kernel at W1 = W2 = 40, M = 4: 2 N M W1
+    D (D + W2) operations (twice that for dQ and dA together), each input
+    read and each output written once."""
+    ops = 2 * n * M * W1 * d * (d + W2) * (2 if name == "pair_maps_bwd_qa"
+                                            else 1)
+    q, a, w, g = n * W1 * d, n * W2 * d, M * d * d, n * W1 * W2 * M
+    floats = {"pair_maps_fwd": q + a + w + g,
+              "pair_maps_bwd_w": q + a + g + w,
+              "pair_maps_bwd_qa": q + a + w + g + q + a}[name]
+    return bound_ms(name, ops, 4 * floats)
+
+
+def maxsim_bound(name: str, args, out_bytes: int) -> tuple[float, str]:
+    """``bound_ms`` of a MaxSim kernel: 2 x (Nq M W1) x C x W2 x D
+    operations (the unpadded widths), the operands as given read once and
+    the scores written once."""
+    nq, c = args[0].shape[0], args[2 if len(args) > 2 else 1].shape[0]
+    ops = 2 * nq * M * W1 * c * W2 * D
+    nbytes = sum(t.numel() * t.element_size() for t in args) + out_bytes
+    return bound_ms(name, ops, nbytes)
 
 
 def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
@@ -303,12 +364,29 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
         raise AssertionError("trec_eval disagrees with the in-process metrics")
 
     # ---------------------------------------------------------------- times
-    ops = pair_operands(BATCH, D)
-    for name, (kernel, plain) in pairs.items():
-        timed[name] = (event_ms(lambda: kernel(*ops), 50),
-                       event_ms(lambda: plain(*ops), 20))
-        log(f"time {name} at N={BATCH}, W1=W2={W1}, D={D}, M={M}: kernel "
-            f"{timed[name][0]:.4f} ms, plain {timed[name][1]:.4f} ms [{card}]")
+    # In turns: plain, kernel, kernel, plain.  The plain versions of the
+    # forward and dW are single torch.einsum calls (cuBLAS float32), so
+    # they are also the library time; dQ and dA take two einsums, and no
+    # single call computes both.
+    for n, d in PAIR_TIMED + FWD_TIMED:
+        ops = pair_operands(n, d)
+        names = pairs if (n, d) in PAIR_TIMED else ("pair_maps_fwd",)
+        for name in names:
+            kernel, plain = pairs[name]
+            t = [burst_ms(lambda: plain(*ops), 30),
+                 burst_ms(lambda: kernel(*ops), 100),
+                 burst_ms(lambda: kernel(*ops), 100),
+                 burst_ms(lambda: plain(*ops), 30)]
+            k_ms, p_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            lib_ms = None if name == "pair_maps_bwd_qa" else p_ms
+            b_ms, b_by = pair_bound(name, n, d)
+            if (n, d) == (BATCH, D):
+                timed[name] = (k_ms, p_ms, lib_ms, b_ms, b_by)
+            log(f"time {name} at N={n}, W1=W2={W1}, D={d}, M={M}: kernel "
+                f"{k_ms:.4f} ms, "
+                f"{'einsum' if lib_ms else 'plain (2 einsums)'} {p_ms:.4f} ms ({p_ms / k_ms:.2f}x), bound {b_ms:.4f} ms "
+                f"({b_by}; {b_ms / k_ms:.1%} of it reached) "
+                f"[{[round(x, 4) for x in t]}; {card}]")
     train = trainer._full_batch({k: v for k, v in splits["train"].items()
                                  if k != "group"})
     for b in STEP_BATCHES:
@@ -759,11 +837,13 @@ def main() -> int:
     # ---------------------------------------------------------------- times
     for name, (kernel, plain) in scorers.items():
         args = operands(name, TIMED_NQ, TIMED_POOL)
-        timed[name] = (event_ms(lambda: kernel(*args), 20),
-                       event_ms(lambda: plain(*args), 5))
+        b_ms, b_by = maxsim_bound(name, args, TIMED_NQ * TIMED_POOL * 4)
+        timed[name] = (burst_ms(lambda: kernel(*args), 20),
+                       burst_ms(lambda: plain(*args), 5), None, b_ms, b_by)
         log(f"time {name} {TIMED_NQ}q x {TIMED_POOL}: kernel "
-            f"{timed[name][0]:.4f} ms, plain {timed[name][1]:.4f} ms "
-            f"[{card}]")
+            f"{timed[name][0]:.4f} ms, plain {timed[name][1]:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {b_ms / timed[name][0]:.1%} of it "
+            f"reached) [{card}]")
     for pd, eng in engines.items():
         one = sync_ms(lambda: eng.query(queries[:1], k=K), 20)
         full = sync_ms(lambda: eng.query(queries, k=K), 5)
@@ -771,11 +851,13 @@ def main() -> int:
                                               shortlist=SHORTLIST), 10)
         ops = (*eng.project(eng.query_tokens(queries)), eng.pool) \
             + (() if eng.aux is None else (eng.aux,))
-        scan = event_ms(lambda: scorers["maxsim_" + pd][0](*ops), 5)
+        scan = burst_ms(lambda: scorers["maxsim_" + pd][0](*ops), 5)
+        b_ms, b_by = maxsim_bound("maxsim_" + pd, ops, N_QUERIES * POOL * 4)
         log(f"time engine {pd} at {POOL}: query 1q p50 {one:.3f} ms, "
             f"query {N_QUERIES}q p50 {full:.3f} ms "
             f"({N_QUERIES * POOL / full * 1e3:.4g} pairs/s; kernel alone, "
-            f"unchunked, {scan:.3f} ms), query_rerank {N_RERANK}q "
+            f"unchunked, {scan:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+            f"{b_ms / scan:.1%} of it reached)), query_rerank {N_RERANK}q "
             f"S={SHORTLIST} p50 {rr:.3f} ms [{card}]")
     del engines, results
     torch.cuda.empty_cache()
@@ -785,7 +867,9 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": max_err[name],
-         "ms": timed[name][0], "plain_ms": timed[name][1]}
+         "ms": timed[name][0], "plain_ms": timed[name][1],
+         "bound_ms": timed[name][3], "bound_by": timed[name][4],
+         "library_ms": timed[name][2]}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

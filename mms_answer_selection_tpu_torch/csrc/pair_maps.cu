@@ -10,114 +10,485 @@
 //   dQ[n, i, d] = sum_m sum_j G[n, i, j, m] (a_n W_m^T)[j, d]
 //   dA[n, j, e] = sum_m sum_i G[n, i, j, m] (q_n W_m)[i, e]
 //   dW[m, d, e] = sum_n sum_i q[n, i, d] (G_m a_n)[i, e]
-// All in float32 with float32 FMAs on the CUDA cores: the reference runs
-// these products at Precision.HIGHEST, which TF32 tensor cores would not
-// match (about three decimal digits).
+// All to float32 accuracy: the reference runs these products at
+// Precision.HIGHEST, which single-pass TF32 tensor cores would not match
+// (about three decimal digits).  dQ, dA, dW and the forward's second
+// product use float32 FMAs on the CUDA cores; the forward's main product
+// runs on the tensor cores as 3xTF32 (each operand split into a TF32 high
+// and low part, three products summed in float32), within float32's
+// rounding.
 //
-// What bounds it on the H100: nothing here is large.  At V4 (W1 = W2 = 40,
-// D = 50, M = 4) and batch 50 the forward is 36 M FMAs and writes 1.3 MB;
-// at the CUDA cores' float32 rate that is microseconds of arithmetic.  So
-// the chain of two small dependent products inside each block, the
-// shared-memory reads feeding each FMA, launch latency, and at batch 50 the
-// number of blocks (200 forward blocks on 132 SMs) bound it.
+// What bounds them on the H100.  The forward and dW each do N * M * W1 *
+// D * (D + W2) FMAs; float32-accurate products run fastest as 3xTF32 on
+// the tensor cores, 495 / 3 = 165 TFLOP/s (float32 FMAs: 67).  At V4
+// widths (W1 = W2 = 40, M = 4) that is 0.0089 ms at N = 1024, D = 50,
+// under the 0.0127 ms of its bytes (3.35 TB/s), and 0.0099 ms at N = 50,
+// D = 300 (V4_WIDE), over its 0.0022 ms of bytes.  The kernels are built
+// to keep the arithmetic units fed:
 //
-// What the design does about it: each product is a chain of two small
-// GEMMs whose intermediate (q_n W_m, G_m a_n or G_m^T q_n) stays in shared
-// memory, 32 columns of D at a time, so only the operands and the result
-// cross device memory, and D = 300 (V4_WIDE) runs in the same static
-// shared memory (under 38 KB) as D = 50.  Each thread owns fixed output
-// elements and sums them in registers in a fixed order.  dW sums across
-// samples in a fixed order, with no atomics, so two runs give the same
-// bits: each block sums a chunk of the batch in sample order into a
-// partial, and a second kernel adds the partials in chunk order.  Shared
-// tiles carry one padding float per row against bank conflicts.  wgmma,
-// TMA and a register-tiled inner loop are later work.
+// * Register tiles.  On the CUDA cores each thread owns an 8 x 8 output
+//   tile and reads two float4s of each operand per k step, loaded one step
+//   ahead of their FMAs: 64 FMAs per four 16-byte shared loads, which the
+//   shared-memory pipe sustains (4 x 4 tiles, 16 FMAs per two loads, were
+//   held to about half the FMA rate by it).  A tile's two float4s lie half
+//   a tile apart, so a quarter-warp's loads are 128 contiguous bytes.
+// * Tensor cores.  The forward's P = q_n W_m is formed as P^T = W^T q^T
+//   with mma.sync m16n8k8 TF32: W's tile columns fill the 16-row
+//   fragments and q's rows the 8-wide ones, so V4's 40 rows need no
+//   padding.  Each warp owns MFW column fragments by all row fragments;
+//   padded shared-memory rows keep the fragment loads free of bank
+//   conflicts.  mma.sync TF32 is slower on Hopper than wgmma, so three of
+//   them cost about what the FMAs would at full rate; the gain is in the
+//   instructions issued.
+// * Asynchronous staging.  Operands reach shared memory by cp.async, 16 or
+//   8 bytes a copy where D allows, into two buffers: the next slab or
+//   sample is in flight while the current one is multiplied.
+//
+// pair_maps_fwd (one block per sample, part of its rows, column tile of P
+// and four measures): P = q_n W_m is a small GEMM and out = P a_n^T a
+// second one.  32-row slabs of q_n and of W's tile columns stream through
+// the two buffers; the P tile then stays in shared memory for the second
+// product, whose tiles are two rows x the four measures x eight columns,
+// so each thread writes out[n, i, j, 0..3] as float4s and a warp's stores
+// are contiguous (a_n's columns are permuted to make that so).  When D
+// needs several column tiles, each writes its share of out as a partial
+// map, and sum_partials_kernel adds them in tile order.  The wrapper picks
+// the row parts and the tile width from the shape alone
+// (sim_cross_kernels.pair_maps_fwd_geometry), so small batches still fill
+// the 132 SMs and D = 300 fits in dynamic shared memory.
+//
+// pair_maps_bwd_w (one block per panel dW[m0..m0+3][d-rows, e-slice] and
+// chunk of the batch): for each sample, t = G_m a_n[:, e-slice] is formed
+// once for the block's four measures (G copied as 16-byte rows over M, 4 x
+// 4 tiles), then q_n^T t accumulates into the panel in registers (8 x 8).
+// A panel spans all of D's rows unless shared memory forces a split, so t
+// is formed once per (sample, e-slice).  Each block sums its chunk's
+// samples in order into a partial; sum_partials_kernel adds the partials
+// in chunk order.  No atomics and no order chosen at run time, so two runs
+// give the same bits.  The chunk size comes from the shape alone
+// (pair_maps_bwd_w_geometry).
+//
+// Neither kernel reaches a seventh of that bound yet, and at V4_WIDE's
+// D = 300 the forward does not beat cuBLAS's einsum (PERF.md has the
+// times).
+//
+// pair_maps_bwd_qa keeps its first design: a chain of two small GEMMs per
+// block, 32 columns of D at a time, with its intermediate in shared memory
+// and two shared-memory reads per FMA (its redesign is later work).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
+// ---------------------------------------------------------- pair_maps_bwd_qa
 constexpr int TD = 32;                      // columns of D staged at a time
 constexpr int MAXW = 64;                    // largest W1, W2 taken
 constexpr int NT = 256;                     // threads per block
-constexpr int OUT_PER_T = MAXW * MAXW / NT;  // (W1 x W2) outputs per thread
 constexpr int SLICE_PER_T = MAXW * TD / NT;  // (W x TD) slice per thread
-constexpr int W_PER_T = TD * TD / NT;        // (TD x TD) dW tile per thread
 
-// out[n, :, :, m] for one (n, m) per block.
-__global__ void __launch_bounds__(NT)
+// -------------------------------------------- pair_maps_fwd, pair_maps_bwd_w
+constexpr int MS = 4;             // measures per block: one float4 of out, g
+constexpr int FK = 32;            // columns of q_n, rows of W per slab
+constexpr int FKQ = FK + 4;       // floats per row of the forward's q slab
+constexpr int STAGES = 2;         // slabs in the forward's ring
+constexpr int MFW = 2;            // 16-column fragments of P^T per warp
+constexpr int MAX_NF = 5;         // 8-row fragments of P^T, at most
+constexpr int MAX_THREADS = 512;  // threads per block, at most
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory of one block
+
+__host__ __device__ inline int round8(int x) { return (x + 7) & ~7; }
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc[4 r + c] += x[r] * y[c]
+__device__ __forceinline__ void outer4(float* acc, float4 x, float4 y) {
+  const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      acc[4 * r + c] = fmaf(xs[r], ys[c], acc[4 * r + c]);
+}
+
+// acc[4 r + c] += x[s * xs + r] * y[s * ys + c] over s < steps, a 4 x 4
+// register tile, each step's operands loaded one step ahead of its FMAs.
+__device__ __forceinline__ void product4(float (&acc)[16], const float* x,
+                                         int xs, const float* y, int ys,
+                                         int steps) {
+  if (steps <= 0) return;
+  float4 a = ld4(x), b = ld4(y);
+#pragma unroll 4
+  for (int s = 1; s <= steps; ++s) {
+    const int nx = s < steps ? s : steps - 1;
+    const float4 na = ld4(x + nx * xs), nb = ld4(y + nx * ys);
+    outer4(acc, a, b);
+    a = na;
+    b = nb;
+  }
+}
+
+// Asynchronous copy of BYTES (4, 8 or 16, src aligned to them) to shared
+// memory, zero-filled when !full (src is then not read).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               ::"r"(s), "l"(src), "n"(BYTES), "r"(full ? BYTES : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The float nearest x in TF32 (10 mantissa bits), as its bits.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a b for a 16 x 8 TF32 fragment a (rows g and g + 8, columns t and
+// t + 4 of lane 4 g + t), an 8 x 8 fragment b (rows t, t + 4, column g)
+// and a 16 x 8 float fragment d (rows g, g + 8, columns 2 t, 2 t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = start, start + step, ... over a grid of rows x cols, as (r, c),
+// with no division per step.
+struct Walk {
+  int r, c;
+  const int dr, dc, cols;
+  __device__ Walk(int start, int step, int cols_)
+      : r(start / cols_), c(start % cols_), dr(step / cols_),
+        dc(step % cols_), cols(cols_) {}
+  __device__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+};
+
+// The widest copy, in floats (4, 2 or 1), that every row of a D-wide
+// float32 matrix at p allows.
+__device__ __forceinline__ int copy_width(const void* p, int d) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (d % 4 == 0 && a % 16 == 0) return 4;
+  if (d % 2 == 0 && a % 8 == 0) return 2;
+  return 1;
+}
+
+// dst[r][c] = src[r * ld + c] for r < rows, c < cols (a multiple of V),
+// zero where c >= valid; V-float copies.
+template <int V>
+__device__ __forceinline__ void copy_rows(float* dst, int dst_ld,
+                                          const float* src, size_t ld,
+                                          int rows, int cols, int valid,
+                                          int tid, int nt) {
+  for (Walk it(tid, nt, cols / V); it.r < rows; it.next()) {
+    const int c = it.c * V;
+    cp_async<4 * V>(dst + it.r * dst_ld + c,
+                    c < valid ? src + it.r * ld + c : src, c < valid);
+  }
+}
+
+__device__ __forceinline__ void copy_rows(int v, float* dst, int dst_ld,
+                                          const float* src, size_t ld,
+                                          int rows, int cols, int valid,
+                                          int tid, int nt) {
+  if (v == 4)
+    copy_rows<4>(dst, dst_ld, src, ld, rows, cols, valid, tid, nt);
+  else if (v == 2)
+    copy_rows<2>(dst, dst_ld, src, ld, rows, cols, valid, tid, nt);
+  else
+    copy_rows<1>(dst, dst_ld, src, ld, rows, cols, valid, tid, nt);
+}
+
+// A forward slab of W: ws[dd * wst + ms * te_max + c] = W[m0 + ms][d0 +
+// dd][e0 + c], zero past tk rows, ms_here measures and te columns; V-float
+// copies.
+template <int V>
+__device__ __forceinline__ void stage_w(float* ws, int wst, const float* w,
+                                        int d, int d0, int e0, int m0,
+                                        int tk, int te, int ms_here,
+                                        int te_max, int tid, int nt) {
+  for (Walk it(tid, nt, te_max / V); it.r < FK * MS; it.next()) {
+    const int dd = it.r / MS, ms = it.r % MS, c = it.c * V;
+    const bool ok = dd < tk && ms < ms_here && c < te;
+    cp_async<4 * V>(ws + dd * wst + ms * te_max + c,
+                    ok ? w + ((size_t)(m0 + ms) * d + d0 + dd) * d + e0 + c
+                       : w,
+                    ok);
+  }
+}
+
+// A forward slab of q_n's rows: qs[r * FKQ + c] = q_n[r][d0 + c], zero past
+// tk columns and past the block's rows; V-float copies.
+template <int V>
+__device__ __forceinline__ void stage_q(float* qs, const float* qn, int d,
+                                        int d0, int tk, int rows, int r8,
+                                        int tid, int nt) {
+  for (Walk it(tid, nt, FK / V); it.r < r8; it.next()) {
+    const int c = it.c * V;
+    const bool ok = it.r < rows && c < tk;
+    cp_async<4 * V>(qs + it.r * FKQ + c,
+                    ok ? qn + (size_t)it.r * d + d0 + c : qn, ok);
+  }
+}
+
+// acc[8 r + c] += x_r * y_c summed over s < steps, an 8 x 8 register
+// tile: x_0..3 = x[s * xs + 0..3], x_4..7 = x[s * xs + xh + 0..3], and y
+// likewise with ys and yh.  With the halves of a tile apart (xh, yh half a
+// tile), neighbouring threads' float4s are neighbours in shared memory, so
+// a quarter-warp reads 128 contiguous bytes.  Each step's operands are
+// loaded one step ahead of its FMAs.
+__device__ __forceinline__ void product8(float (&acc)[64], const float* x,
+                                         int xs, int xh, const float* y,
+                                         int ys, int yh, int steps) {
+  if (steps <= 0) return;
+  float4 x0 = ld4(x), x1 = ld4(x + xh), y0 = ld4(y), y1 = ld4(y + yh);
+#pragma unroll 4
+  for (int s = 1; s <= steps; ++s) {
+    const int nx = s < steps ? s : steps - 1;
+    const float4 nx0 = ld4(x + nx * xs), nx1 = ld4(x + nx * xs + xh);
+    const float4 ny0 = ld4(y + nx * ys), ny1 = ld4(y + nx * ys + yh);
+    const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        acc[8 * r + c] = fmaf(xv[r], yv[c], acc[8 * r + c]);
+    x0 = nx0;
+    x1 = nx1;
+    y0 = ny0;
+    y1 = ny1;
+  }
+}
+
+// The forward's shared-memory row strides, padded so that a fragment's
+// loads hit 32 distinct banks: q's rows hold FKQ = FK + 4 floats (lane
+// 4 g + t reads row g, column t), W's rows MS x TE + 8 (lane 4 g + t reads
+// row t, column g).
+__host__ __device__ inline int fwd_wst(int te) { return MS * te + 8; }
+
+// Shared memory of the forward, in bytes: STAGES x (qs [R8][FKQ] + ws
+// [FK][wst]) + ps [TE][R8][MS] + as [TE][W2P], R8 = round8(rows), W2P =
+// round8(W2).
+size_t fwd_smem(int rows, int w2, int te) {
+  const size_t r8 = round8(rows);
+  return 4 * (STAGES * (r8 * FKQ + (size_t)FK * fwd_wst(te)) +
+              (size_t)te * r8 * MS + (size_t)te * round8(w2));
+}
+
+// Shared memory of dW, in bytes: 2 x (qs [W1][DR8] + gs [W1][W2][MS] +
+// as [W2][TE]) + ts [W1][MS][TE], DR8 = round8(d_rows).
+size_t bwd_w_smem(int w1, int w2, int d_rows, int te) {
+  return 4 * (2 * ((size_t)w1 * round8(d_rows) + (size_t)w1 * w2 * MS +
+                   (size_t)w2 * te) +
+              (size_t)w1 * MS * te);
+}
+
+// out[n, i0:i0+rows, :, m0:m0+4], or its share from P's columns
+// e0..e0+te, for blockIdx = (n, row part x column tile, measure group).
+// P = q_n W_m over the tile's columns is summed from FK-row slabs of q_n
+// and W, streamed through a ring of STAGES buffers; then out += P a_n^T
+// over the same columns.  With one column tile the block writes out; with
+// several it writes its share to part[et] (summed in tile order).
+__global__ void __launch_bounds__(MAX_THREADS)
 pair_maps_fwd_kernel(const float* __restrict__ q, const float* __restrict__ a,
                      const float* __restrict__ w, float* __restrict__ out,
-                     int w1, int w2, int d, int m_count) {
-  __shared__ float qs[MAXW][TD + 1];   // q_n[:, d-slice]
-  __shared__ float ws[TD][TD + 1];     // W_m[d-slice, e-slice]
-  __shared__ float qws[MAXW][TD + 1];  // (q_n W_m)[:, e-slice]
-  __shared__ float as[MAXW][TD + 1];   // a_n[:, e-slice]
-  const int n = blockIdx.x, m = blockIdx.y, tid = threadIdx.x;
-  const float* qn = q + (size_t)n * w1 * d;
-  const float* an = a + (size_t)n * w2 * d;
-  const float* wm = w + (size_t)m * d * d;
-  const int n_out = w1 * w2, n_slice = w1 * TD;
+                     int n_count, int w1, int w2, int d, int m_count,
+                     int rows_max, int te_max) {
+  extern __shared__ float4 smem4[];
+  const int e_tiles = (d + te_max - 1) / te_max;
+  const int n = blockIdx.x, m0 = blockIdx.z * MS;
+  const int i0 = (blockIdx.y / e_tiles) * rows_max;
+  const int et = blockIdx.y % e_tiles, e0 = et * te_max;
+  const int rows = min(rows_max, w1 - i0), ms_here = min(MS, m_count - m0);
+  const int te = min(te_max, d - e0);
+  const int r8 = round8(rows_max), w2p = round8(w2);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // per stage: qs [r8][FKQ] (q_n's rows, a slab of columns) and ws
+  // [FK][wst] (W's slab rows, the tile's MS x te_max columns); then ps
+  // [te_max][r8][MS] (the P tile) and as [te_max][w2p] (a_n^T, permuted)
+  const int wst = fwd_wst(te_max);
+  const int buf = r8 * FKQ + FK * wst;
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* ps = smem + STAGES * buf;
+  float* as = ps + te_max * r8 * MS;
 
-  float acc[OUT_PER_T];
-#pragma unroll
-  for (int k = 0; k < OUT_PER_T; ++k) acc[k] = 0.f;
+  // Product 1 on the tensor cores as P^T = W^T q^T: warp w owns the
+  // 16-column fragments mf = w, w + nw, .. (MFW at most) of P^T, by all nf
+  // 8-row fragments; lane 4 gq + tq holds the fragment elements mma_tf32
+  // names.  Product 2 tile: rows rp and r8/2 + rp x the MS measures x 8
+  // columns of out, j = jg + jj * jg_n (jj < 8), which a_n's permuted
+  // columns place at jg*4.. and w2p/2 + jg*4.. so that a warp's stores are
+  // contiguous.
+  const int lane = tid % 32, warp = tid / 32, nw = nt / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int mf_n = MS * te_max / 16, nf = r8 / 8;
+  const int jg_n = w2p / 8, tiles2 = r8 / 2 * jg_n;
+  const int jg = tid % jg_n, rp = tid / jg_n;
 
-  for (int e0 = 0; e0 < d; e0 += TD) {
-    const int te = min(TD, d - e0);
-    float qw[SLICE_PER_T];
+  const float* qn = q + ((size_t)n * w1 + i0) * d;
+  const int qv = copy_width(q, d), wv = copy_width(w, d);
+  // slab s: columns d0..d0+FK of q_n's rows and rows d0..d0+FK of W
+  auto stage = [&](int s, float* qs) {
+    const int d0 = s * FK, tk = min(FK, d - d0);
+    if (qv == 4)
+      stage_q<4>(qs, qn, d, d0, tk, rows, r8, tid, nt);
+    else if (qv == 2)
+      stage_q<2>(qs, qn, d, d0, tk, rows, r8, tid, nt);
+    else
+      stage_q<1>(qs, qn, d, d0, tk, rows, r8, tid, nt);
+    float* ws = qs + r8 * FKQ;
+    if (wv == 4)
+      stage_w<4>(ws, wst, w, d, d0, e0, m0, tk, te, ms_here, te_max, tid,
+                 nt);
+    else if (wv == 2)
+      stage_w<2>(ws, wst, w, d, d0, e0, m0, tk, te, ms_here, te_max, tid,
+                 nt);
+    else
+      stage_w<1>(ws, wst, w, d, d0, e0, m0, tk, te, ms_here, te_max, tid,
+                 nt);
+  };
+
+  const float* an = a + (size_t)n * w2 * d + e0;
+  for (Walk it(tid, nt, te_max); it.r < w2p; it.next()) {
+    const bool ok = it.r < w2 && it.c < te;
+    const int jj = it.r / jg_n;
+    cp_async<4>(as + it.c * w2p + jj / 4 * (w2p / 2) + (it.r % jg_n) * 4 +
+                    jj % 4,
+                ok ? an + (size_t)it.r * d + it.c : a, ok);
+  }
+  // A ring of STAGES slabs: STAGES - 1 in flight while one is multiplied.
+  // Every thread commits one group per slot, empty or not, so waiting
+  // until STAGES - 1 groups are open means slab s has landed.
+  const int slabs = (d + FK - 1) / FK;
 #pragma unroll
-    for (int k = 0; k < SLICE_PER_T; ++k) qw[k] = 0.f;
-    for (int d0 = 0; d0 < d; d0 += TD) {
-      const int td = min(TD, d - d0);
-      __syncthreads();
-      for (int x = tid; x < n_slice; x += NT) {
-        const int i = x / TD, c = x % TD;
-        qs[i][c] = c < td ? qn[(size_t)i * d + d0 + c] : 0.f;
-      }
-      for (int x = tid; x < TD * TD; x += NT) {
-        const int r = x / TD, c = x % TD;
-        ws[r][c] = (r < td && c < te) ? wm[(size_t)(d0 + r) * d + e0 + c] : 0.f;
-      }
-      __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < slabs) stage(s, smem + s * buf);
+    cp_async_commit();
+  }
+
+  // 3xTF32: each operand x = hi + lo, both TF32, and d += lo hi + hi lo +
+  // hi hi in float32, which keeps the product within float32's rounding
+  // (the lo lo term is below it)
+  auto split = [](float x, uint32_t& hi, uint32_t& lo) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  };
+  float acc1[MFW][MAX_NF][4];
 #pragma unroll
-      for (int k = 0; k < SLICE_PER_T; ++k) {
-        const int x = tid + k * NT;
-        if (x < n_slice) {
-          const int i = x / TD, e = x % TD;
-          float s = qw[k];
-          for (int dd = 0; dd < td; ++dd) s = fmaf(qs[i][dd], ws[dd][e], s);
-          qw[k] = s;
+  for (int k = 0; k < MFW; ++k)
+#pragma unroll
+    for (int ni = 0; ni < MAX_NF; ++ni)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc1[k][ni][x] = 0.f;
+  for (int s = 0; s < slabs; ++s) {
+    const int ahead = s + STAGES - 1;
+    if (ahead < slabs) stage(ahead, smem + (ahead % STAGES) * buf);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    const float* qs = smem + (s % STAGES) * buf;
+    const float* ws = qs + r8 * FKQ;
+    const int tk = min(FK, d - s * FK);
+    for (int k0 = 0; k0 < tk; k0 += 8) {
+      uint32_t bh[MAX_NF][2], bl[MAX_NF][2];
+#pragma unroll
+      for (int ni = 0; ni < MAX_NF; ++ni) {
+        if (ni >= nf) continue;
+        const float* b = qs + (ni * 8 + gq) * FKQ + k0 + tq;
+        split(b[0], bh[ni][0], bl[ni][0]);
+        split(b[4], bh[ni][1], bl[ni][1]);
+      }
+#pragma unroll
+      for (int k = 0; k < MFW; ++k) {
+        const int mf = warp + k * nw;
+        if (mf >= mf_n) continue;
+        const float* x = ws + (k0 + tq) * wst + mf * 16 + gq;
+        uint32_t ah[4], al[4];
+        split(x[0], ah[0], al[0]);
+        split(x[8], ah[1], al[1]);
+        split(x[4 * wst], ah[2], al[2]);
+        split(x[4 * wst + 8], ah[3], al[3]);
+#pragma unroll
+        for (int ni = 0; ni < MAX_NF; ++ni) {
+          if (ni >= nf) continue;
+          mma_tf32(acc1[k][ni], al, bh[ni]);
+          mma_tf32(acc1[k][ni], ah, bl[ni]);
+          mma_tf32(acc1[k][ni], ah, bh[ni]);
         }
       }
     }
-    __syncthreads();
+    __syncthreads();  // this buffer's readers are done before it refills
+  }
+
+  // P^T's fragments to ps: fragment row gq (+ 8) is P's column c, its
+  // columns 2 tq, 2 tq + 1 are P's rows
 #pragma unroll
-    for (int k = 0; k < SLICE_PER_T; ++k) {
-      const int x = tid + k * NT;
-      if (x < n_slice) qws[x / TD][x % TD] = qw[k];
-    }
-    for (int x = tid; x < w2 * TD; x += NT) {
-      const int j = x / TD, c = x % TD;
-      as[j][c] = c < te ? an[(size_t)j * d + e0 + c] : 0.f;
-    }
-    __syncthreads();
+  for (int k = 0; k < MFW; ++k) {
+    const int mf = warp + k * nw;
+    if (mf >= mf_n) continue;
 #pragma unroll
-    for (int k = 0; k < OUT_PER_T; ++k) {
-      const int x = tid + k * NT;
-      if (x < n_out) {
-        const int i = x / w2, j = x % w2;
-        float s = acc[k];
-        for (int ee = 0; ee < te; ++ee) s = fmaf(qws[i][ee], as[j][ee], s);
-        acc[k] = s;
+    for (int h = 0; h < 2; ++h) {
+      const int c = mf * 16 + gq + 8 * h, ms = c / te_max, e = c % te_max;
+#pragma unroll
+      for (int ni = 0; ni < MAX_NF; ++ni) {
+        if (ni >= nf) continue;
+        const int r = ni * 8 + 2 * tq;
+        ps[(e * r8 + r) * MS + ms] = acc1[k][ni][2 * h];
+        ps[(e * r8 + r + 1) * MS + ms] = acc1[k][ni][2 * h + 1];
       }
     }
   }
+  __syncthreads();
+  if (tid >= tiles2) return;
+  float acc[64];
 #pragma unroll
-  for (int k = 0; k < OUT_PER_T; ++k) {
-    const int x = tid + k * NT;
-    if (x < n_out)
-      out[((size_t)n * n_out + x) * m_count + m] = acc[k];
+  for (int x = 0; x < 64; ++x) acc[x] = 0.f;
+  // acc[(4 rr + ms) * 8 + jj]: x = P[rp + rr * r8/2][ms], y = a_n[j]
+  product8(acc, ps + rp * MS, r8 * MS, r8 / 2 * MS, as + jg * 4, w2p, w2p / 2,
+           te);
+  float* dst = out + (size_t)et * n_count * w1 * w2 * m_count;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = rp + rr * (r8 / 2);
+    if (r >= rows) continue;
+    float* o = dst + ((size_t)n * w1 + i0 + r) * w2 * m_count + m0;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = jg + jj * jg_n;
+      if (j >= w2) continue;
+      const float* v = acc + rr * 32 + jj;   // acc[(rr * 4 + ms) * 8 + jj]
+      if (m_count % MS == 0) {
+        *reinterpret_cast<float4*>(o + (size_t)j * m_count) =
+            make_float4(v[0], v[8], v[16], v[24]);
+      } else {
+        for (int mm = 0; mm < ms_here; ++mm)
+          o[(size_t)j * m_count + mm] = v[8 * mm];
+      }
+    }
   }
 }
 
@@ -208,73 +579,123 @@ pair_maps_bwd_qa_kernel(const float* __restrict__ q,
   }
 }
 
-// One 32 x 32 tile of dW[m] per block, summed over one chunk of the batch
-// (samples [s * n_per, (s + 1) * n_per), blockIdx.y = s) in sample order,
-// written to out[s] (the partials, or dW itself when there is one chunk).
-__global__ void __launch_bounds__(NT)
+// The panel dW[m0..m0+3][d0..d0+d_rows, e0..e0+te] of blockIdx = (panel,
+// chunk, measure group), summed over the chunk's samples [s * n_per,
+// (s + 1) * n_per) in sample order into out[s] (the partials, or dW itself
+// when there is one chunk).  Each sample's q_n rows, G_n and a_n columns
+// are staged into one of two buffers while the other one's sample is
+// multiplied.
+__global__ void __launch_bounds__(MAX_THREADS)
 pair_maps_bwd_w_kernel(const float* __restrict__ q,
                        const float* __restrict__ a,
                        const float* __restrict__ g, float* __restrict__ out,
                        int n_count, int n_per, int w1, int w2, int d,
-                       int m_count) {
-  __shared__ float gs[MAXW][MAXW + 1];  // G[n, :, :, m]
-  __shared__ float as[MAXW][TD + 1];    // a_n[:, e-slice]
-  __shared__ float qs[MAXW][TD + 1];    // q_n[:, d-slice]
-  __shared__ float ts[MAXW][TD + 1];    // (G_m a_n)[:, e-slice]
-  const int tiles = (d + TD - 1) / TD;
-  const int d0 = (blockIdx.x / tiles) * TD, e0 = (blockIdx.x % tiles) * TD;
-  const int m = blockIdx.z, tid = threadIdx.x;
-  const int td = min(TD, d - d0), te = min(TD, d - e0);
-  const int n_end = min(n_count, (int)(blockIdx.y + 1) * n_per);
-  float* dw = out + (size_t)blockIdx.y * m_count * d * d;
+                       int m_count, int d_rows, int te_max) {
+  extern __shared__ float4 smem4[];
+  const int e_slices = (d + te_max - 1) / te_max;
+  const int d0 = (blockIdx.x / e_slices) * d_rows;
+  const int e0 = (blockIdx.x % e_slices) * te_max;
+  const int dr = min(d_rows, d - d0), te = min(te_max, d - e0);
+  const int m0 = blockIdx.z * MS, ms_here = min(MS, m_count - m0);
+  const int dr8 = round8(d_rows);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // per buffer: qs [w1][dr8] (q_n[:, d-rows]), gs [w1][w2][MS] (G_n), as
+  // [w2][te_max] (a_n[:, e-slice]); then ts [w1][MS][te_max] (G_m a_n)
+  const int buf = w1 * dr8 + w1 * w2 * MS + w2 * te_max;
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* ts = smem + 2 * buf;
 
-  float acc[W_PER_T];
-#pragma unroll
-  for (int k = 0; k < W_PER_T; ++k) acc[k] = 0.f;
+  // t tiles (any number, looped over, 4 x 4): row i, the MS measures x
+  // columns eg*4..; panel tile (one per thread, 8 x 8): rows dg*4.. and
+  // dr8/2 + dg*4.., columns eg*4.. and te_max/2 + eg*4.. of measure ms.
+  const int eg_n = te_max / 4, dg_n = dr8 / 8;
+  const int tiles_t = w1 * eg_n, tiles_w = te_max / 8 * dg_n * MS;
+  const int egw = tid % (te_max / 8), dgw = (tid / (te_max / 8)) % dg_n;
+  const int msw = tid / (te_max / 8 * dg_n);
 
-  for (int n = blockIdx.y * n_per; n < n_end; ++n) {
-    __syncthreads();
-    for (int x = tid; x < w1 * w2; x += NT)
-      gs[x / w2][x % w2] = g[((size_t)n * w1 * w2 + x) * m_count + m];
-    for (int x = tid; x < w2 * TD; x += NT) {
-      const int j = x / TD, c = x % TD;
-      as[j][c] = c < te ? a[((size_t)n * w2 + j) * d + e0 + c] : 0.f;
-    }
-    for (int x = tid; x < w1 * TD; x += NT) {
-      const int i = x / TD, c = x % TD;
-      qs[i][c] = c < td ? q[((size_t)n * w1 + i) * d + d0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < SLICE_PER_T; ++k) {
-      const int x = tid + k * NT;
-      if (x < w1 * TD) {
-        const int i = x / TD, e = x % TD;
-        float s = 0.f;
-        for (int j = 0; j < w2; ++j) s = fmaf(gs[i][j], as[j][e], s);
-        ts[i][e] = s;
+  // 16-byte copies where every row and slice start is aligned
+  const bool g_vec =
+      m_count == MS && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  const int qv = d_rows % 4 == 0 ? copy_width(q, d)
+                 : d_rows % 2 == 0 ? min(2, copy_width(q, d)) : 1;
+  const int av = copy_width(a, d);
+  auto stage = [&](int n, float* qs) {
+    float* gs = qs + w1 * dr8;
+    float* as = gs + w1 * w2 * MS;
+    copy_rows(qv, qs, dr8, q + (size_t)n * w1 * d + d0, d, w1, dr8, dr, tid,
+              nt);
+    const size_t gn = (size_t)n * w1 * w2;
+    if (g_vec) {
+      for (int x = tid; x < w1 * w2; x += nt)
+        cp_async<16>(gs + x * MS, g + (gn + x) * MS, true);
+    } else {
+      for (int x = tid; x < w1 * w2 * MS; x += nt) {
+        const int ms = x % MS;
+        cp_async<4>(gs + x,
+                  ms < ms_here ? g + (gn + x / MS) * m_count + m0 + ms : g,
+                  ms < ms_here);
       }
     }
-    __syncthreads();
+    copy_rows(av, as, te_max, a + (size_t)n * w2 * d + e0, d, w2, te_max, te,
+              tid, nt);
+  };
+
+  float acc[64];
 #pragma unroll
-    for (int k = 0; k < W_PER_T; ++k) {
-      const int x = tid + k * NT;
-      const int dd = x / TD, ee = x % TD;
-      float s = acc[k];
-      for (int i = 0; i < w1; ++i) s = fmaf(qs[i][dd], ts[i][ee], s);
-      acc[k] = s;
+  for (int x = 0; x < 64; ++x) acc[x] = 0.f;
+
+  const int n_begin = blockIdx.y * n_per;
+  const int n_end = min(n_count, n_begin + n_per);
+  stage(n_begin, smem);
+  cp_async_commit();
+  for (int n = n_begin; n < n_end; ++n) {
+    float* qs = smem + ((n - n_begin) & 1) * buf;
+    if (n + 1 < n_end) {
+      stage(n + 1, smem + ((n + 1 - n_begin) & 1) * buf);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-  }
+    __syncthreads();
+    const float* gs = qs + w1 * dr8;
+    const float* as = gs + w1 * w2 * MS;
+    for (int t = tid; t < tiles_t; t += nt) {
+      const int i = t / eg_n, eg = t % eg_n;
+      float v[16];  // [ms][e]
 #pragma unroll
-  for (int k = 0; k < W_PER_T; ++k) {
-    const int x = tid + k * NT;
-    const int dd = x / TD, ee = x % TD;
-    if (dd < td && ee < te)
-      dw[((size_t)m * d + d0 + dd) * d + e0 + ee] = acc[k];
+      for (int c = 0; c < 16; ++c) v[c] = 0.f;
+      product4(v, gs + i * w2 * MS, MS, as + eg * 4, te_max, w2);
+#pragma unroll
+      for (int ms = 0; ms < MS; ++ms)
+        *reinterpret_cast<float4*>(ts + (i * MS + ms) * te_max + eg * 4) =
+            make_float4(v[ms * 4], v[ms * 4 + 1], v[ms * 4 + 2],
+                        v[ms * 4 + 3]);
+    }
+    __syncthreads();
+    if (tid < tiles_w)
+      product8(acc, qs + dgw * 4, dr8, dr8 / 2,
+               ts + msw * te_max + egw * 4, MS * te_max, te_max / 2, w1);
+    __syncthreads();  // this buffer's and ts's readers are done
+  }
+
+  if (tid >= tiles_w || msw >= ms_here) return;
+  float* dw = out + (size_t)blockIdx.y * m_count * d * d;
+#pragma unroll
+  for (int rr = 0; rr < 8; ++rr) {
+    const int r = rr / 4 * (dr8 / 2) + dgw * 4 + rr % 4;
+    if (r >= dr) continue;
+    float* row = dw + ((size_t)(m0 + msw) * d + d0 + r) * d + e0;
+#pragma unroll
+    for (int ee = 0; ee < 8; ++ee) {
+      const int c = ee / 4 * (te_max / 2) + egw * 4 + ee % 4;
+      if (c < te) row[c] = acc[rr * 8 + ee];
+    }
   }
 }
 
-// dW = sum of the chunks' partials, in chunk order.
+// out = the sum of the partials (dW's chunks, the forward's column tiles),
+// in order.
 __global__ void __launch_bounds__(NT)
 sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
                     int chunks, size_t size) {
@@ -290,19 +711,60 @@ bool shape_ok(int n, int w1, int w2, int d, int m) {
          w2 <= MAXW && m <= 65535 && d <= 65535 * TD;
 }
 
+// The launch geometry the wrapper chose: threads a multiple of 32 up to
+// MAX_THREADS, column tiles a multiple of 8, one 8 x 8 tile of each
+// product per thread, and the shared memory within one block's.
+bool geometry_ok(int threads, int te, int tiles_a, int tiles_b, size_t smem) {
+  return threads > 0 && threads <= MAX_THREADS && threads % 32 == 0 &&
+         te > 0 && te % 8 == 0 && tiles_a <= threads && tiles_b <= threads &&
+         smem <= SMEM_MAX;
+}
+
 int set_device(int device) { return (int)cudaSetDevice(device); }
+
+int allow_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
 }  // namespace
 
+// rows: rows of q_n per block (W1 split in ceil(W1 / rows) parts); te:
+// columns of P = q_n W_m per block; with ceil(D / te) > 1 column tiles,
+// part holds one partial map per tile (unused otherwise), summed by a
+// second kernel; threads: block size.
 extern "C" int pair_maps_fwd(const void* q, const void* a, const void* w,
-                             void* out, int n, int w1, int w2, int d, int m,
+                             void* out, void* part, int n, int w1, int w2,
+                             int d, int m, int rows, int te, int threads,
                              int device, void* stream) {
-  if (!shape_ok(n, w1, w2, d, m)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(n, w1, w2, d, m) || rows <= 0 || rows > w1 || te <= 0 ||
+      cdiv(w1, rows) * cdiv(d, te) > 65535)
+    return (int)cudaErrorInvalidValue;
+  // MFW column fragments of P^T per warp, at most MAX_NF row fragments,
+  // one product-2 tile per thread
+  const size_t smem = fwd_smem(rows, w2, te);
+  const int fragments = cdiv(MS * te / 16, MFW) * 32;
+  const int tiles2 = round8(rows) / 2 * (round8(w2) / 8);
+  if (round8(rows) / 8 > MAX_NF ||
+      !geometry_ok(threads, te, fragments, tiles2, smem))
+    return (int)cudaErrorInvalidValue;
   if (int err = set_device(device)) return err;
+  if (int err = allow_smem((const void*)pair_maps_fwd_kernel, smem))
+    return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pair_maps_fwd_kernel<<<dim3(n, m), NT, 0, s>>>(
+  const int e_tiles = cdiv(d, te);
+  float* dst = static_cast<float*>(e_tiles > 1 ? part : out);
+  pair_maps_fwd_kernel<<<dim3(n, cdiv(w1, rows) * e_tiles, cdiv(m, MS)),
+                         threads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(a),
-      static_cast<const float*>(w), static_cast<float*>(out), w1, w2, d, m);
+      static_cast<const float*>(w), dst, n, w1, w2, d, m, rows, te);
+  if (e_tiles > 1) {
+    const size_t size = (size_t)n * w1 * w2 * m;
+    if (int err = (int)cudaGetLastError()) return err;
+    sum_partials_kernel<<<(unsigned)((size + NT - 1) / NT), NT, 0, s>>>(
+        dst, static_cast<float*>(out), e_tiles, size);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -320,21 +782,32 @@ extern "C" int pair_maps_bwd_qa(const void* q, const void* a, const void* w,
   return (int)cudaGetLastError();
 }
 
-// part: scratch for ceil(n / n_per) partial dW when there is more than one
-// chunk (unused otherwise); the sum over chunks runs in a second kernel.
+// n_per: samples per chunk; part: scratch for the ceil(n / n_per) partial
+// dW when there is more than one chunk (unused otherwise), summed by a
+// second kernel; d_rows x te: the panel of dW per block; threads: block
+// size.
 extern "C" int pair_maps_bwd_w(const void* q, const void* a, const void* g,
                                void* dw, void* part, int n, int w1, int w2,
-                               int d, int m, int n_per, int device,
-                               void* stream) {
-  if (!shape_ok(n, w1, w2, d, m) || n_per <= 0)
+                               int d, int m, int n_per, int d_rows, int te,
+                               int threads, int device, void* stream) {
+  if (!shape_ok(n, w1, w2, d, m) || n_per <= 0 || d_rows <= 0 ||
+      d_rows > d || cdiv(n, n_per) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_w_smem(w1, w2, d_rows, te);
+  if (!geometry_ok(threads, te, round8(d_rows) / 8 * (te / 8) * MS, 0,
+                   smem))
     return (int)cudaErrorInvalidValue;
   if (int err = set_device(device)) return err;
+  if (int err = allow_smem((const void*)pair_maps_bwd_w_kernel, smem))
+    return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (d + TD - 1) / TD, chunks = (n + n_per - 1) / n_per;
+  const int chunks = cdiv(n, n_per);
+  const int panels = cdiv(d, d_rows) * cdiv(d, te);
   float* out = static_cast<float*>(chunks > 1 ? part : dw);
-  pair_maps_bwd_w_kernel<<<dim3(tiles * tiles, chunks, m), NT, 0, s>>>(
+  pair_maps_bwd_w_kernel<<<dim3(panels, chunks, cdiv(m, MS)), threads, smem,
+                           s>>>(
       static_cast<const float*>(q), static_cast<const float*>(a),
-      static_cast<const float*>(g), out, n, n_per, w1, w2, d, m);
+      static_cast<const float*>(g), out, n, n_per, w1, w2, d, m, d_rows, te);
   if (chunks > 1) {
     const size_t size = (size_t)m * d * d;
     if (int err = (int)cudaGetLastError()) return err;

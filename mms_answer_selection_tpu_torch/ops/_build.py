@@ -33,14 +33,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures -> cudaError_t.  MaxSim: (pointers..., nq, r, c, w2p, dp, tc,
 # nwarps, q_per_block, device, stream); pair maps: (pointers..., n, w1, w2,
-# d, m[, samples per dW chunk], device, stream)
+# d, m, launch geometry..., device, stream), the geometry (rows, te,
+# threads) for the forward, (samples per chunk, d_rows, te, threads) for
+# dW, none for dQ/dA
 _SIGNATURES = {
     "maxsim_bf16": [_P, _P, _P] + [_I] * 9 + [_P],
     "maxsim_int8": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "maxsim_int4": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
-    "pair_maps_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    "pair_maps_fwd": [_P] * 5 + [_I] * 9 + [_P],
     "pair_maps_bwd_qa": [_P] * 6 + [_I] * 6 + [_P],
-    "pair_maps_bwd_w": [_P] * 5 + [_I] * 7 + [_P],
+    "pair_maps_bwd_w": [_P] * 5 + [_I] * 10 + [_P],
 }
 
 

@@ -40,6 +40,9 @@ kernel launches.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from . import _build
@@ -58,7 +61,9 @@ LAUNCH_COUNTS = {"maxsim_bf16": 0, "maxsim_int8": 0, "maxsim_int4": 0,
 # accumulate each 16-term dot product in their own order and rounding.
 # Pair maps, as a fraction of the output's (out, dQ, dA or dW) largest
 # |value|: float32 FMAs in both, only the order of the sums over D, W1, W2,
-# M and the batch differs (no TF32, no reduced precision).
+# M and the batch differs; the forward's first product runs as 3xTF32
+# (hi and lo TF32 parts, three tensor-core products), whose error is below
+# float32's rounding (no single-pass TF32, no reduced precision).
 KERNEL_VS_PLAIN_RTOL = {"maxsim_bf16": 1e-4, "maxsim_int8": 1e-5,
                         "maxsim_int4": 1e-5, "pair_maps_fwd": 1e-5,
                         "pair_maps_bwd_qa": 1e-5, "pair_maps_bwd_w": 1e-5}
@@ -69,8 +74,16 @@ INT4_CLIP_QUANTILE = 0.995  # the reference's candidate-scale percentile
 _SMEM_BYTES = 232448   # dynamic shared memory one sm_90 block may use
 _PLAIN_CHUNK_BYTES = 1 << 30  # similarity slab the plain versions hold
 PAIR_MAPS_MAX_W = 64   # largest W1, W2 the pair-map kernels take (MAXW)
-_DW_CHUNK = 8          # samples one dW block sums before the partials' sum
 _GRID_Y = 65535        # largest gridDim.y and gridDim.z of a launch
+# the tiling of csrc/pair_maps.cu (its constants of the same names), which
+# the launch plans below size threads and shared memory from
+_PM_THREADS = 512      # threads per block, at most (MAX_THREADS)
+_PM_MS = 4             # measures per block (MS)
+_PM_FK = 32            # columns of q_n, rows of W per forward slab (FK)
+_PM_STAGES = 2         # slabs in the forward's ring (STAGES)
+_PM_MFW = 2            # 16-column fragments of P^T per warp (MFW)
+_PM_MAX_ROWS = 40      # rows of q_n per forward block (8 x MAX_NF)
+_SMS = 132             # streaming multiprocessors of an H100 SXM
 
 
 def _round_up(x: int, m: int) -> int:
@@ -99,6 +112,121 @@ def bilinear_pair_maps_grads_plain(q, a, w, g, *, need_qa=True,
     return dq, da, dw
 
 
+class PairMapsFwdGeometry(NamedTuple):
+    """Launch of ``pair_maps_fwd``: blocks (N, ceil(W1 / rows) *
+    col_tiles, ceil(M / 4)) of ``threads`` threads and ``smem`` bytes of
+    dynamic shared memory, each forming P = q_n W_m on ``te`` of its
+    columns; with ``col_tiles`` > 1 the blocks write one partial map per
+    column tile, summed in tile order."""
+    rows: int
+    te: int
+    col_tiles: int
+    threads: int
+    smem: int
+
+
+class PairMapsDwGeometry(NamedTuple):
+    """Launch of ``pair_maps_bwd_w``: one block per panel of ``d_rows`` x
+    ``te`` of dW (four measures), per chunk of ``n_per`` samples (the last
+    may be shorter) and per four measures; ``chunks`` partials, summed in
+    chunk order when there is more than one."""
+    n_per: int
+    chunks: int
+    d_rows: int
+    te: int
+    threads: int
+    smem: int
+
+
+def _cdiv(x: int, y: int) -> int:
+    return -(-x // y)
+
+
+def _check_pair_maps_shape(name: str, n: int, w1: int, w2: int, d: int,
+                           m: int) -> None:
+    if not (1 <= min(w1, w2) <= max(w1, w2) <= PAIR_MAPS_MAX_W
+            and n >= 1 and d >= 1 and 1 <= m <= _GRID_Y):
+        raise ValueError(f"{name} takes 1 <= W1, W2 <= {PAIR_MAPS_MAX_W}, "
+                         f"1 <= M <= {_GRID_Y}, N, D >= 1; got N={n} W1={w1} "
+                         f"W2={w2} D={d} M={m}")
+
+
+def fwd_launch(w2: int, d: int, rows: int, te: int) -> PairMapsFwdGeometry:
+    """The forward's launch for a part of ``rows`` rows of q_n and column
+    tiles ``te`` wide: a warp per MFW 16-column fragments of P^T, a 2-row
+    x 8-column tile of the second product per thread, and ``fwd_smem`` of
+    csrc/pair_maps.cu: STAGES x (q slab [R8][FK + 4] + W slab [FK][MS te +
+    8]) + P tile [te][R8][MS] + a_n^T [te][W2P]."""
+    r8, w2p = _round_up(rows, 8), _round_up(w2, 8)
+    threads = _round_up(max(32 * _cdiv(_PM_MS * te // 16, _PM_MFW),
+                            r8 // 2 * w2p // 8), 32)
+    smem = 4 * (_PM_STAGES * (r8 * (_PM_FK + 4) + _PM_FK * (_PM_MS * te + 8))
+                + te * r8 * _PM_MS + te * w2p)
+    return PairMapsFwdGeometry(rows, te, _cdiv(d, te), threads, smem)
+
+
+def dw_launch(n: int, w1: int, w2: int, d: int, n_per: int, d_rows: int,
+              te: int) -> PairMapsDwGeometry:
+    """dW's launch for chunks of ``n_per`` samples and panels of ``d_rows``
+    x ``te``: an 8 x 8 tile of the panel per thread for each of the MS
+    measures, and ``bwd_w_smem`` of csrc/pair_maps.cu: 2 x (q rows
+    [W1][DR8] + G_n [W1][W2][MS] + a_n slice [W2][te]) + t [W1][MS][te]."""
+    dr8 = _round_up(d_rows, 8)
+    threads = _round_up(dr8 // 8 * (te // 8) * _PM_MS, 32)
+    smem = 4 * (2 * (w1 * dr8 + w1 * w2 * _PM_MS + w2 * te)
+                + w1 * _PM_MS * te)
+    return PairMapsDwGeometry(n_per, _cdiv(n, n_per), d_rows, te, threads,
+                              smem)
+
+
+@functools.lru_cache(maxsize=256)
+def pair_maps_fwd_geometry(n: int, w1: int, w2: int, d: int,
+                           m: int) -> PairMapsFwdGeometry:
+    """The launch of ``pair_maps_fwd`` for one shape, from the shape alone.
+    P's columns: as few tiles of at most 64 as cover D, equal in width
+    (several write partial maps).  W1's rows: parts of at most 40 (the
+    kernel's row fragments), split in two again, down to 8 rows, while the
+    grid, doubled, still fits one wave of the 132 SMs.  Every plan fits:
+    at most 256 threads and 136,448 bytes of shared memory for W <= 64.
+    Raises ValueError for a shape the kernel does not take."""
+    _check_pair_maps_shape("pair_maps_fwd", n, w1, w2, d, m)
+    te = _round_up(_cdiv(d, _cdiv(d, 64)), 8)
+    blocks = n * _cdiv(d, te) * _cdiv(m, _PM_MS)
+    parts = _cdiv(w1, _PM_MAX_ROWS)
+    while 2 * parts * blocks <= _SMS and _cdiv(w1, 2 * parts) >= 8:
+        parts *= 2
+    return fwd_launch(w2, d, _cdiv(w1, parts), te)
+
+
+@functools.lru_cache(maxsize=256)
+def pair_maps_bwd_w_geometry(n: int, w1: int, w2: int, d: int,
+                             m: int) -> PairMapsDwGeometry:
+    """The launch of ``pair_maps_bwd_w`` for one shape, from the shape
+    alone.  A panel spans all of D's rows, split only where no panel fits
+    (t = G_m a_n is then formed once per split), and the widest column
+    slice (a multiple of 8, at most 64) that fits 512 threads and the
+    shared memory; narrowed to at least 132 // (N x row splits x measure
+    groups) slices, so that a small batch's panels fill a wave; then
+    ceil(132 / panels) chunks of samples (at most N), which cover 0..N
+    exactly, none empty.  Raises ValueError for a shape the kernel does
+    not take."""
+    _check_pair_maps_shape("pair_maps_bwd_w", n, w1, w2, d, m)
+    splits, te = 0, None
+    while te is None:           # at most 168 rows fit any W <= 64
+        splits += 1
+        d_rows = _cdiv(d, splits)
+        te = next((t for t in range(min(64, _round_up(d, 8)), 0, -8)
+                   if (geo := dw_launch(n, w1, w2, d, n, d_rows, t)).threads
+                   <= _PM_THREADS and geo.smem <= _SMEM_BYTES), None)
+    row_parts, groups = _cdiv(d, d_rows), _cdiv(m, _PM_MS)
+    e_tiles = max(_cdiv(d, te),
+                  min(_cdiv(d, 8), _SMS // (n * row_parts * groups)))
+    te = _round_up(_cdiv(d, e_tiles), 8)
+    panels = row_parts * _cdiv(d, te) * groups
+    n_per = _cdiv(n, min(n, _cdiv(_SMS, panels)))
+    return dw_launch(n, w1, w2, d, n_per, d_rows, te)
+
+
 def pair_maps_fwd(q, a, w):
     """The forward map (N, W1, W2, M): the ``pair_maps_fwd`` kernel on CUDA
     tensors, ``bilinear_pair_maps_plain`` on CPU tensors."""
@@ -106,9 +234,13 @@ def pair_maps_fwd(q, a, w):
     if _on_cpu(q, a, w):
         return bilinear_pair_maps_plain(q, a, w)
     _check_pair_maps_cuda(q, a, w)
+    geo = pair_maps_fwd_geometry(n, w1, w2, d, m)
     out = torch.empty((n, w1, w2, m), dtype=torch.float32, device=q.device)
+    part = torch.empty((geo.col_tiles, n, w1, w2, m), dtype=torch.float32,
+                       device=q.device) if geo.col_tiles > 1 else out
     _launch("pair_maps_fwd", q, q.data_ptr(), a.data_ptr(), w.data_ptr(),
-            out.data_ptr(), n, w1, w2, d, m)
+            out.data_ptr(), part.data_ptr(), n, w1, w2, d, m, geo.rows,
+            geo.te, geo.threads)
     return out
 
 
@@ -137,12 +269,13 @@ def pair_maps_bwd_w(q, a, w, g):
         return bilinear_pair_maps_grads_plain(q, a, w, g, need_qa=False)[2]
     g = g.contiguous()
     n, w1, w2, d, m = _check_pair_maps_cuda(q, a, w, g=g)
+    geo = pair_maps_bwd_w_geometry(n, w1, w2, d, m)
     dw = torch.empty_like(w)
-    chunks = -(-n // _DW_CHUNK)
-    part = torch.empty((chunks,) + tuple(w.shape), dtype=torch.float32,
-                       device=w.device) if chunks > 1 else dw
+    part = torch.empty((geo.chunks,) + tuple(w.shape), dtype=torch.float32,
+                       device=w.device) if geo.chunks > 1 else dw
     _launch("pair_maps_bwd_w", q, q.data_ptr(), a.data_ptr(), g.data_ptr(),
-            dw.data_ptr(), part.data_ptr(), n, w1, w2, d, m, _DW_CHUNK)
+            dw.data_ptr(), part.data_ptr(), n, w1, w2, d, m, geo.n_per,
+            geo.d_rows, geo.te, geo.threads)
     return dw
 
 
@@ -174,8 +307,8 @@ def bilinear_pair_maps(q, a, w):
     """Fused SimCross mode-2 map: q (N, W1, D), a (N, W2, D), w (M, D, D)
     -> (N, W1, W2, M) float32, differentiable in all three.
 
-    CUDA operands must be contiguous float32 with W1, W2 <= 64; any D and M
-    are taken (D is tiled)."""
+    CUDA operands must be contiguous float32 with W1, W2 <= 64 and M <=
+    65535; any D is taken (it is tiled)."""
     return BilinearPairMaps.apply(q, a, w)
 
 
@@ -194,13 +327,7 @@ def _check_pair_maps_cuda(q, a, w, **more):
                          w=(w, torch.float32),
                          **{k: (v, torch.float32) for k, v in more.items()})
     n, w1, w2, d, m = _pair_maps_shapes(q, a, w)
-    if 0 in (n, w1, w2, d, m) or max(w1, w2) > PAIR_MAPS_MAX_W \
-            or m > _GRID_Y or d > _GRID_Y * 32 or n > _GRID_Y * _DW_CHUNK:
-        raise ValueError(f"the pair-map kernels take 1 <= W1, W2 <= "
-                         f"{PAIR_MAPS_MAX_W}, M <= {_GRID_Y}, D <= "
-                         f"{_GRID_Y * 32}, N <= {_GRID_Y * _DW_CHUNK} and "
-                         f"non-empty operands, got N={n} W1={w1} W2={w2} "
-                         f"D={d} M={m}")
+    _check_pair_maps_shape("the pair-map kernels", n, w1, w2, d, m)
     if "g" in more and tuple(more["g"].shape) != (n, w1, w2, m):
         raise ValueError(f"gradient {tuple(more['g'].shape)} does not match "
                          f"the map {(n, w1, w2, m)}")

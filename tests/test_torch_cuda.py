@@ -257,11 +257,21 @@ def test_ivf_probe_all_equals_brute_force_on_cuda(pool_dtype):
 
 
 # ------------------------------------------------------------ pair maps
-# (N, W1, W2, D, M): V4 at batch 50, a ragged batch of 7 and of 1, V4_WIDE's
-# D = 300, and the kernels' edges (W = 64, D not a multiple of 32, M = 1)
+# (N, W1, W2, D, M): V4 at batch 50 and 1024, a ragged batch of 7 and of 1,
+# V4_WIDE's D = 300, and the kernels' edges: D of 1, 31, 33, 64 and 301
+# (1, 2 or 4 floats per copy; one or several column tiles and slabs), W1
+# and W2 of 1, 7, 40 and 64, unequal (one or several row parts, partial
+# register tiles), M not a multiple of 4 (a partial measure group)
 PAIR_SHAPES = [(50, 40, 40, 50, 4), (7, 40, 40, 50, 4), (1, 40, 40, 50, 4),
                (50, 40, 40, 300, 4), (7, 40, 40, 300, 4),
-               (3, 64, 5, 33, 1), (2, 9, 64, 70, 3)]
+               (3, 64, 5, 33, 1), (2, 9, 64, 70, 3),
+               (1024, 40, 40, 50, 4), (1024, 64, 7, 50, 4),
+               (1, 1, 7, 1, 4), (7, 7, 1, 31, 4), (50, 64, 40, 33, 4),
+               (7, 40, 64, 64, 4), (50, 7, 40, 301, 4), (50, 40, 1, 300, 2),
+               (7, 40, 7, 64, 5), (1, 64, 64, 301, 4)]
+# dW must come out bit-identical across runs where its batch is split in
+# chunks: V4 at batch 50 and 1024, V4_WIDE
+DW_SHAPES = [(50, 40, 40, 50, 4), (1024, 40, 40, 50, 4), (50, 40, 40, 300, 4)]
 
 
 def _pair_operands(dev, n, w1, w2, d, m, seed=0):
@@ -298,9 +308,10 @@ def test_pair_map_kernels_match_plain(shape):
     _assert_close_to_max(tw.grad, dw, rtol["pair_maps_bwd_w"])
 
 
-def test_pair_map_dw_is_deterministic():
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_pair_map_dw_is_deterministic(shape):
     dev = _cuda()
-    q, a, w, g = _pair_operands(dev, 50, 40, 40, 50, 4)
+    q, a, w, g = _pair_operands(dev, *shape)
     runs = []
     for _ in range(2):
         tw = w.clone().requires_grad_(True)

@@ -128,3 +128,86 @@ def test_sim_cross_bilinear_gradients_match_jax(with_bias):
 def test_shapes_are_checked(shapes):
     with pytest.raises(ValueError):
         T.bilinear_pair_maps(*(torch.zeros(s) for s in shapes))
+
+
+# ------------------------------------------------- the kernels' launch plans
+# The CUDA kernels run only on a card; what the wrappers hand them (the
+# split of rows, columns and samples across blocks, threads and shared
+# memory) is plain Python, held here to the kernels' own limits.
+SMEM_LIMIT = 232448          # dynamic shared memory of one sm_90 block
+GEO_WIDTHS = (1, 7, 40, 64)
+GEO_DS = (1, 31, 33, 50, 64, 300, 301, 512, 1000, 4096)
+GEO_NS = (1, 7, 50, 1024)
+
+
+def _fwd_fits(geo, n, w1, w2, d, m):
+    parts = -(-w1 // geo.rows)
+    assert 1 <= geo.rows <= min(w1, 40) and geo.rows * (parts - 1) < w1
+    assert geo.te % 8 == 0 and geo.te * (geo.col_tiles - 1) < d \
+        <= geo.te * geo.col_tiles
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= 512
+    # a warp per two 16-column fragments of P^T; a 2-row x 8-column tile
+    # of the second product per thread
+    assert geo.threads // 32 * 2 >= geo.te * 4 // 16
+    assert -(-geo.rows // 8) * 4 * -(-w2 // 8) <= geo.threads
+    assert 0 < geo.smem <= SMEM_LIMIT
+
+
+def _dw_fits(geo, n, w1, w2, d, m):
+    # the chunks cover samples 0..N exactly, none of them empty
+    assert geo.chunks == -(-n // geo.n_per)
+    assert (geo.chunks - 1) * geo.n_per < n <= geo.chunks * geo.n_per
+    assert geo.chunks <= 65535
+    assert 1 <= geo.d_rows <= d and geo.te % 8 == 0 and geo.te <= 64
+    # one 8 x 8 tile of the panel per thread, for each of the 4 measures
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= 512
+    assert -(-geo.d_rows // 8) * (geo.te // 8) * 4 <= geo.threads
+    assert 0 < geo.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", GEO_DS)
+def test_launch_plans_fit_the_kernels(d):
+    for w1 in GEO_WIDTHS:
+        for w2 in GEO_WIDTHS:
+            for n in GEO_NS:
+                _fwd_fits(T.pair_maps_fwd_geometry(n, w1, w2, d, 4),
+                          n, w1, w2, d, 4)
+                _dw_fits(T.pair_maps_bwd_w_geometry(n, w1, w2, d, 4),
+                         n, w1, w2, d, 4)
+
+
+@pytest.mark.parametrize("shape", [(50, 40, 40, 50, 4), (1024, 40, 40, 50, 4),
+                                   (50, 40, 40, 300, 4), (1600, 40, 40, 50, 4),
+                                   (7, 40, 7, 64, 5), (3, 64, 1, 301, 9)])
+def test_launch_plans_depend_only_on_the_shape(shape):
+    first = (T.pair_maps_fwd_geometry(*shape),
+             T.pair_maps_bwd_w_geometry(*shape))
+    T.pair_maps_fwd_geometry.cache_clear()
+    T.pair_maps_bwd_w_geometry.cache_clear()
+    again = (T.pair_maps_fwd_geometry(*shape),
+             T.pair_maps_bwd_w_geometry(*shape))
+    assert first == again
+    _fwd_fits(first[0], *shape)
+    _dw_fits(first[1], *shape)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 50, 65, 68, 1024, 1600, 100_000])
+def test_dw_chunks_cover_the_batch(n):
+    geo = T.pair_maps_bwd_w_geometry(n, 40, 40, 50, 4)
+    starts = [c * geo.n_per for c in range(geo.chunks)]
+    ends = [min(n, s + geo.n_per) for s in starts]
+    assert starts[0] == 0 and ends[-1] == n
+    assert all(e > s for s, e in zip(starts, ends))
+    assert all(a == b for a, b in zip(ends, starts[1:]))
+
+
+@pytest.mark.parametrize("plan", [T.pair_maps_fwd_geometry,
+                                  T.pair_maps_bwd_w_geometry])
+@pytest.mark.parametrize("shape", [
+    (50, 40, 40, 50, 65536),                   # M past the grid
+    (50, 65, 40, 50, 4), (50, 40, 65, 50, 4),  # W past 64
+    (0, 40, 40, 50, 4), (50, 0, 40, 50, 4),    # empty
+    (50, 40, 40, 0, 4), (50, 40, 40, 50, 0)])
+def test_launch_plans_refuse_what_the_kernels_do_not_take(plan, shape):
+    with pytest.raises(ValueError):
+        plan(*shape)
