@@ -29,10 +29,14 @@ at the V4 recipe's widths, after building the hand-written kernels from
 and times the kernels, the engine and the train step.  The pair-map
 kernels are timed at batch 50 and 1024 (D = 50) and at V4_WIDE's D = 300
 (the forward also at the rerank's pairs), in turns with their einsums,
-each as a burst of launches between two CUDA events with the host's
-enqueue kept off the clock; every kernel's time is printed beside its
-bound (bytes over the HBM rate or operations over the peak, whichever is
-larger).
+the MaxSim kernels at 16 queries x 8,192 candidates and at 1 and 256
+queries x 262,144, each as a burst of launches between two CUDA events
+with the host's enqueue kept off the clock; every kernel's time is printed
+beside its bound (bytes over the HBM rate or operations over the peak,
+whichever is larger).  After the build it counts, in the SASS of each
+kernel, the Hopper tensor-core instructions (HGMMA, IGMMA), the legacy
+ones (HMMA, IMMA) and the TMA loads (UTMALDG), and fails unless every
+MaxSim kernel runs on wgmma alone.
 
 Exits non-zero, before printing any result, when no CUDA device is present
 or any phase fails.  The last line of stdout is
@@ -67,6 +71,8 @@ N_CHECK = 4                       # queries held against brute force
 KERNEL_POOLS = (8192, 8192 + 37)  # one ragged: the last tile is partial
 KERNEL_NQ = (1, 16, N_RERANK, N_QUERIES)  # latency, a batch, the main path
 TIMED_NQ, TIMED_POOL = 16, 8192
+SCAN_NQ = (1, N_QUERIES)          # MaxSim also timed at these x POOL
+SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG")
 FIT_STEPS, TEST_INTERVAL, BATCH = 301, 100, 50
 # training: (N, D) pair-map checks at W1 = W2 = 40, M = 4: V4 at batch 50
 # and 1024, ragged batches, the rerank's Nq x S pairs, V4_WIDE's D = 300,
@@ -148,6 +154,31 @@ def burst_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sass_counts(so: Path) -> dict:
+    """Per kernel of the built library (mangled name), the count of each of
+    SASS_OPS in its SASS, from the ``cuobjdump`` beside the ``nvcc`` that
+    built it."""
+    import os
+    import re
+
+    from mms_answer_selection_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            name = hit.group(1)
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if name and op and op.group(1) in SASS_OPS:
+            counts[name][op.group(1)] += 1
+    return counts
 
 
 def bound_ms(name: str, ops: float, nbytes: float) -> tuple[float, str]:
@@ -676,6 +707,12 @@ def main() -> int:
         if "entry function" in line or "registers" in line \
                 or "spill" in line:
             log(f"  {line.strip()}")
+    for fn, counts in sass_counts(so).items():
+        log(f"sass {fn}: {counts}")
+        if "maxsim" in fn and not (counts["HGMMA"] + counts["IGMMA"]
+                                   and counts["HMMA"] + counts["IMMA"] == 0):
+            raise AssertionError(f"{fn} does not run on wgmma alone: "
+                                 f"{counts}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -844,6 +881,14 @@ def main() -> int:
             f"{timed[name][0]:.4f} ms, plain {timed[name][1]:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}; {b_ms / timed[name][0]:.1%} of it "
             f"reached) [{card}]")
+        for nq in SCAN_NQ:
+            args = operands(name, nq, POOL)
+            ms = burst_ms(lambda: kernel(*args), 5 if nq > 1 else 50)
+            b_ms, b_by = maxsim_bound(name, args, nq * POOL * 4)
+            log(f"time {name} {nq}q x {POOL}: kernel {ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it reached) "
+                f"[{card}]")
+            del args
     for pd, eng in engines.items():
         one = sync_ms(lambda: eng.query(queries[:1], k=K), 20)
         full = sync_ms(lambda: eng.query(queries, k=K), 5)

@@ -10,176 +10,36 @@
 // in every pool token, so a padded token's dot product carries -1e30 and
 // never wins a max.  The kernel therefore needs no mask of its own.
 //
-// What bounds it on the H100: arithmetic.  A (query, candidate) pair costs
-// 2 * R * W2P * Dp flops (819 kflop at R=160, W2P=40, Dp=64) and the
-// candidate's 5 KB are reused by every query, so a batch of 256 queries does
-// about 40,000 flops per byte of pool it reads, far above the card's ~295
-// bf16 flops per byte.  Only a single query (about 160 flops per byte) leans
-// on memory bandwidth.
+// What bounds it on the H100: the tensor cores first, then the token max.
+// A (query, candidate) pair costs 2 * R * W2P * Dp flops (819 kflop at
+// R=160, W2P=40, Dp=64: at 989 TFLOP/s, 55.6 ms for 256 queries x 262,144
+// candidates on the padded width) and R * W2P max operations on the CUDA
+// cores (4.3e11 there).  The candidate's 5 KB are reused by every query, so
+// bytes bound only a single query (about 160 flops per byte).
 //
-// What the design does about it: the products run on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate).  The R x W2P similarity tile
-// of a pair lives only in registers: the max over tokens folds in registers
-// and across the 4 lanes of a quad, the sum over rows across the 8 quads of a
-// warp, so (Nq, C) scores are the only thing written to device memory.  A
-// block stages a tile of candidates in shared memory once (rows padded by 16
-// bytes, so fragment loads are free of bank conflicts) and all its warps
-// reuse it across their queries.  A warp holds the A fragments of 32 query
-// rows in registers for the whole tile, so each B fragment it loads from
-// shared memory feeds two MMAs.  Every candidate's score is summed in a fixed
-// order, so results are deterministic.
+// What the design does about it (maxsim_wgmma.cuh): the products run as
+// wgmma m64nNk16 on TMA-staged, 128-byte-swizzled shared-memory tiles (N =
+// 240 or 256 token columns, whole candidates); the query group's rows stay
+// resident; a producer warp keeps a ring of pool tiles in flight; two
+// consumer warpgroups take alternate tiles, so the token max of one (in
+// registers, then across the quad) runs while the other's products occupy
+// the tensor cores.  The R x W2P similarity tile of a pair never leaves the
+// SM: one value per (row, candidate) goes to shared memory and the row sum
+// is taken there in an order fixed by r and R, so scores are deterministic
+// and independent of the launch shape.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "maxsim_wgmma.cuh"
 
-namespace {
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A (16x16, row-major) * B (16x8, column-major), bf16 -> f32
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// KS: 16-lane k-steps along Dp (Dp = 16 * KS).  Block: nwarps warps, one
-// tile of tc <= 32 candidates and up to q_per_block queries.  Lane j of a
-// warp accumulates the score of candidate j of the tile.
-template <int KS>
-__global__ void __launch_bounds__(256)
-maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ qw,
-                   const __nv_bfloat16* __restrict__ pool,
-                   float* __restrict__ out, int nq, int r, int c, int w2p,
-                   int tc, int q_per_block) {
-  constexpr int DP = KS * 16;
-  constexpr int SROW = DP + 8;  // bf16 per staged token row
-  constexpr int CH = DP / 8;    // 16-byte chunks per token row
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-
-  const int c0 = blockIdx.x * tc;
-  const int n_c = min(tc, c - c0);  // the last tile may be ragged
-  const uint4* src =
-      reinterpret_cast<const uint4*>(pool + (size_t)c0 * w2p * DP);
-  for (int i = threadIdx.x; i < n_c * w2p * CH; i += blockDim.x) {
-    const int row = i / CH;
-    *reinterpret_cast<uint4*>(tile + row * SROW + (i - row * CH) * 8) =
-        src[i];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int g = lane >> 2, t = lane & 3;  // quad index, lane in quad
-  const int ntiles = w2p >> 3;
-  const int q_end = min(nq, (int)(blockIdx.y + 1) * q_per_block);
-  for (int q = blockIdx.y * q_per_block + warp; q < q_end; q += nwarps) {
-    const __nv_bfloat16* qrow = qw + (size_t)q * r * DP;
-    float acc = 0.f;
-    for (int r0 = 0; r0 < r; r0 += 32) {
-      // A fragments of rows r0..r0+31; rows past R are zero and add 0
-      uint32_t a[2][KS][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int ra = r0 + mt * 16 + g, rb = ra + 8;
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const int col = ks * 16 + t * 2;
-          a[mt][ks][0] = ra < r ? ld_u32(qrow + (size_t)ra * DP + col) : 0u;
-          a[mt][ks][1] = rb < r ? ld_u32(qrow + (size_t)rb * DP + col) : 0u;
-          a[mt][ks][2] =
-              ra < r ? ld_u32(qrow + (size_t)ra * DP + col + 8) : 0u;
-          a[mt][ks][3] =
-              rb < r ? ld_u32(qrow + (size_t)rb * DP + col + 8) : 0u;
-        }
-      }
-      for (int cc = 0; cc < n_c; ++cc) {
-        float mx[2][4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) mx[i >> 2][i & 3] = -INFINITY;
-        const __nv_bfloat16* cb = tile + (cc * w2p + g) * SROW + t * 2;
-        for (int nt = 0; nt < ntiles; ++nt) {
-          float d[2][4] = {};
-          const __nv_bfloat16* bp = cb + nt * 8 * SROW;
-#pragma unroll
-          for (int ks = 0; ks < KS; ++ks) {
-            const uint32_t b0 = ld_u32(bp + ks * 16);
-            const uint32_t b1 = ld_u32(bp + ks * 16 + 8);
-            mma_bf16_16816(d[0], a[0][ks], b0, b1);
-            mma_bf16_16816(d[1], a[1][ks], b0, b1);
-          }
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            mx[i >> 2][i & 3] = fmaxf(mx[i >> 2][i & 3], d[i >> 2][i & 3]);
-        }
-        // this lane holds tokens 2t, 2t+1 of rows g (regs 0-1) and g+8
-        // (regs 2-3) of each m-tile: max across the quad, then sum the 32
-        // rows across the 8 quads
-        float s = 0.f;
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          float lo = fmaxf(mx[mt][0], mx[mt][1]);
-          float hi = fmaxf(mx[mt][2], mx[mt][3]);
-          lo = fmaxf(lo, __shfl_xor_sync(0xffffffffu, lo, 1));
-          lo = fmaxf(lo, __shfl_xor_sync(0xffffffffu, lo, 2));
-          hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, 1));
-          hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, 2));
-          s += lo + hi;
-        }
-        s += __shfl_xor_sync(0xffffffffu, s, 4);
-        s += __shfl_xor_sync(0xffffffffu, s, 8);
-        s += __shfl_xor_sync(0xffffffffu, s, 16);
-        if (lane == cc) acc += s;
-      }
-    }
-    if (lane < n_c) out[(size_t)q * c + c0 + lane] = acc;
-  }
-}
-
-template <int KS>
-int launch(const void* qw, const void* pool, void* out, int nq, int r, int c,
-           int w2p, int tc, int nwarps, int q_per_block, cudaStream_t stream) {
-  const size_t smem = (size_t)tc * w2p * (KS * 16 + 8) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      maxsim_bf16_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((c + tc - 1) / tc, (nq + q_per_block - 1) / q_per_block);
-  maxsim_bf16_kernel<KS><<<grid, 32 * nwarps, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qw),
-      static_cast<const __nv_bfloat16*>(pool), static_cast<float*>(out), nq,
-      r, c, w2p, tc, q_per_block);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int maxsim_bf16(const void* qw, const void* pool, void* out, int nq,
-                           int r, int c, int w2p, int dp, int tc, int nwarps,
-                           int q_per_block, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dp) {
-    case 16: return launch<1>(qw, pool, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 32: return launch<2>(qw, pool, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 48: return launch<3>(qw, pool, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 64: return launch<4>(qw, pool, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 80: return launch<5>(qw, pool, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 96: return launch<6>(qw, pool, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 112: return launch<7>(qw, pool, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    case 128: return launch<8>(qw, pool, out, nq, r, c, w2p, tc, nwarps, q_per_block, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// qw (Nq, R, Dp) and pool (C, W2P, Dp) bf16, out (Nq, C) float32; the plan
+// from maxsim_geometry
+extern "C" int maxsim_bf16(const void* qw, const void* pool, void* out,
+                           int nq, int r, int c, int w2p, int dp, int g,
+                           int n_c, int w2s, int n, int stages,
+                           int tiles_per_unit, int grid, int device,
+                           void* stream) {
+  return maxsim::dispatch<maxsim::BF16>(qw, nullptr, pool, nullptr, out, nq,
+                                        r, c, w2p, dp, g, n_c, w2s, n, stages,
+                                        tiles_per_unit, grid, device, stream);
 }
 
 extern "C" const char* maxsim_error_string(int err) {

@@ -1,15 +1,16 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into an object, one process per
-source, all started together, and links the objects into one shared
+``nvcc`` compiles every ``csrc/*.cu`` into an object (the ``*.cuh``
+headers beside them are included), one process per source, all started
+together, and links the objects into one shared
 library with a plain C interface, loaded with ``ctypes``: pointers and the
 stream travel as ``c_void_p``, sizes as ``c_int``, and every C entry point
 returns the ``cudaError_t`` of its launch.  Nothing includes PyTorch's
 headers, so a build takes seconds.
 
 The library lands in ``<package>/build/`` under a name keyed on a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one
-is reused.  Importing this module builds nothing; the first CUDA launch
+the sources, headers included, and flags, so an edited source or header
+rebuilds and an unchanged one is reused.  Importing this module builds nothing; the first CUDA launch
 calls ``load_library``.
 """
 
@@ -31,15 +32,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures -> cudaError_t.  MaxSim: (pointers..., nq, r, c, w2p, dp, tc,
-# nwarps, q_per_block, device, stream); pair maps: (pointers..., n, w1, w2,
-# d, m, launch geometry..., device, stream), the geometry (rows, te,
-# threads) for the forward, (samples per chunk, d_rows, te, threads) for
-# dW, none for dQ/dA
+# C signatures -> cudaError_t.  MaxSim: (pointers..., nq, r, c, w2p, dp,
+# launch plan..., device, stream), the plan (queries per group, candidates
+# per tile, tokens per slab, tile width, stages, tiles per unit, grid) of
+# ``maxsim_geometry``; pair maps: (pointers..., n, w1, w2, d, m, launch
+# geometry..., device, stream), the geometry (rows, te, threads) for the
+# forward, (samples per chunk, d_rows, te, threads) for dW, none for dQ/dA
 _SIGNATURES = {
-    "maxsim_bf16": [_P, _P, _P] + [_I] * 9 + [_P],
-    "maxsim_int8": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
-    "maxsim_int4": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    "maxsim_bf16": [_P] * 3 + [_I] * 13 + [_P],
+    "maxsim_int8": [_P] * 5 + [_I] * 13 + [_P],
+    "maxsim_int4": [_P] * 5 + [_I] * 13 + [_P],
     "pair_maps_fwd": [_P] * 5 + [_I] * 9 + [_P],
     "pair_maps_bwd_qa": [_P] * 6 + [_I] * 6 + [_P],
     "pair_maps_bwd_w": [_P] * 5 + [_I] * 10 + [_P],
@@ -48,6 +50,11 @@ _SIGNATURES = {
 
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def _hashed() -> list[Path]:
+    """Every file a build reads: the sources and the headers they include."""
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
 
 
 def _nvcc() -> str:
@@ -65,7 +72,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _hashed():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"

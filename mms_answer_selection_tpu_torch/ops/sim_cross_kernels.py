@@ -84,6 +84,15 @@ _PM_STAGES = 2         # slabs in the forward's ring (STAGES)
 _PM_MFW = 2            # 16-column fragments of P^T per warp (MFW)
 _PM_MAX_ROWS = 40      # rows of q_n per forward block (8 x MAX_NF)
 _SMS = 132             # streaming multiprocessors of an H100 SXM
+# the MaxSim plan of csrc/maxsim_wgmma.cuh (constants of the same meaning
+# there), which maxsim_geometry sizes shared memory from
+_MS_TILE_N = (240, 256)   # wgmma widths the kernels are built for (N)
+_MS_MAX_CANDS = 32        # candidates per tile (kMaxCands)
+_MS_CONSUMERS = 2         # consumer warpgroups (kConsumers)
+_MS_ROW_TILE = 64         # query rows of one wgmma (kRowTile)
+_MS_MAX_GROUP = 8         # queries per group, at most
+_MS_STAGES = (3, 2, 6)    # pool tiles in the ring: wanted, fewest, most
+_MS_WAVES = 32            # units per block the split of the pool aims at
 
 
 def _round_up(x: int, m: int) -> int:
@@ -413,9 +422,9 @@ def bilinear_maxsim_scores(qw, pool):
         raise ValueError(f"maxsim_bf16 takes Dp in 16..128 step 16, got {dp}")
     c, w2p = pool.shape[0], pool.shape[1]
     out = torch.empty((nq, c), dtype=torch.float32, device=qw.device)
-    tc, nwarps, qpb = _launch_shape(nq, w2p * (dp + 8) * 2)
+    geo = maxsim_geometry(nq, r, c, w2p, dp, "bf16")
     _launch("maxsim_bf16", qw, qw.data_ptr(), pool.data_ptr(),
-            out.data_ptr(), nq, r, c, w2p, dp, tc, nwarps, qpb)
+            out.data_ptr(), nq, r, c, w2p, dp, *_plan_args(geo))
     return out
 
 
@@ -520,7 +529,7 @@ def _maxsim_quantized(name, plain, pool_dtype, lanes_per_byte, qw,
                       q_scales, pool, aux):
     """The int8 and int4 wrappers: checks, then the plain version on CPU
     tensors or kernel ``name`` on CUDA ones (the staged tile is int8 in
-    both, so they share a launch shape)."""
+    both, so they share a launch plan)."""
     nq, r, dp = _check_shapes(qw, pool, lanes_per_byte)
     c, w2p = pool.shape[0], pool.shape[1]
     if tuple(q_scales.shape) != (nq, r) or tuple(aux.shape) != (c, 2):
@@ -537,10 +546,10 @@ def _maxsim_quantized(name, plain, pool_dtype, lanes_per_byte, qw,
         raise ValueError(f"{name} takes Dp in 32..256 step 32, got {dp}")
     sq = q_scales.to(torch.bfloat16).to(torch.float32)
     out = torch.empty((nq, c), dtype=torch.float32, device=qw.device)
-    tc, nwarps, qpb = _launch_shape(nq, w2p * (dp + 16))
+    geo = maxsim_geometry(nq, r, c, w2p, dp, name[-4:])
     _launch(name, qw, qw.data_ptr(), sq.data_ptr(), pool.data_ptr(),
-            aux.data_ptr(), out.data_ptr(), nq, r, c, w2p, dp, tc, nwarps,
-            qpb)
+            aux.data_ptr(), out.data_ptr(), nq, r, c, w2p, dp,
+            *_plan_args(geo))
     return out
 
 
@@ -687,17 +696,94 @@ def _check_cuda_operands(align=16, **operands):
             raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-def _launch_shape(nq: int, cand_smem_bytes: int) -> tuple[int, int, int]:
-    """(candidates per block, warps per block, queries per block).  A warp
-    scores whole queries, so small batches get small blocks with small
-    candidate tiles (more blocks resident per SM); a tile is at most 32
-    candidates (one per lane) and must fit in shared memory."""
-    nwarps = min(8, nq)
-    tc = min(16 if nq >= 8 else 4, _SMEM_BYTES // cand_smem_bytes)
-    if tc < 1:
-        raise ValueError(f"one candidate needs {cand_smem_bytes} bytes of "
-                         f"shared memory, more than a block has")
-    return tc, nwarps, 64
+class MaxSimGeometry(NamedTuple):
+    """Launch of a MaxSim kernel: ``grid`` persistent blocks walk ``units``
+    = ``n_groups`` query groups of ``g`` queries x ranges of
+    ``tiles_per_unit`` pool tiles (unit u: group u % n_groups, range u //
+    n_groups); a tile is ``n_c`` whole candidates in one ``n``-column
+    wgmma, or, where a candidate has more than 256 tokens, one of its
+    ``slabs`` parts of ``w2s`` tokens; ``stages`` tiles in the ring;
+    ``smem`` bytes of dynamic shared memory."""
+    g: int
+    n_c: int
+    w2s: int
+    slabs: int
+    n: int
+    stages: int
+    tiles_per_unit: int
+    n_groups: int
+    n_tiles: int
+    units: int
+    grid: int
+    smem: int
+
+
+def maxsim_smem(r: int, dp: int, dtype: str, g: int, n_c: int, n: int,
+                stages: int) -> int:
+    """Dynamic shared memory of a MaxSim plan, as ``make_plan`` of
+    csrc/maxsim_wgmma.cuh lays it out: the ring (tiles of n token rows,
+    each rounded to 1 KB), the group's query rows (64-row tiles), for
+    each consumer a (row, candidate) term buffer (pitch n_c | 1) and, for
+    int8 and int4, a buffer of row scales, the mbarriers and 1 KB to
+    align."""
+    row_bytes = dp * (2 if dtype == "bf16" else 1)
+    rows = _round_up(g * r, _MS_ROW_TILE)
+    return (1024 + stages * _round_up(n * row_bytes, 1024) + rows * row_bytes
+            + _MS_CONSUMERS * rows * (n_c | 1) * 4
+            + (0 if dtype == "bf16" else _MS_CONSUMERS * rows * 4)
+            + (2 * stages + 2) * 8)
+
+
+@functools.lru_cache(maxsize=256)
+def maxsim_geometry(nq: int, r: int, c: int, w2p: int, dp: int,
+                    dtype: str) -> MaxSimGeometry:
+    """The launch of a MaxSim kernel (``dtype`` "bf16", "int8" or "int4")
+    for one shape, from the shape alone.  A candidate's W2P tokens are one
+    slab up to 256, else slabs of the largest multiple of 8 up to 256 that
+    divides W2P.  The tile width n is the one of 240 and 256 that holds
+    the most whole slabs (the narrower on a tie; the other where nothing
+    fits), n_c = n // W2S of them (at most 32; fewer only where nothing
+    else fits); at W2P = 40 (V4's answers) six whole candidates fill 240
+    columns, and the kernel has a path of its own for them.  Groups of up
+    to 8 queries, the most that leave room for 3 tiles in the ring (2
+    where no group does); then as many tiles as fit, up to 6.  The pool's
+    tiles split into ranges so that there are about 32 units per block of
+    one wave (at least a tile a range for each consumer), and the grid is
+    at most one block per SM.  Raises ValueError for a shape the kernel
+    does not take."""
+    es = 2 if dtype == "bf16" else 1
+    if not (nq >= 1 and r >= 1 and c >= 1 and w2p >= 8 and w2p % 8 == 0
+            and 32 <= dp * es <= 256 and dp * es % 32 == 0):
+        raise ValueError(f"no MaxSim plan for Nq={nq} R={r} C={c} W2P={w2p}"
+                         f" Dp={dp} ({dtype})")
+    w2s = w2p if w2p <= 256 else 8 * max(
+        d for d in range(1, 33) if (w2p // 8) % d == 0)
+    slabs = w2p // w2s
+    fits = [(n, n_c, g, s)
+            for n in sorted(_MS_TILE_N, key=lambda n: (-(n // w2s * w2s), n))
+            for n_c in range(min(_MS_MAX_CANDS, n // w2s) if slabs == 1
+                             else 1, 0, -1)
+            for least in _MS_STAGES[:2]
+            for g in range(min(nq, _MS_MAX_GROUP), 0, -1)
+            for s in range(_MS_STAGES[2], least - 1, -1)
+            if maxsim_smem(r, dp, dtype, g, n_c, n, s) <= _SMEM_BYTES]
+    if not fits:
+        raise ValueError(f"R={r} query rows need more shared memory than a "
+                         f"block has (Dp={dp}, {dtype})")
+    n, n_c, g, stages = fits[0]
+    n_groups, n_tiles = _cdiv(nq, g), _cdiv(c, n_c)
+    per = min(n_tiles, max(_MS_CONSUMERS,
+                           _cdiv(n_tiles * n_groups, _SMS * _MS_WAVES)))
+    units = n_groups * _cdiv(n_tiles, per)
+    return MaxSimGeometry(g, n_c, w2s, slabs, n, stages, per, n_groups,
+                          n_tiles, units, min(_SMS, units),
+                          maxsim_smem(r, dp, dtype, g, n_c, n, stages))
+
+
+def _plan_args(geo: MaxSimGeometry) -> tuple[int, ...]:
+    """The plan as the C entry points take it, after (..., dp)."""
+    return (geo.g, geo.n_c, geo.w2s, geo.n, geo.stages, geo.tiles_per_unit,
+            geo.grid)
 
 
 def _launch(name: str, like: torch.Tensor, *args):

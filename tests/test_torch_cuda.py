@@ -105,6 +105,88 @@ def test_int4_kernel_matches_plain_and_int8_kernel(shape):
     assert torch.equal(got, as_int8)
 
 
+def _scorer(dtype, q, cand, w):
+    """(kernel, plain, operands) of one dtype for queries q and candidates
+    cand under the metric w."""
+    if dtype == "bf16":
+        return (T.bilinear_maxsim_scores, T.bilinear_maxsim_scores_plain,
+                (T.project_queries(q, w), T.pack_candidate_pool(cand)))
+    if dtype == "int8":
+        return (T.bilinear_maxsim_scores_int8,
+                T.bilinear_maxsim_scores_int8_plain,
+                (*T.project_queries_int8(q, w),
+                 *T.pack_candidate_pool_int8(cand)))
+    return (T.bilinear_maxsim_scores_int4,
+            T.bilinear_maxsim_scores_int4_plain,
+            (*T.project_queries_int4(q, w), *T.pack_candidate_pool_int4(cand)))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int4"])
+def test_a_pairs_score_does_not_depend_on_the_launch_shape(dtype):
+    """One (query, candidate) pair scored with the query alone and at
+    positions 0, 1 and 3 of a batch of 5, the candidate at offsets 0, 1
+    and tile - 1 of pools of 1, tile - 1, tile + 1 and 8,192 + 37
+    candidates: the same bits every time, within the tolerance of the
+    plain version."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((1, 40, 50), generator=g, device=dev) * 0.3
+    y = torch.randn((1, 40, 50), generator=g, device=dev) * 0.3
+    w = torch.randn((4, 50, 50), generator=g, device=dev) * 0.05
+    others = torch.randn((4, 40, 50), generator=g, device=dev) * 0.3
+    tile = T.maxsim_geometry(5, 160, 8192, 40, 64, dtype).n_c
+    batches = [(x, 0)] + [(torch.cat([others[:i], x, others[i:]]), i)
+                          for i in (0, 1, 3)]
+    seen = []
+    for c in (1, tile - 1, tile + 1, 8192 + 37):
+        filler = torch.randn((c, 40, 50), generator=g, device=dev) * 0.3
+        for off in {0, 1, tile - 1} & set(range(c)):
+            cand = filler.clone()
+            cand[off] = y[0]
+            for q, pos in batches:
+                kernel, plain, args = _scorer(dtype, q, cand, w)
+                got = kernel(*args)
+                torch.cuda.synchronize()
+                seen.append(got[pos, off].view(1))
+                if c > 1 and pos in (0, 3):
+                    _assert_close(got, plain(*args),
+                                  T.KERNEL_VS_PLAIN_RTOL["maxsim_" + dtype])
+    seen = torch.cat(seen)
+    assert len(seen) >= 30 and torch.equal(seen, seen[:1].expand_as(seen))
+
+
+# every Dp the wrappers take, at its ends, at W2P = 8, 24 and 40 (W2 = 8,
+# 21 and 37: padded tokens too); D sets Dp (bf16: D + 1 rounded to 16;
+# int8 and int4: D rounded to 32)
+DP_SHAPES = [(dtype, d, w2) for dtype, ds in (("bf16", (15, 127)),
+                                              ("int8", (20, 256)),
+                                              ("int4", (20, 256)))
+             for d in ds for w2 in (8, 21, 37)]
+
+
+@pytest.mark.parametrize("shape", DP_SHAPES)
+def test_every_dp_and_w2p_the_wrappers_take(shape):
+    dtype, d, w2 = shape
+    dev = _cuda()
+    q, cand, w = _operands(dev, 7, 301, w2, 40, 4, d)
+    kernel, plain, args = _scorer(dtype, q, cand, w)
+    if dtype != "bf16":
+        args = (*args[:3], T.mask_candidate_rows_int8(
+            args[3], torch.tensor([0, 300], device=dev)))
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    live = slice(1, 300) if dtype != "bf16" else slice(None)
+    _assert_close(got[:, live], want[:, live],
+                  T.KERNEL_VS_PLAIN_RTOL["maxsim_" + dtype])
+    if dtype != "bf16":                       # masked rows score the mask
+        assert torch.equal(got[:, [0, 300]], want[:, [0, 300]])
+    if dtype == "int4":
+        qi, qs, pool, aux = args
+        assert torch.equal(got, T.bilinear_maxsim_scores_int8(
+            qi, qs, T.unpack_int4(pool), aux))
+
+
 def test_masked_bf16_candidates_never_win():
     dev = _cuda()
     q, cand, w = _operands(dev, 4, 100, 40, 5, 4, 50)

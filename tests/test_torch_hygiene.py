@@ -54,14 +54,20 @@ for call in (lambda: resolve_device("cuda"), lambda: resolve_device(None),
 # the operands are made to look as if they were on a card
 q, a, w = torch.ones(2, 3, 4), torch.ones(2, 5, 4), torch.ones(1, 4, 4)
 sk._on_cpu = lambda *tensors: False
+qw, pool = torch.zeros(2, 3, 64, dtype=torch.bfloat16), torch.zeros(5, 8, 64, dtype=torch.bfloat16)
+qi, qs = torch.zeros(2, 3, 64, dtype=torch.int8), torch.ones(2, 3)
+aux = torch.ones(5, 2, dtype=torch.bfloat16)
 for call in (lambda: sk.bilinear_pair_maps(q, a, w),
-             lambda: sk.bilinear_pair_maps(q, a, w.requires_grad_()).sum().backward()):
+             lambda: sk.bilinear_pair_maps(q, a, w.requires_grad_()).sum().backward(),
+             lambda: sk.bilinear_maxsim_scores(qw, pool),
+             lambda: sk.bilinear_maxsim_scores_int8(qi, qs, torch.zeros(5, 8, 64, dtype=torch.int8), aux),
+             lambda: sk.bilinear_maxsim_scores_int4(qi, qs, torch.zeros(5, 8, 32, dtype=torch.uint8), aux)):
     try:
         call()
     except RuntimeError as e:
         assert "nvcc" in str(e), e
     else:
-        raise AssertionError("the pair maps fell back")
+        raise AssertionError("a kernel fell back")
 assert sum(sk.LAUNCH_COUNTS.values()) == 0
 print("raised")
 """
@@ -102,6 +108,21 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
     res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0 and '"ok": true' not in res.stdout
+
+
+def test_library_key_covers_headers(tmp_path, monkeypatch):
+    """An edited header (csrc/*.cuh) names a new library, so a build never
+    reuses one compiled from the old header."""
+    from mms_answer_selection_tpu_torch.ops import _build
+
+    for src in _build.CSRC.iterdir():
+        shutil.copy(src, tmp_path / src.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    header = tmp_path / "maxsim_wgmma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() != before
+    assert len(_build._sources()) == 3        # headers are not compiled
 
 
 def test_load_library_raises_without_nvcc():

@@ -210,3 +210,89 @@ def test_wrappers_reject_bad_operands():
     p8, aux = T.pack_candidate_pool_int8(cand)
     with pytest.raises(ValueError):           # aux does not fit the pool
         T.bilinear_maxsim_scores_int8(qi, qs, p8, aux[:4])
+
+
+# ------------------------------------------------------ MaxSim launch plans
+# The plan of the CUDA kernels is pure Python (``maxsim_geometry``), so it
+# is checked here: the kernels walk units u = block, block + grid, ... and
+# unit u is query group u % n_groups against the pool tiles of range
+# u // n_groups.  Legal wgmma widths from the PTX ISA: f32 += bf16 * bf16
+# takes any multiple of 8 up to 256; s32 += s8 * s8 takes 8, 16, 24, 32,
+# then multiples of 16 up to 256.
+_S8_WIDTHS = {8, 16, 24, 32} | set(range(48, 257, 16))
+_PLAN_SWEEP = [(nq, r, c, w2p, dp, dtype)
+               for nq, r, c in [(1, 160, 262_144), (256, 160, 262_144),
+                                (16, 160, 8192), (5, 160, 8192 + 37),
+                                (1, 20, 1), (3, 20, 37), (70, 160, 200),
+                                (1, 160, 2000), (9, 3 * 4, 1000)]
+               for w2p, dp, dtype in [(40, 64, "bf16"), (40, 64, "int8"),
+                                      (40, 64, "int4"), (8, 128, "bf16"),
+                                      (24, 16, "bf16"), (8, 256, "int8"),
+                                      (24, 32, "int4"), (296, 64, "bf16"),
+                                      (512, 96, "int8")]]
+
+
+def _visits(geo):
+    """How often the kernels visit each (query group, pool tile): every
+    block walks units u = block, block + grid, ...; a unit is group u %
+    n_groups against the tiles of range u // n_groups (each tile with all
+    of its slabs)."""
+    seen = np.zeros((geo.n_groups, geo.n_tiles), np.int32)
+    for block in range(geo.grid):
+        for u in range(block, geo.units, geo.grid):
+            t0 = u // geo.n_groups * geo.tiles_per_unit
+            seen[u % geo.n_groups, t0:t0 + geo.tiles_per_unit] += 1
+    return seen
+
+
+@pytest.mark.parametrize("shape", _PLAN_SWEEP)
+def test_maxsim_plan_covers_every_pair_once(shape):
+    nq, r, c, w2p, dp, dtype = shape
+    geo = T.maxsim_geometry(*shape)
+    assert np.all(_visits(geo) == 1)
+    rows = np.zeros(nq * r, np.int64)          # query rows, by group
+    for grp in range(geo.n_groups):
+        rows[grp * geo.g * r:(grp + 1) * geo.g * r] += 1
+    assert np.all(rows == 1)
+    cands = np.zeros(c, np.int64)              # candidates, by tile
+    for t in range(geo.n_tiles):
+        cands[t * geo.n_c:(t + 1) * geo.n_c] += 1
+    assert np.all(cands == 1)
+    toks = np.zeros(w2p, np.int64)             # a candidate's tokens, by slab
+    for s in range(geo.slabs):
+        toks[s * geo.w2s:(s + 1) * geo.w2s] += 1
+    assert np.all(toks == 1)
+
+
+@pytest.mark.parametrize("shape", _PLAN_SWEEP)
+def test_maxsim_plan_fits_the_card(shape):
+    nq, r, c, w2p, dp, dtype = shape
+    geo = T.maxsim_geometry(*shape)
+    assert geo.n in (_S8_WIDTHS if dtype != "bf16" else range(8, 257, 8))
+    assert geo.n in (240, 256)                 # the widths that are built
+    assert geo.w2s % 8 == 0 and geo.n_c * geo.w2s <= geo.n
+    assert 1 <= geo.n_c <= 32 and (geo.slabs == 1 or geo.n_c == 1)
+    assert 1 <= geo.g <= min(nq, 8) and 2 <= geo.stages <= 6
+    assert geo.smem == T.maxsim_smem(r, dp, dtype, geo.g, geo.n_c, geo.n,
+                                     geo.stages) <= 232_448
+    assert 1 <= geo.grid <= min(132, geo.units) and geo.grid <= 65_535
+
+
+def test_maxsim_plan_keeps_the_serving_shape_whole():
+    """V4 at 256 queries x 262,144: six whole candidates a 240-column tile
+    (the kernel's own path for W2P = 40), no padded query rows (4 x 160 =
+    10 row tiles), one wave of blocks."""
+    geo = T.maxsim_geometry(256, 160, 262_144, 40, 64, "bf16")
+    assert (geo.n, geo.n_c, geo.g, geo.grid) == (240, 6, 4, 132)
+    assert T.maxsim_geometry(1, 160, 262_144, 40, 64, "int8").g == 1
+
+
+@pytest.mark.parametrize("shape", [(1, 160, 10, 44, 64, "bf16"),
+                                   (1, 160, 10, 40, 72, "bf16"),
+                                   (1, 160, 10, 40, 48, "int8"),
+                                   (1, 160, 10, 40, 288, "int4"),
+                                   (0, 160, 10, 40, 64, "bf16"),
+                                   (1, 4000, 10, 40, 128, "bf16")])
+def test_maxsim_plan_refuses_what_the_kernels_do_not_take(shape):
+    with pytest.raises(ValueError):
+        T.maxsim_geometry(*shape)
