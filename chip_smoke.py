@@ -25,9 +25,16 @@ at the V4 recipe's widths, after building the hand-written kernels from
   every 100 steps), holding the best params' test-split probabilities
   against the CPU's and scoring them through ``trec_eval`` against the
   in-process MAP/MRR;
+* V4_WIDE (D = 300) and long sentences: each MaxSim kernel against its
+  plain version at D = 300 (rows past 256 bytes, the K-sliced plan) and
+  at R = 800 query rows (W1 = 200, D = 50 and 300), a 262,144-candidate
+  V4_WIDE engine of each dtype in turn, freed before the next, through
+  the same checks as V4's, the pair-map kernels at (W1, W2) past 64 rows
+  at D = 50 and 300, one V4_WIDE train step on the card against the CPU,
+  and its step p50 at batch 50 and 1024;
 
 and times the kernels, the engine and the train step.  The pair-map
-kernels are timed at batch 50 and 1024 (D = 50) and at V4_WIDE's D = 300
+kernels are timed at batch 50 and 1024 at D = 50 and at V4_WIDE's D = 300
 (the forward also at the rerank's pairs), in turns with their einsums,
 the MaxSim kernels at 16 queries x 8,192 candidates and at 1 and 256
 queries x 262,144, each as a burst of launches between two CUDA events
@@ -44,7 +51,8 @@ or any phase fails.  The last line of stdout is
 the line before it lists every kernel with its launches on the main path,
 its error against the plain version, its time, the plain version's, the
 bound and what sets it, and the one-call library time (null where no
-single PyTorch call computes the function).
+single PyTorch call computes the function).  About 100-120 s on an
+H100, build included, peaking near 27 GiB of device memory.
 """
 
 from __future__ import annotations
@@ -84,9 +92,17 @@ PAIR_CHECKS = ((BATCH, D), (7, D), (1, D), (1024, D),
                (BATCH, 301))
 # pair-map times: the recipe's batch, batch 1024, V4_WIDE; the forward also
 # at the rerank's Nq x S pairs.  The kernels line reports the first.
-PAIR_TIMED = ((BATCH, D), (1024, D), (BATCH, 300))
+PAIR_TIMED = ((BATCH, D), (1024, D), (BATCH, 300), (1024, 300))
 FWD_TIMED = ((N_RERANK * SHORTLIST, D),)
 TRAIN_Q, DEV_Q, TEST_Q = 1250, 65, 68
+# V4_WIDE (GloVe-300d) at full width: its MaxSim rows are 608 / 320 bytes,
+# past the resident plan (K-sliced); R = 800 query rows (W1 = 200) at D =
+# 50 and 300; pair maps at long sentences, (W1, W2) past 64 rows, dW
+# bit-identical twice at each
+WIDE_D = 300
+R800_W1 = 200
+LONG_PAIRS = ((100, 100), (65, 40), (40, 100), (200, 64))
+WIDE_STEP_BATCHES = (BATCH, 1024)
 # |P(correct)| card vs CPU on the same weights and pairs: float32 on both,
 # only the summation order of the pair maps, convs and MLP differs
 PROB_ATOL = 1e-4
@@ -204,56 +220,59 @@ def pair_bound(name: str, n: int, d: int) -> tuple[float, str]:
     return bound_ms(name, ops, 4 * floats)
 
 
-def maxsim_bound(name: str, args, out_bytes: int) -> tuple[float, str]:
+def maxsim_bound(name: str, args, out_bytes: int,
+                 d: int = D) -> tuple[float, str]:
     """``bound_ms`` of a MaxSim kernel: 2 x (Nq M W1) x C x W2 x D
     operations (the unpadded widths), the operands as given read once and
     the scores written once."""
     nq, c = args[0].shape[0], args[2 if len(args) > 2 else 1].shape[0]
-    ops = 2 * nq * M * W1 * c * W2 * D
+    ops = 2 * nq * M * W1 * c * W2 * d
     nbytes = sum(t.numel() * t.element_size() for t in args) + out_bytes
     return bound_ms(name, ops, nbytes)
 
 
-def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
-    """The training path: pair-map kernels against their plain versions,
-    one train step on the card against the CPU, ``fit`` on the recipe-sized
-    synthetic corpus with the ``trec_eval`` cross-check, and the times.
-    Fills ``max_err`` and ``timed`` for the pair-map kernels and returns
-    the launch counts of the ``fit`` run."""
-    import dataclasses
-    import tempfile
-
-    import numpy as np
-
+def recipe_corpus(dim: int):
+    """The recipe-sized synthetic TREC-QA corpus (50,093 / 1,195 / 1,569
+    pairs) with embeddings of ``dim`` lanes: (splits, vocab info, host
+    prep seconds)."""
     from mms_answer_selection_tpu_torch.data import (
         prepare_trec_qa, synthetic_split, synthetic_world)
-    from mms_answer_selection_tpu_torch.metrics import (
-        mean_average_precision, mean_reciprocal_rank, trec_eval,
-        write_trec_files)
-    from mms_answer_selection_tpu_torch.models.mms_qa import V4
-    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
-    from mms_answer_selection_tpu_torch.training import (
-        SolverConfig, Trainer, TrainerConfig)
-    from mms_answer_selection_tpu_torch.utils.tree import tree_map
 
-    # ------------------------------------------ recipe-sized corpus
     t0 = time.perf_counter()
-    world = synthetic_world(vocab_words=22500, n_topics=250, dim=D, seed=22)
+    world = synthetic_world(vocab_words=22500, n_topics=250, dim=dim, seed=22)
     splits, info = prepare_trec_qa(
         synthetic_split(world, TRAIN_Q, 30, 50, seed=101),
         synthetic_split(world, DEV_Q, 12, 24, seed=202),
         synthetic_split(world, TEST_Q, 15, 29, seed=303), world["w2v"])
     prep_s = time.perf_counter() - t0
-    log(f"data: {({k: len(v['label']) for k, v in splits.items()})} pairs, "
-        f"vocab {info['vocab_size']}, host prep {prep_s:.3f} s")
+    log(f"data (D={dim}): {({k: len(v['label']) for k, v in splits.items()})}"
+        f" pairs, vocab {info['vocab_size']}, host prep {prep_s:.3f} s")
+    return splits, info, prep_s
 
-    # ------------------------------------- pair-map kernels vs plain
-    def pair_operands(n, d):
-        return (normal(n, W1, d, scale=0.3), normal(n, W2, d, scale=0.3),
-                normal(M, d, d, scale=0.05), normal(n, W1, W2, M))
 
+def recipe_trainer():
+    """The recipe's solver and schedule: AdaDelta, batch 50, dev MAP every
+    100 steps."""
+    from mms_answer_selection_tpu_torch.training import (
+        SolverConfig, TrainerConfig)
+
+    recipe = SolverConfig(solver_type="adadelta", base_lr=1.0, momentum=0.95,
+                          delta=5e-7, weight_decay=5e-4)
+    return TrainerConfig(solver=recipe, max_iter=FIT_STEPS, batch_size=BATCH,
+                         test_interval=TEST_INTERVAL, seed=22)
+
+
+def pair_operands(normal, n: int, d: int, w1: int = W1, w2: int = W2):
+    """q, a, W and dL/dout of a pair-map call at M = 4."""
+    return (normal(n, w1, d, scale=0.3), normal(n, w2, d, scale=0.3),
+            normal(M, d, d, scale=0.05), normal(n, w1, w2, M))
+
+
+def pair_kernels(sk) -> dict:
+    """kernel -> (wrapper, plain version), each taking (q, a, W, G) and
+    giving a list of outputs."""
     grads_plain = sk.bilinear_pair_maps_grads_plain
-    pairs = {  # kernel -> (wrapper, plain version), each giving a list
+    return {
         "pair_maps_fwd": (lambda q, a, w, g: [sk.pair_maps_fwd(q, a, w)],
                           lambda q, a, w, g: [
                               sk.bilinear_pair_maps_plain(q, a, w)]),
@@ -263,46 +282,50 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
         "pair_maps_bwd_w": (lambda *o: [sk.pair_maps_bwd_w(*o)],
                             lambda *o: [grads_plain(*o, need_qa=False)[2]]),
     }
-    sizes = (len(splits["dev"]["label"]), len(splits["test"]["label"]))
-    for n, d in PAIR_CHECKS + tuple((n, D) for n in sizes):
-        ops = pair_operands(n, d)
-        for name, (kernel, plain) in pairs.items():
-            got = kernel(*ops)
-            torch.cuda.synchronize()
-            want = plain(*ops)
-            torch.cuda.synchronize()
-            rtol = sk.KERNEL_VS_PLAIN_RTOL[name]
-            for x, y in zip(got, want):
-                if x.shape != y.shape or not torch.isfinite(x).all():
-                    raise AssertionError(f"{name}: bad output {x.shape}")
-                err = float((x - y).abs().max())
-                rel = err / float(y.abs().max())
-                max_err[name] = max(max_err[name], err)
-                log(f"check {name} N={n} D={d} out {tuple(x.shape)}: "
-                    f"max_abs_err {err:.3e}, max_rel_err {rel:.3e} (rtol "
-                    f"{rtol:g} of the output's max |value|)")
-                if rel > rtol:
-                    raise AssertionError(f"{name} disagrees with its plain "
-                                         f"version: {rel:.3e} > {rtol:g}")
-        if not torch.equal(sk.pair_maps_bwd_w(*ops), sk.pair_maps_bwd_w(*ops)):
-            raise AssertionError(f"pair_maps_bwd_w: dW differs between two "
-                                 f"runs at N={n} D={d}")
-    log("check pair_maps_bwd_w: dW bit-identical across two runs at every "
-        "shape")
 
-    recipe = SolverConfig(solver_type="adadelta", base_lr=1.0, momentum=0.95,
-                          delta=5e-7, weight_decay=5e-4)
-    tcfg = TrainerConfig(solver=recipe, max_iter=FIT_STEPS, batch_size=BATCH,
-                         test_interval=TEST_INTERVAL, seed=22)
-    model = dataclasses.replace(V4, vocab_size=info["vocab_size"])
 
-    # -------------------------------------- one step, card vs CPU
-    # xavier W and no dropout: a well-conditioned step that both devices
-    # compute without randomness.  Loss within 1e-5 relative; every param
-    # within rtol 1e-4 + atol 1e-5, except the conv biases: each feeds a
-    # train-mode BN, so its true gradient is 0 and each device moves it by
-    # AdaDelta's normalized step (at most lr_mult 2 x ADADELTA_STEP) in a
-    # direction set by rounding noise.
+def check_pair_kernels(sk, pairs: dict, ops, max_err: dict) -> None:
+    """Each pair-map kernel against its plain version on ``ops``, within
+    ``KERNEL_VS_PLAIN_RTOL`` of the output's max |value|, and dW twice,
+    bit for bit."""
+    n, w1, d = ops[0].shape
+    w2 = ops[1].shape[1]
+    for name, (kernel, plain) in pairs.items():
+        got = kernel(*ops)
+        torch.cuda.synchronize()
+        want = plain(*ops)
+        torch.cuda.synchronize()
+        rtol = sk.KERNEL_VS_PLAIN_RTOL[name]
+        for x, y in zip(got, want):
+            if x.shape != y.shape or not torch.isfinite(x).all():
+                raise AssertionError(f"{name}: bad output {x.shape}")
+            err = float((x - y).abs().max())
+            rel = err / float(y.abs().max())
+            max_err[name] = max(max_err[name], err)
+            log(f"check {name} N={n} W1={w1} W2={w2} D={d} out "
+                f"{tuple(x.shape)}: max_abs_err {err:.3e}, max_rel_err "
+                f"{rel:.3e} (rtol {rtol:g} of the output's max |value|)")
+            if rel > rtol:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {rel:.3e} > {rtol:g}")
+    if not torch.equal(sk.pair_maps_bwd_w(*ops), sk.pair_maps_bwd_w(*ops)):
+        raise AssertionError(f"pair_maps_bwd_w: dW differs between two runs "
+                             f"at N={n} W1={w1} W2={w2} D={d}")
+
+
+def step_card_vs_cpu(model, tcfg, splits, info, dev, label: str) -> None:
+    """One train step on the card against the same step on the CPU.
+    Xavier W and no dropout: a well-conditioned step that both devices
+    compute without randomness.  Loss within 1e-5 relative; every param
+    within rtol 1e-4 + atol 1e-5, except the conv biases: each feeds a
+    train-mode BN, so its true gradient is 0 and each device moves it by
+    AdaDelta's normalized step (at most lr_mult 2 x ADADELTA_STEP) in a
+    direction set by rounding noise."""
+    import dataclasses
+
+    from mms_answer_selection_tpu_torch.training import Trainer
+    from mms_answer_selection_tpu_torch.utils.tree import tree_map
+
     still = dataclasses.replace(model, sim_weight_init="xavier",
                                 sim_dropout=0.0, fc1_dropout=0.0)
     rows = {k: torch.as_tensor(v[:BATCH]) for k, v in splits["train"].items()
@@ -328,14 +351,69 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
                 ok = torch.allclose(got, want, rtol=1e-4, atol=1e-5)
                 worst = max(worst, diff)
             if not ok:
-                raise AssertionError(f"train step: {name}.{k} differs between "
-                                     f"card and CPU by {diff:.3e}")
-    log(f"check train step card vs CPU (V4, batch {BATCH}, xavier W, no "
-        f"dropout): loss {float(gpu['loss']):.6f}, rel err {loss_rel:.3e} "
-        f"(tol 1e-5); params max abs diff {worst:.3e} (rtol 1e-4, atol 1e-5;"
-        f" conv biases within {band:.3e})")
+                raise AssertionError(f"train step {label}: {name}.{k} differs "
+                                     f"between card and CPU by {diff:.3e}")
+    log(f"check train step card vs CPU ({label}, batch {BATCH}, xavier W, "
+        f"no dropout): loss {float(gpu['loss']):.6f}, rel err "
+        f"{loss_rel:.3e} (tol 1e-5); params max abs diff {worst:.3e} (rtol "
+        f"1e-4, atol 1e-5; conv biases within {band:.3e})")
     if loss_rel > 1e-5:
-        raise AssertionError("train step: loss differs between card and CPU")
+        raise AssertionError(f"train step {label}: loss differs between card"
+                             f" and CPU")
+
+
+def step_times(model, tcfg, splits, info, dev, batches, label: str,
+               card: str) -> None:
+    """Train step p50 on the corpus's first epoch batch of each size."""
+    import dataclasses
+
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    for b in batches:
+        tr = Trainer(model, dataclasses.replace(tcfg, batch_size=b),
+                     device=dev)
+        p, s, o = tr.init(pretrained=info["pretrained"])
+        train = tr._full_batch({k: v for k, v in splits["train"].items()
+                                if k != "group"})
+        batch = next(tr._epoch_batches(train, 0))
+        ms = sync_ms(lambda: tr._train_step(p, s, o, batch, 0),
+                     max(5, 2000 // b))
+        log(f"time train step {label} batch {b}: p50 {ms:.3f} ms, "
+            f"{1e3 / ms:.2f} steps/s, {b * 1e3 / ms:.0f} pairs/s [{card}]")
+
+
+def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
+    """The training path: pair-map kernels against their plain versions,
+    one train step on the card against the CPU, ``fit`` on the recipe-sized
+    synthetic corpus with the ``trec_eval`` cross-check, and the times.
+    Fills ``max_err`` and ``timed`` for the pair-map kernels and returns
+    the launch counts of the ``fit`` run."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch.metrics import (
+        mean_average_precision, mean_reciprocal_rank, trec_eval,
+        write_trec_files)
+    from mms_answer_selection_tpu_torch.models.mms_qa import V4
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+    from mms_answer_selection_tpu_torch.training import Trainer
+    from mms_answer_selection_tpu_torch.utils.tree import tree_map
+
+    splits, info, prep_s = recipe_corpus(D)
+
+    # ------------------------------------- pair-map kernels vs plain
+    pairs = pair_kernels(sk)
+    sizes = (len(splits["dev"]["label"]), len(splits["test"]["label"]))
+    for n, d in PAIR_CHECKS + tuple((n, D) for n in sizes):
+        check_pair_kernels(sk, pairs, pair_operands(normal, n, d), max_err)
+    log("check pair_maps_bwd_w: dW bit-identical across two runs at every "
+        "shape")
+
+    tcfg = recipe_trainer()
+    model = dataclasses.replace(V4, vocab_size=info["vocab_size"])
+    step_card_vs_cpu(model, tcfg, splits, info, dev, "V4")
 
     # ------------------------------------- the training path, once
     for name in sk.LAUNCH_COUNTS:
@@ -400,7 +478,7 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
     # they are also the library time; dQ and dA take two einsums, and no
     # single call computes both.
     for n, d in PAIR_TIMED + FWD_TIMED:
-        ops = pair_operands(n, d)
+        ops = pair_operands(normal, n, d)
         names = pairs if (n, d) in PAIR_TIMED else ("pair_maps_fwd",)
         for name in names:
             kernel, plain = pairs[name]
@@ -418,22 +496,39 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
                 f"{'einsum' if lib_ms else 'plain (2 einsums)'} {p_ms:.4f} ms ({p_ms / k_ms:.2f}x), bound {b_ms:.4f} ms "
                 f"({b_by}; {b_ms / k_ms:.1%} of it reached) "
                 f"[{[round(x, 4) for x in t]}; {card}]")
-    train = trainer._full_batch({k: v for k, v in splits["train"].items()
-                                 if k != "group"})
-    for b in STEP_BATCHES:
-        tr = Trainer(model, dataclasses.replace(tcfg, batch_size=b),
-                     device=dev)
-        p, s, o = tr.init(pretrained=info["pretrained"])
-        batch = next(tr._epoch_batches(train, 0))
-        ms = sync_ms(lambda: tr._train_step(p, s, o, batch, 0),
-                     max(5, 2000 // b))
-        log(f"time train step V4 batch {b}: p50 {ms:.3f} ms, "
-            f"{1e3 / ms:.2f} steps/s, {b * 1e3 / ms:.0f} pairs/s [{card}]")
+    step_times(model, tcfg, splits, info, dev, STEP_BATCHES, "V4", card)
     log(f"time fit {FIT_STEPS} steps at batch {BATCH} with "
         f"{len(hist['steps'])} dev+test evals: {fit_s:.3f} s "
         f"({FIT_STEPS / fit_s:.2f} steps/s); host data prep {prep_s:.3f} s "
         f"[{card}]")
     return launches
+
+
+def wide_train_phase(dev, normal, card: str, max_err: dict) -> None:
+    """Long sentences and V4_WIDE's training: the pair-map kernels against
+    their plain versions at (W1, W2) past 64 rows, at D = 50 and 300 (dW
+    bit-identical twice at each), one V4_WIDE train step on the card
+    against the CPU, and its step p50 at batch 50 and 1024 on corpus
+    batches."""
+    import dataclasses
+
+    from mms_answer_selection_tpu_torch.models.mms_qa import V4_WIDE
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+
+    pairs = pair_kernels(sk)
+    for w1, w2 in LONG_PAIRS:
+        for d in (D, WIDE_D):
+            check_pair_kernels(sk, pairs, pair_operands(normal, BATCH, d, w1,
+                                                        w2), max_err)
+    log(f"check long sentences (W1, W2) {LONG_PAIRS} at D = {D} and "
+        f"{WIDE_D}: every pair-map kernel matches plain, dW bit-identical "
+        f"across two runs at each")
+    splits, info, _ = recipe_corpus(WIDE_D)
+    tcfg = recipe_trainer()
+    model = dataclasses.replace(V4_WIDE, vocab_size=info["vocab_size"])
+    step_card_vs_cpu(model, tcfg, splits, info, dev, "V4_WIDE")
+    step_times(model, tcfg, splits, info, dev, WIDE_STEP_BATCHES, "V4_WIDE",
+               card)
 
 
 def plain_scores(eng, query_ids):
@@ -485,6 +580,200 @@ def same_topk(got, want) -> bool:
 def gib(eng) -> float:
     return sum(t.numel() * t.element_size() for t in (eng.pool, eng.aux)
                if t is not None) / 2**30
+
+
+def scorer_args(sk, name: str, q, cand, w) -> tuple:
+    """A MaxSim kernel's operands for query tokens q, candidate tokens cand
+    and the metric w."""
+    if name == "maxsim_int8":
+        return (*sk.project_queries_int8(q, w),
+                *sk.pack_candidate_pool_int8(cand))
+    if name == "maxsim_int4":
+        return (*sk.project_queries_int4(q, w),
+                *sk.pack_candidate_pool_int4(cand))
+    return (sk.project_queries(q, w), sk.pack_candidate_pool(cand))
+
+
+def maxsim_scorers(sk) -> dict:
+    """MaxSim kernel -> (wrapper, plain version)."""
+    return {"maxsim_bf16": (sk.bilinear_maxsim_scores,
+                            sk.bilinear_maxsim_scores_plain),
+            "maxsim_int8": (sk.bilinear_maxsim_scores_int8,
+                            sk.bilinear_maxsim_scores_int8_plain),
+            "maxsim_int4": (sk.bilinear_maxsim_scores_int4,
+                            sk.bilinear_maxsim_scores_int4_plain)}
+
+
+def check_maxsim(sk, name: str, args, label: str, max_err: dict) -> None:
+    """A MaxSim kernel against its plain version on ``args``, within
+    ``KERNEL_VS_PLAIN_RTOL`` of the row's max |score|; ``maxsim_int4``
+    also bit for bit against ``maxsim_int8`` on the unpacked codes."""
+    kernel, plain = maxsim_scorers(sk)[name]
+    nq, c = args[0].shape[0], args[2 if len(args) > 2 else 1].shape[0]
+    rtol = sk.KERNEL_VS_PLAIN_RTOL[name]
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    if out.shape != (nq, c) or not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: bad output {out.shape}")
+    err = (out - ref).abs()
+    rel = float((err / ref.abs().amax(dim=1, keepdim=True)).max())
+    max_err[name] = max(max_err[name], float(err.max()))
+    same = ""
+    if name == "maxsim_int4":
+        qw, qs, pool, aux = args
+        if not torch.equal(out, sk.bilinear_maxsim_scores_int8(
+                qw, qs, sk.unpack_int4(pool), aux)):
+            raise AssertionError(f"maxsim_int4 differs from maxsim_int8 on "
+                                 f"the unpacked codes ({label})")
+        same = "; bit-identical to maxsim_int8 on the unpacked codes"
+    log(f"check {name} {label} Dp={args[0].shape[2]}: max_abs_err "
+        f"{float(err.max()):.3e}, max_rel_err {rel:.3e} (rtol {rtol:g} of "
+        f"the row's max |score|){same}")
+    if rel > rtol:
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"({label}): {rel:.3e} > {rtol:g}")
+
+
+def check_engine(eng, cfg, state, queries, result, label: str) -> None:
+    """The serving path's answers: the 256-query top-k sorted and equal to
+    brute force on N_CHECK queries, chunked = unchunked bit for bit, the
+    rerank inside its shortlist with probabilities within PROB_ATOL of the
+    same pairs on the CPU."""
+    from mms_answer_selection_tpu_torch.models.mms_qa import mms_qa_apply
+    from mms_answer_selection_tpu_torch.utils.tree import tree_map
+
+    vals, idx, rvals, ridx = result
+    q_rerank = queries[:N_RERANK]
+    if vals.shape != (N_QUERIES, K) or not torch.isfinite(vals).all():
+        raise AssertionError(f"{label}: bad query result {vals.shape}")
+    if idx.min() < 0 or idx.max() >= eng.pool_size \
+            or (vals[:, :-1] < vals[:, 1:]).any():
+        raise AssertionError(f"{label}: indices out of range or unsorted")
+    if rvals.shape != (N_RERANK, K) or not torch.isfinite(rvals).all() \
+            or rvals.min() < 0 or rvals.max() > 1:
+        raise AssertionError(f"{label}: bad rerank probabilities")
+    check_topk(eng, queries[:N_CHECK], vals[:N_CHECK], idx[:N_CHECK], label)
+    # chunked scoring gives the unchunked scores and order, bit for bit
+    chunk, eng.chunk_size = eng.chunk_size, eng.pool_size
+    flat = eng.query(queries, k=K)
+    eng.chunk_size = chunk
+    if not (torch.equal(flat[0], vals) and torch.equal(flat[1], idx)):
+        raise AssertionError(f"{label}: chunked top-{K} differs from "
+                             f"unchunked")
+    # the rerank returns members of the shortlist, scored by the model
+    _, short = eng.query(q_rerank, k=SHORTLIST)
+    if not (ridx[:, :, None] == short[:, None, :]).any(-1).all():
+        raise AssertionError(f"{label}: rerank left its shortlist")
+    on_cpu = {"question": q_rerank.repeat_interleave(K, 0).cpu(),
+              "answer": eng.cand_token_ids[ridx.reshape(-1)].cpu(),
+              "overlap_feat": torch.zeros(N_RERANK * K,
+                                          cfg.overlap_features)}
+    out, _ = mms_qa_apply(tree_map(lambda t: t.cpu(), eng.params),
+                          tree_map(lambda t: t.cpu(), state), on_cpu, cfg,
+                          train=False)
+    rr_err = float((out["prob"][:, 1].view(N_RERANK, K)
+                    - rvals.cpu()).abs().max())
+    if rr_err > PROB_ATOL:
+        raise AssertionError(f"{label}: rerank probs differ from the same "
+                             f"pairs scored on the CPU by {rr_err:.3e}")
+    log(f"engine {label}: {N_QUERIES} queries k={K} and rerank {N_RERANK} x "
+        f"S={SHORTLIST} ok (top-{K} = brute force on {N_CHECK} queries; "
+        f"chunked = unchunked; rerank P vs CPU max abs diff {rr_err:.3e}, "
+        f"tol {PROB_ATOL:g}); top-1 score {float(vals[0, 0]):.4f}, top-1 "
+        f"rerank prob {float(rvals[0, 0]):.4f}")
+
+
+def random_model(cfg, normal, gen, dev):
+    """bench.py's random weights for ``cfg`` (the recipe's init has W = 0,
+    every score 0) and a positive running variance for the eval-mode BN."""
+    from mms_answer_selection_tpu_torch.models.mms_qa import mms_qa_init
+
+    params, state = mms_qa_init(cfg, generator=torch.Generator().manual_seed(
+        SEED), device=dev)
+    d = cfg.embed_dim
+    params["embed"]["w"] = normal(cfg.vocab_size, d, scale=0.3)
+    params["sim"]["w"] = normal(M, d, d, scale=0.05)
+    for name in state:
+        state[name] = {"mean": normal(state[name]["mean"].shape[0], scale=0.1),
+                       "var": torch.rand(state[name]["var"].shape,
+                                         generator=gen, device=dev) + 0.5}
+    return params, state
+
+
+def wide_serving_phase(sk, normal, gen, dev, card: str,
+                       max_err: dict) -> None:
+    """V4_WIDE's serving at full width (D = 300: bf16 rows of 608 bytes,
+    int8 of 320, K-sliced): each MaxSim kernel against its plain version
+    at KERNEL_NQ x KERNEL_POOLS, at R = 800 query rows (D = 50 and 300),
+    then a POOL-candidate engine of each dtype in chunks of CHUNK, one at
+    a time, through ``check_engine``, with p50 times and the kernel's time
+    beside its bound."""
+    import dataclasses
+
+    from mms_answer_selection_tpu_torch.models.mms_qa import V4_WIDE
+    from mms_answer_selection_tpu_torch.serve import QueryEngine
+
+    w = normal(M, WIDE_D, WIDE_D, scale=0.05)
+    for name in MAXSIM:
+        for nq in KERNEL_NQ:
+            for c in KERNEL_POOLS:
+                args = scorer_args(sk, name, normal(nq, W1, WIDE_D, scale=0.3),
+                                   normal(c, W2, WIDE_D, scale=0.3), w)
+                check_maxsim(sk, name, args, f"V4_WIDE nq={nq} C={c}",
+                             max_err)
+    for d in (D, WIDE_D):
+        w_d = normal(M, d, d, scale=0.05)
+        for name in MAXSIM:
+            args = scorer_args(sk, name, normal(4, R800_W1, d, scale=0.3),
+                               normal(KERNEL_POOLS[1], W2, d, scale=0.3), w_d)
+            check_maxsim(sk, name, args, f"R={M * R800_W1} D={d} "
+                         f"C={KERNEL_POOLS[1]}", max_err)
+
+    cfg = dataclasses.replace(V4_WIDE, vocab_size=VOCAB)
+    params, state = random_model(cfg, normal, gen, dev)
+    cand_ids = torch.randint(0, VOCAB, (POOL, W2), generator=gen, device=dev)
+    queries = torch.randint(0, VOCAB, (N_QUERIES, W1), generator=gen,
+                            device=dev)
+    for pd in POOL_DTYPES:
+        t0 = time.perf_counter()
+        eng = QueryEngine(params, cfg, pool_dtype=pd, chunk_size=CHUNK,
+                          device=dev).build_index(cand_ids)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        name = "maxsim_" + pd
+        for k in sk.LAUNCH_COUNTS:
+            sk.LAUNCH_COUNTS[k] = 0
+        result = (*eng.query(queries, k=K),
+                  *eng.query_rerank(state, queries[:N_RERANK], k=K,
+                                    shortlist=SHORTLIST))
+        torch.cuda.synchronize()
+        launches = sk.LAUNCH_COUNTS[name]
+        if launches < 1:
+            raise AssertionError(f"V4_WIDE {pd}: the serving path never "
+                                 f"launched {name}")
+        check_engine(eng, cfg, state, queries, result, f"V4_WIDE {pd}")
+        one = sync_ms(lambda: eng.query(queries[:1], k=K), 10)
+        full = sync_ms(lambda: eng.query(queries, k=K), 3)
+        rr = sync_ms(lambda: eng.query_rerank(
+            state, queries[:N_RERANK], k=K, shortlist=SHORTLIST), 5)
+        ops = (*eng.project(eng.query_tokens(queries)), eng.pool) \
+            + (() if eng.aux is None else (eng.aux,))
+        scan = burst_ms(lambda: maxsim_scorers(sk)[name][0](*ops), 2)
+        b_ms, b_by = maxsim_bound(name, ops, N_QUERIES * POOL * 4, WIDE_D)
+        geo = sk.maxsim_geometry(N_QUERIES, M * W1, POOL, eng.pool.shape[1],
+                                 ops[0].shape[2], pd)
+        log(f"time engine V4_WIDE {pd} at {POOL} (chunks of {CHUNK}; built "
+            f"in {build_s:.3f} s, pool {gib(eng):.3f} GiB, {launches} "
+            f"launches of {name} on the path, K-sliced {geo.k_sliced}): query"
+            f" 1q p50 {one:.3f} ms, query {N_QUERIES}q p50 {full:.3f} ms "
+            f"({N_QUERIES * POOL / full * 1e3:.4g} pairs/s; kernel alone, "
+            f"unchunked, {scan:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+            f"{b_ms / scan:.1%} of it reached)), query_rerank {N_RERANK}q "
+            f"S={SHORTLIST} p50 {rr:.3f} ms [{card}]")
+        del eng, ops, result
+        torch.cuda.empty_cache()
 
 
 def lifecycle_phase(params, state, cfg, cand_ids, queries, dev) -> None:
@@ -678,13 +967,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     sys.path.insert(0, str(ROOT))
-    from mms_answer_selection_tpu_torch.models.mms_qa import (
-        MMSQAConfig, mms_qa_apply, mms_qa_init)
+    from mms_answer_selection_tpu_torch.models.mms_qa import MMSQAConfig
     from mms_answer_selection_tpu_torch.ops import _build
     from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
     from mms_answer_selection_tpu_torch.serve import QueryEngine
-    from mms_answer_selection_tpu_torch.utils.tree import tree_map
 
     # ---------------------------------------------------------- environment
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
@@ -725,65 +1013,19 @@ def main() -> int:
     timed = {}
 
     def operands(name, nq, c):
-        q = normal(nq, W1, D, scale=0.3)
-        cand = normal(c, W2, D, scale=0.3)
-        if name == "maxsim_int8":
-            return (*sk.project_queries_int8(q, w_rand),
-                    *sk.pack_candidate_pool_int8(cand))
-        if name == "maxsim_int4":
-            return (*sk.project_queries_int4(q, w_rand),
-                    *sk.pack_candidate_pool_int4(cand))
-        return (sk.project_queries(q, w_rand), sk.pack_candidate_pool(cand))
+        return scorer_args(sk, name, normal(nq, W1, D, scale=0.3),
+                           normal(c, W2, D, scale=0.3), w_rand)
 
-    scorers = {"maxsim_bf16": (sk.bilinear_maxsim_scores,
-                               sk.bilinear_maxsim_scores_plain),
-               "maxsim_int8": (sk.bilinear_maxsim_scores_int8,
-                               sk.bilinear_maxsim_scores_int8_plain),
-               "maxsim_int4": (sk.bilinear_maxsim_scores_int4,
-                               sk.bilinear_maxsim_scores_int4_plain)}
-    for name, (kernel, plain) in scorers.items():
-        rtol = sk.KERNEL_VS_PLAIN_RTOL[name]
+    scorers = maxsim_scorers(sk)
+    for name in MAXSIM:
         for nq in KERNEL_NQ:
             for c in KERNEL_POOLS:
-                args = operands(name, nq, c)
-                out = kernel(*args)
-                torch.cuda.synchronize()
-                ref = plain(*args)
-                torch.cuda.synchronize()
-                if out.shape != (nq, c) or not torch.isfinite(out).all():
-                    raise AssertionError(f"{name}: bad output {out.shape}")
-                err = (out - ref).abs()
-                row_max = ref.abs().amax(dim=1, keepdim=True)
-                rel = float((err / row_max).max())
-                max_err[name] = max(max_err[name], float(err.max()))
-                same = ""
-                if name == "maxsim_int4":
-                    qw, qs, pool, aux = args
-                    as_int8 = sk.bilinear_maxsim_scores_int8(
-                        qw, qs, sk.unpack_int4(pool), aux)
-                    if not torch.equal(out, as_int8):
-                        raise AssertionError(
-                            "maxsim_int4 differs from maxsim_int8 on the "
-                            "unpacked codes")
-                    same = "; bit-identical to maxsim_int8 on the unpacked codes"
-                log(f"check {name} nq={nq} C={c}: max_abs_err "
-                    f"{float(err.max()):.3e}, max_rel_err {rel:.3e} "
-                    f"(rtol {rtol:g} of the row's max |score|){same}")
-                if rel > rtol:
-                    raise AssertionError(f"{name} disagrees with its plain "
-                                         f"version: {rel:.3e} > {rtol:g}")
+                check_maxsim(sk, name, operands(name, nq, c),
+                             f"nq={nq} C={c}", max_err)
 
     # --------------------------------------------------------------- engine
     cfg = MMSQAConfig(vocab_size=VOCAB)   # V4 at its published widths
-    params, state = mms_qa_init(cfg, generator=torch.Generator().manual_seed(
-        SEED), device=dev)
-    # bench.py's random weights: the V4 init has W = 0, every score 0
-    params["embed"]["w"] = normal(VOCAB, D, scale=0.3)
-    params["sim"]["w"] = normal(M, D, D, scale=0.05)
-    for name in state:  # positive running variance for the eval-mode BN
-        state[name] = {"mean": normal(state[name]["mean"].shape[0], scale=0.1),
-                       "var": torch.rand(state[name]["var"].shape,
-                                         generator=gen, device=dev) + 0.5}
+    params, state = random_model(cfg, normal, gen, dev)
     cand_ids = torch.randint(0, VOCAB, (POOL, W2), generator=gen, device=dev)
     queries = torch.randint(0, VOCAB, (N_QUERIES, W1), generator=gen,
                             device=dev)
@@ -814,43 +1056,7 @@ def main() -> int:
             raise AssertionError(f"the serving path never launched {name}")
 
     for pd, eng in engines.items():
-        vals, idx, rvals, ridx = results[pd]
-        if vals.shape != (N_QUERIES, K) or not torch.isfinite(vals).all():
-            raise AssertionError(f"{pd}: bad query result {vals.shape}")
-        if idx.min() < 0 or idx.max() >= POOL or (vals[:, :-1] < vals[:, 1:]).any():
-            raise AssertionError(f"{pd}: indices out of range or unsorted")
-        if rvals.shape != (N_RERANK, K) or not torch.isfinite(rvals).all() \
-                or rvals.min() < 0 or rvals.max() > 1:
-            raise AssertionError(f"{pd}: bad rerank probabilities")
-        check_topk(eng, queries[:N_CHECK], vals[:N_CHECK], idx[:N_CHECK], pd)
-        # chunked scoring gives the unchunked scores and order, bit for bit
-        eng.chunk_size = POOL
-        flat = eng.query(queries, k=K)
-        eng.chunk_size = CHUNK
-        if not (torch.equal(flat[0], vals) and torch.equal(flat[1], idx)):
-            raise AssertionError(f"{pd}: chunked top-{K} differs from "
-                                 f"unchunked")
-        # the rerank returns members of the shortlist, scored by the model
-        _, short = eng.query(q_rerank, k=SHORTLIST)
-        if not (ridx[:, :, None] == short[:, None, :]).any(-1).all():
-            raise AssertionError(f"{pd}: rerank left its shortlist")
-        on_cpu = {"question": q_rerank.repeat_interleave(K, 0).cpu(),
-                  "answer": eng.cand_token_ids[ridx.reshape(-1)].cpu(),
-                  "overlap_feat": torch.zeros(N_RERANK * K,
-                                              cfg.overlap_features)}
-        out, _ = mms_qa_apply(tree_map(lambda t: t.cpu(), eng.params),
-                              tree_map(lambda t: t.cpu(), state), on_cpu,
-                              cfg, train=False)
-        rr_err = float((out["prob"][:, 1].view(N_RERANK, K)
-                        - rvals.cpu()).abs().max())
-        if rr_err > PROB_ATOL:
-            raise AssertionError(f"{pd}: rerank probs differ from the same "
-                                 f"pairs scored on the CPU by {rr_err:.3e}")
-        log(f"engine {pd}: {N_QUERIES} queries k={K} and rerank {N_RERANK} "
-            f"x S={SHORTLIST} ok (top-{K} = brute force on {N_CHECK} queries;"
-            f" chunked = unchunked; rerank P vs CPU max abs diff "
-            f"{rr_err:.3e}, tol {PROB_ATOL:g}); top-1 score "
-            f"{float(vals[0, 0]):.4f}, top-1 rerank prob {float(rvals[0, 0]):.4f}")
+        check_engine(eng, cfg, state, queries, results[pd], pd)
     b_idx = results["bf16"][1]
     for pd in ("int8", "int4"):
         agree = (results[pd][1][:, :, None] == b_idx[:, None, :]).any(-1) \
@@ -907,7 +1113,14 @@ def main() -> int:
     del engines, results
     torch.cuda.empty_cache()
     scale_phase(params, state, cfg, queries, gen, dev, card)
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    # -------------------------------------- V4_WIDE, long sentences, R = 800
+    del params, state, cand_ids, queries
+    torch.cuda.empty_cache()
+    wide_serving_phase(sk, normal, gen, dev, card, max_err)
+    wide_train_phase(dev, normal, card, max_err)
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB; run {time.perf_counter() - started:.1f} s, build included")
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -20,7 +20,10 @@
 // What the design does about it (maxsim_wgmma.cuh): the products run as
 // wgmma m64nNk16 on TMA-staged, 128-byte-swizzled shared-memory tiles (N =
 // 240 or 256 token columns, whole candidates); the query group's rows stay
-// resident; a producer warp keeps a ring of pool tiles in flight; two
+// resident (at V4_WIDE's Dp 304, rows of 608 bytes, the K-sliced plan
+// streams 128-byte spans of pool and query rows instead and accumulates
+// over them in the wgmma registers); a producer warp keeps a ring of pool
+// tiles in flight; two
 // consumer warpgroups take alternate tiles, so the token max of one (in
 // registers, then across the quad) runs while the other's products occupy
 // the tensor cores.  The R x W2P similarity tile of a pair never leaves the
@@ -35,11 +38,12 @@
 extern "C" int maxsim_bf16(const void* qw, const void* pool, void* out,
                            int nq, int r, int c, int w2p, int dp, int g,
                            int n_c, int w2s, int n, int stages,
-                           int tiles_per_unit, int grid, int device,
-                           void* stream) {
+                           int tiles_per_unit, int grid, int k_sliced,
+                           int device, void* stream) {
   return maxsim::dispatch<maxsim::BF16>(qw, nullptr, pool, nullptr, out, nq,
                                         r, c, w2p, dp, g, n_c, w2s, n, stages,
-                                        tiles_per_unit, grid, device, stream);
+                                        tiles_per_unit, grid, k_sliced, device,
+                                        stream);
 }
 
 extern "C" const char* maxsim_error_string(int err) {

@@ -22,7 +22,9 @@
 // pair (4.3e11 there) run on the CUDA cores at the same count as bf16's.
 //
 // What the design does about it: the bf16 kernel's (maxsim_wgmma.cuh), with
-// wgmma m64nNk32 s8 -> s32 on 64-byte-swizzled tiles at Dp=64; the token max
+// wgmma m64nNk32 s8 -> s32 on 64-byte-swizzled tiles at Dp=64 (K-sliced in
+// 128-byte spans at V4_WIDE's Dp 320, where the int4 producer writes the
+// zeros past Dp that TMA fills for int8); the token max
 // on int32 takes three operands an instruction (vimax3), and the two scales
 // are applied once per (row, candidate) in the row sum, after the max.
 //
@@ -43,10 +45,11 @@ extern "C" int maxsim_int8(const void* qw, const void* qs, const void* pool,
                            const void* aux, void* out, int nq, int r, int c,
                            int w2p, int dp, int g, int n_c, int w2s, int n,
                            int stages, int tiles_per_unit, int grid,
-                           int device, void* stream) {
+                           int k_sliced, int device, void* stream) {
   return maxsim::dispatch<maxsim::INT8>(qw, qs, pool, aux, out, nq, r, c, w2p,
                                         dp, g, n_c, w2s, n, stages,
-                                        tiles_per_unit, grid, device, stream);
+                                        tiles_per_unit, grid, k_sliced, device,
+                                        stream);
 }
 
 // pool: (C, W2P, Dp/2) uint8, two int4 codes per byte; dp is the unpacked
@@ -55,8 +58,9 @@ extern "C" int maxsim_int4(const void* qw, const void* qs, const void* pool,
                            const void* aux, void* out, int nq, int r, int c,
                            int w2p, int dp, int g, int n_c, int w2s, int n,
                            int stages, int tiles_per_unit, int grid,
-                           int device, void* stream) {
+                           int k_sliced, int device, void* stream) {
   return maxsim::dispatch<maxsim::INT4>(qw, qs, pool, aux, out, nq, r, c, w2p,
                                         dp, g, n_c, w2s, n, stages,
-                                        tiles_per_unit, grid, device, stream);
+                                        tiles_per_unit, grid, k_sliced, device,
+                                        stream);
 }

@@ -23,12 +23,30 @@
 // quad, and stores one value per (row, candidate) to shared memory.  After
 // the last row tile it sums each (query, candidate)'s R row terms.
 //
+// K-sliced plans (STREAM).  Where a row is longer than 256 bytes (V4_WIDE:
+// D = 300, Dp 304 bf16 or 320 int8) or the group's query rows do not fit
+// in shared memory beside the ring (R = 800 at D = 300), nothing stays
+// resident: each ring item is one 128-byte K span (the swizzle span) of a
+// pool tile's N rows and of one 64-row tile of the group's query rows, and
+// a consumer accumulates a row tile's product over the spans in its wgmma
+// registers before the token max.  So each pool tile's spans stream once
+// per row tile (L2 traffic x row tiles, HBM traffic unchanged).  The last
+// span of a row may run past Dp; TMA fills the lanes past the tensor's
+// edge with zeros (the int4 producer writes them), which add exact zeros
+// to every dot product.  Each consumer has a ring of its own (half of the
+// stages), fed by its own producer thread (int4: 64 producer threads), so
+// consecutive items of one tile never alias a barrier phase of the other
+// consumer's.  Rows of 256 bytes or less whose query rows fit keep the
+// resident plan above, compiled as before.
+//
 // Canonical order.  A pair's score never depends on where the pair sat in
 // the launch: each row term is the max of dot products whose K order is
-// fixed, and the row sum is taken by 4 lanes over r = j, j + 4, ... then
-// combined by a fixed butterfly, an order set by r and R alone.  So the
-// score of a pair is the same bits whatever the batch, the query's place in
-// it, the candidate's offset, or the chunking of the pool.
+// fixed (ascending 32-byte steps in either plan; a sliced plan's steps past
+// Dp add zeros), and the row sum is taken by 4 lanes over r = j, j + 4, ...
+// then combined by a fixed butterfly, an order set by r and R alone.  So
+// the score of a pair is the same bits whatever the batch, the query's
+// place in it, the candidate's offset, the chunking of the pool, or the
+// plan.
 
 #pragma once
 
@@ -253,6 +271,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
       "r"(bytes)
       : "memory");
 }
+// raises the barrier's expected transaction bytes without arriving
+__device__ __forceinline__ void mbar_expect_tx_only(uint32_t bar,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
@@ -360,6 +386,48 @@ __device__ __forceinline__ void token_max(const Acc<T, N>& acc,
   }
 }
 
+// The token max for any W2S: this thread holds rows ra and ra + 8, columns
+// 8i + 2(lane % 4) + {0, 1} of chunk i; a candidate ends every W2S / 8
+// chunks (the same chunk for every lane); a slab past the first merges its
+// max.
+template <typename T, int N>
+__device__ __forceinline__ void token_max_any(const Acc<T, N>& acc,
+                                              float* terms, const float* sq,
+                                              int stride, int ra, int lane,
+                                              int n_live, int w2s, int slab) {
+  T lowest;
+  if constexpr (std::is_same<T, float>::value)
+    lowest = -INFINITY;
+  else
+    lowest = INT_MIN;
+  T m0 = lowest, m1 = lowest;
+  int cand = 0, left = w2s / 8;
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    m0 = max3(m0, acc.d[4 * i], acc.d[4 * i + 1]);
+    m1 = max3(m1, acc.d[4 * i + 2], acc.d[4 * i + 3]);
+    if (--left == 0) {
+      if (cand < n_live) {
+        m0 = vmax(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+        m0 = vmax(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+        m1 = vmax(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+        m1 = vmax(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+        if ((lane & 3) == 0) {
+          float* e0 = terms + ra * stride + cand;
+          float* e1 = e0 + 8 * stride;
+          const float f0 = scale_term(m0, sq, ra);
+          const float f1 = scale_term(m1, sq, ra + 8);
+          *e0 = slab ? fmaxf(*e0, f0) : f0;
+          *e1 = slab ? fmaxf(*e1, f1) : f1;
+        }
+      }
+      ++cand;
+      left = w2s / 8;
+      m0 = m1 = lowest;
+    }
+  }
+}
+
 // ------------------------------------------------------------ the plan
 // The launch plan, as ops/sim_cross_kernels.py's maxsim_geometry gives it,
 // and the layout derived from it (the same formulas as maxsim_smem there).
@@ -368,12 +436,14 @@ struct Plan {
   int g;               // queries per group
   int n_c;             // candidates per tile
   int w2s, slabs;      // tokens per slab, slabs per candidate
-  int stages;          // pool tiles in the ring
+  int stages;          // ring slots (K-sliced: half for each consumer)
   int tiles_per_unit;  // pool tiles of one unit (the last range may be short)
+  int stream;          // 1: K-sliced, query rows streamed (STREAM)
   int row_bytes, kc, nkc;  // Dp in bytes, swizzle span, spans per row
   int m_tiles, stride;     // 64-row tiles per group, row-term buffer pitch
   int n_groups, n_tiles, n_units;
-  int stage_bytes, off_a, off_terms, off_sq, off_bar, smem;
+  int stage_bytes, a_off;  // a slot; K-sliced: its query rows' offset
+  int off_a, off_terms, off_sq, off_bar, smem;
 };
 
 // Fills the layout of `p` from its plan; false if the kernel of tile width
@@ -383,12 +453,20 @@ inline bool make_plan(Plan& p, int es, bool quant, int n, int grid) {
       p.w2p % 8 || p.w2s < 8 || p.w2s % 8 || p.w2s > n ||
       p.w2p != p.w2s * p.slabs || p.n_c < 1 || p.n_c > kMaxCands ||
       (p.slabs > 1 && p.n_c != 1) || p.n_c * p.w2s > n ||
-      p.stages < 2 || p.stages > kMaxStages || p.tiles_per_unit < 1)
+      p.stages < 2 || p.stages > kMaxStages || p.tiles_per_unit < 1 ||
+      (p.stream != 0 && p.stream != 1) ||
+      (p.stream && (p.stages < 4 || p.stages % 2)))
     return false;
   p.row_bytes = p.dp * es;
-  if (p.row_bytes < 32 || p.row_bytes > 256 || p.row_bytes % 32) return false;
-  p.kc = p.row_bytes % 128 == 0 ? 128 : (p.row_bytes % 64 == 0 ? 64 : 32);
-  p.nkc = p.row_bytes / p.kc;
+  if (p.row_bytes < 32 || p.row_bytes % 32 ||
+      (!p.stream && p.row_bytes > 256))
+    return false;
+  // past 256 bytes (K-sliced only) 128-byte spans, the last one running
+  // past Dp into TMA's zero fill
+  p.kc = p.row_bytes % 128 == 0 || p.row_bytes > 256
+             ? 128
+             : (p.row_bytes % 64 == 0 ? 64 : 32);
+  p.nkc = (p.row_bytes + p.kc - 1) / p.kc;
   p.m_tiles = (p.g * p.r + kRowTile - 1) / kRowTile;
   p.stride = p.n_c | 1;
   const int rows = p.m_tiles * kRowTile;
@@ -396,9 +474,18 @@ inline bool make_plan(Plan& p, int es, bool quant, int n, int grid) {
   p.n_tiles = (p.c + p.n_c - 1) / p.n_c;
   p.n_units = p.n_groups * ((p.n_tiles + p.tiles_per_unit - 1) /
                             p.tiles_per_unit);
-  p.stage_bytes = (n * p.row_bytes + 1023) / 1024 * 1024;
-  p.off_a = p.stages * p.stage_bytes;
-  p.off_terms = p.off_a + rows * p.row_bytes;
+  if (p.stream) {
+    // a slot: one K span of the pool tile's N rows, then of a row tile
+    p.a_off = (n * p.kc + 1023) / 1024 * 1024;
+    p.stage_bytes = (p.a_off + kRowTile * p.kc + 1023) / 1024 * 1024;
+    p.off_a = p.stages * p.stage_bytes;
+    p.off_terms = p.off_a;
+  } else {
+    p.a_off = 0;
+    p.stage_bytes = (n * p.row_bytes + 1023) / 1024 * 1024;
+    p.off_a = p.stages * p.stage_bytes;
+    p.off_terms = p.off_a + rows * p.row_bytes;
+  }
   p.off_sq = p.off_terms + kConsumers * rows * p.stride * 4;
   p.off_bar = p.off_sq + (quant ? kConsumers * rows * 4 : 0);
   p.smem = 1024 + p.off_bar + (2 * p.stages + 2) * 8;
@@ -406,7 +493,40 @@ inline bool make_plan(Plan& p, int es, bool quant, int n, int grid) {
 }
 
 // ---------------------------------------------------------- the kernel
-template <int KIND, int N, int KC8>
+// The row sum of each (query, candidate) of a tile: 4 lanes a pair, lane j
+// over rows j, j + 4, ..., then a fixed butterfly.
+template <bool kQuant>
+__device__ __forceinline__ void row_sums(const float* terms,
+                                         const __nv_bfloat16* aux,
+                                         float* out, const Plan& p, int grp,
+                                         int q_live, int c0, int n_live,
+                                         int tid) {
+  const int pairs = q_live * n_live, j = tid & 3;
+  for (int p0 = 0; p0 < pairs; p0 += 32) {
+    const int pr = p0 + (tid >> 2);
+    const bool ok = pr < pairs;
+    const int ql = ok ? pr / n_live : 0, cl = ok ? pr - ql * n_live : 0;
+    float sc = 0.f;
+    if (kQuant && ok) sc = __bfloat162float(aux[2 * (c0 + cl)]);
+    float sum = 0.f;
+    if (ok)
+#pragma unroll 8
+      for (int rr = j; rr < p.r; rr += 4) {
+        const float v = terms[(ql * p.r + rr) * p.stride + cl];
+        // int8: (max * sq) * sc, each product rounded (no fused
+        // multiply-add); the first product is the term
+        sum += kQuant ? __fmul_rn(v, sc) : v;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (ok && j == 0) {
+      if constexpr (kQuant) sum += __bfloat162float(aux[2 * (c0 + cl) + 1]);
+      out[(size_t)(grp * p.g + ql) * p.c + c0 + cl] = sum;
+    }
+  }
+}
+
+template <int KIND, int N, int KC8, bool STREAM>
 __global__ void __launch_bounds__(kThreads, 1)
     maxsim_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_pool,
@@ -429,7 +549,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
-      mbar_init(full(s), KIND == INT4 ? 128 : 1);
+      mbar_init(full(s), KIND == INT4 ? (STREAM ? 64 : 128) : 1);
       mbar_init(empty(s), 4);  // the four warps of the consuming warpgroup
     }
     mbar_init(q_full, 1);
@@ -442,6 +562,84 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == kConsumers) {
     // ================================================== producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if constexpr (STREAM) {
+      // ring w (slots w * half..) is fed by producer threads 64w.. (int4:
+      // all 64 unpack; else thread 64w alone) with the items of the tiles
+      // consumer w takes (every other tile the block walks): for each
+      // slab, row tile and K span, the span of the pool tile's N token
+      // rows and of the row tile's 64 query rows
+      const int half = p.stages / 2, ring = tid / 64, ftid = tid % 64;
+      if (KIND != INT4 && ftid != 0) return;
+      const long long n_tok = (long long)p.c * p.w2p;
+      int item = 0, walked = 0;
+      for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+        const int grp = u % p.n_groups;
+        const int t0 = (u / p.n_groups) * p.tiles_per_unit;
+        const int t1 = min(p.n_tiles, t0 + p.tiles_per_unit);
+        const int q_live = min(p.g, p.nq - grp * p.g);
+        const int m_live = (q_live * p.r + kRowTile - 1) / kRowTile;
+        const int row0 = grp * p.g * p.r;
+        for (int t = t0; t < t1; ++t) {
+          if (walked++ % kConsumers != ring) continue;
+          for (int sl = 0; sl < p.slabs; ++sl)
+            for (int m = 0; m < m_live; ++m)
+              for (int j = 0; j < p.nkc; ++j, ++item) {
+                const int st = ring * half + item % half;
+                mbar_wait(empty(st), ((item / half) & 1) ^ 1);
+                const int tok0 = t * p.n_c * p.w2p + sl * p.w2s;
+                const uint32_t dst = sm0 + st * p.stage_bytes;
+                const int x = j * p.kc / (KIND == BF16 ? 2 : 1);
+                if (ftid == 0) {
+                  if (KIND == INT4) {
+                    mbar_expect_tx_only(full(st), kRowTile * p.kc);
+                  } else {
+                    mbar_expect_tx(full(st), (N + kRowTile) * p.kc);
+                    tma_load(dst, &map_pool, full(st), x, tok0);
+                  }
+                  tma_load(dst + p.a_off, &map_q, full(st), x,
+                           row0 + m * kRowTile);
+                }
+                if constexpr (KIND == INT4) {
+                  // span j of each token row: 16 packed bytes -> 32 int8
+                  // lanes where TMA's swizzle would put them; lanes past
+                  // Dp and rows past the pool are zeros
+                  const int kcc = p.kc / 32;
+                  uint8_t* base = sm + st * p.stage_bytes;
+                  for (int i0 = ftid; i0 < N * kcc; i0 += 4 * 64) {
+                    uint4 v[4];
+#pragma unroll
+                    for (int b = 0; b < 4; ++b) {
+                      const int i = i0 + b * 64, row = i / kcc;
+                      const int lane0 = j * p.kc + (i - row * kcc) * 32;
+                      v[b] = make_uint4(0, 0, 0, 0);
+                      if (i < N * kcc && lane0 < p.dp && tok0 + row < n_tok)
+                        v[b] = __ldg(reinterpret_cast<const uint4*>(
+                            packed + ((size_t)(tok0 + row) * p.dp + lane0) /
+                                         2));
+                    }
+#pragma unroll
+                    for (int b = 0; b < 4; ++b) {
+                      const int i = i0 + b * 64, row = i / kcc;
+                      if (i >= N * kcc) break;
+                      uint4 a, c;
+                      unpack8(v[b].x, a.x, a.y);
+                      unpack8(v[b].y, a.z, a.w);
+                      unpack8(v[b].z, c.x, c.y);
+                      unpack8(v[b].w, c.z, c.w);
+                      const uint32_t o = row * p.kc + (i - row * kcc) * 32;
+                      *reinterpret_cast<uint4*>(base + swizzle(o, p.kc)) = a;
+                      *reinterpret_cast<uint4*>(base + swizzle(o + 16, p.kc)) =
+                          c;
+                    }
+                  }
+                  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+                  mbar_arrive(full(st));
+                }
+              }
+        }
+      }
+      return;
+    }
     const bool leader = tid == 0;
     if (KIND != INT4 && !leader) return;
     int k = 0, loads = 0, prev = -1;
@@ -524,7 +722,65 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* terms =
       reinterpret_cast<float*>(sm + p.off_terms) + wg * rows * p.stride;
   float* sq = reinterpret_cast<float*>(sm + p.off_sq) + wg * rows;
-  const T lowest = KIND == BF16 ? T(-INFINITY) : T(INT_MIN);
+  if constexpr (STREAM) {
+    // every other tile the block walks, from this consumer's own ring: for
+    // each slab and row tile the product summed over the K spans, then
+    // the token max
+    const int half = p.stages / 2;
+    int item = 0, walked = 0, prev = -1;
+    for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+      const int grp = u % p.n_groups;
+      const int t0 = (u / p.n_groups) * p.tiles_per_unit;
+      const int t1 = min(p.n_tiles, t0 + p.tiles_per_unit);
+      if (kQuant && grp != prev) {
+        // the last tile's readers of sq passed its row sums' barrier
+        const int row0 = grp * p.g * p.r;
+        for (int i = tid; i < p.g * p.r; i += 128)
+          sq[i] = row0 + i < p.nq * p.r ? qs[row0 + i] : 0.f;
+        named_sync(1 + wg);
+      }
+      prev = grp;
+      const int q_live = min(p.g, p.nq - grp * p.g);
+      const int m_live = (q_live * p.r + kRowTile - 1) / kRowTile;
+      for (int t = t0; t < t1; ++t) {
+        if (walked++ % kConsumers != wg) continue;
+        const int c0 = t * p.n_c, n_live = min(p.n_c, p.c - c0);
+        for (int sl = 0; sl < p.slabs; ++sl)
+          for (int m = 0; m < m_live; ++m) {
+            Acc<T, N> acc;
+            for (int j = 0; j < p.nkc; ++j, ++item) {
+              const int st = wg * half + item % half;
+              mbar_wait(full(st), (item / half) & 1);
+              const uint32_t b0 = sm0 + st * p.stage_bytes;
+              fence_acc(acc);
+              wgmma_fence();
+              for (int ks = 0; ks < p.kc; ks += 32) {
+                const uint64_t da = smem_desc(b0 + p.a_off + ks, p.kc);
+                const uint64_t db = smem_desc(b0 + ks, p.kc);
+                if constexpr (KIND == BF16)
+                  wgmma_bf16(acc, da, db, j | ks);
+                else
+                  wgmma_s8(acc, da, db, j | ks);
+              }
+              wgmma_commit();
+              wgmma_wait_all();
+              fence_acc(acc);
+              if (lane == 0) mbar_arrive(empty(st));
+            }
+            const int ra = m * kRowTile + warp * 16 + lane / 4;
+            if constexpr (KC8 > 0)
+              token_max<KC8>(acc, terms, sq, p.stride, ra, lane, n_live);
+            else
+              token_max_any(acc, terms, sq, p.stride, ra, lane, n_live,
+                            p.w2s, sl);
+          }
+        named_sync(1 + wg);
+        row_sums<kQuant>(terms, aux, out, p, grp, q_live, c0, n_live, tid);
+        named_sync(1 + wg);
+      }
+    }
+    return;
+  }
   int kbase = 0, loads = 0, prev = -1;
   for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
     const int grp = u % p.n_groups;
@@ -542,6 +798,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int row0 = grp * p.g * p.r;
         for (int i = tid; i < p.g * p.r; i += 128)
           sq[i] = row0 + i < p.nq * p.r ? qs[row0 + i] : 0.f;
+        named_sync(1 + wg);  // every row's scale is in before any max reads it
       }
     }
     const int q_live = min(p.g, p.nq - grp * p.g);
@@ -577,69 +834,16 @@ __global__ void __launch_bounds__(kThreads, 1)
           wgmma_wait_all();
           fence_acc(acc);
           const int ra = m * kRowTile + warp * 16 + lane / 4;
-          if constexpr (KC8 > 0) {
+          if constexpr (KC8 > 0)
             token_max<KC8>(acc, terms, sq, p.stride, ra, lane, n_live);
-          } else {
-            // any W2S: this thread holds rows ra and ra + 8, columns 8i +
-            // 2(lane % 4) + {0, 1} of chunk i; a candidate ends every
-            // W2S / 8 chunks (the same chunk for every lane); a slab past
-            // the first merges its max
-            T m0 = lowest, m1 = lowest;
-            int cand = 0, left = p.w2s / 8;
-#pragma unroll
-            for (int i = 0; i < N / 8; ++i) {
-              m0 = max3(m0, acc.d[4 * i], acc.d[4 * i + 1]);
-              m1 = max3(m1, acc.d[4 * i + 2], acc.d[4 * i + 3]);
-              if (--left == 0) {
-                if (cand < n_live) {
-                  m0 = vmax(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-                  m0 = vmax(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-                  m1 = vmax(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-                  m1 = vmax(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
-                  if ((lane & 3) == 0) {
-                    float* e0 = terms + ra * p.stride + cand;
-                    float* e1 = e0 + 8 * p.stride;
-                    const float f0 = scale_term(m0, sq, ra);
-                    const float f1 = scale_term(m1, sq, ra + 8);
-                    *e0 = s ? fmaxf(*e0, f0) : f0;
-                    *e1 = s ? fmaxf(*e1, f1) : f1;
-                  }
-                }
-                ++cand;
-                left = p.w2s / 8;
-                m0 = m1 = lowest;
-              }
-            }
-          }
+          else
+            token_max_any(acc, terms, sq, p.stride, ra, lane, n_live, p.w2s,
+                          s);
         }
         if (lane == 0) mbar_arrive(empty(st));
       }
-      // the row sum of each (query, candidate): 4 lanes a pair, lane j over
-      // rows j, j + 4, ..., then a fixed butterfly
       named_sync(1 + wg);
-      const int pairs = q_live * n_live, j = tid & 3;
-      for (int p0 = 0; p0 < pairs; p0 += 32) {
-        const int pr = p0 + (tid >> 2);
-        const bool ok = pr < pairs;
-        const int ql = ok ? pr / n_live : 0, cl = ok ? pr - ql * n_live : 0;
-        float sc = 0.f;
-        if (kQuant && ok) sc = __bfloat162float(aux[2 * (c0 + cl)]);
-        float sum = 0.f;
-        if (ok)
-#pragma unroll 8
-          for (int rr = j; rr < p.r; rr += 4) {
-            const float v = terms[(ql * p.r + rr) * p.stride + cl];
-            // int8: (max * sq) * sc, each product rounded (no fused
-            // multiply-add); the first product is the term
-            sum += kQuant ? __fmul_rn(v, sc) : v;
-          }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        if (ok && j == 0) {
-          if constexpr (kQuant) sum += __bfloat162float(aux[2 * (c0 + cl) + 1]);
-          out[(size_t)(grp * p.g + ql) * p.c + c0 + cl] = sum;
-        }
-      }
+      row_sums<kQuant>(terms, aux, out, p, grp, q_live, c0, n_live, tid);
       named_sync(1 + wg);
     }
     kbase += (t1 - t0) * p.slabs;
@@ -699,14 +903,15 @@ inline bool encode_rows(CUtensorMap* map, bool bf16, const void* base,
 }
 
 // Checks the plan, encodes the maps and launches maxsim_kernel<KIND, N,
-// KC8>.
+// KC8, STREAM>.
 // qw (Nq * R, Dp); pool (C * W2P, Dp) bf16 or int8, or the packed int4
 // bytes (C * W2P, Dp / 2); qs and aux only for int8 and int4.
-template <int KIND, int N, int KC8>
+template <int KIND, int N, int KC8, bool STREAM>
 int launch(Plan p, int grid, const void* qw, const void* qs, const void* pool,
            const void* aux, void* out, cudaStream_t stream) {
   const bool bf16 = KIND == BF16;
-  if (!make_plan(p, bf16 ? 2 : 1, KIND != BF16, N, grid))
+  if (p.stream != (STREAM ? 1 : 0) ||
+      !make_plan(p, bf16 ? 2 : 1, KIND != BF16, N, grid))
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_q, map_pool;
   if (!encode_rows(&map_q, bf16, qw, (long long)p.nq * p.r, p.dp, p.kc,
@@ -718,40 +923,51 @@ int launch(Plan p, int grid, const void* qw, const void* qs, const void* pool,
                         p.kc, N))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      maxsim_kernel<KIND, N, KC8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      p.smem);
+      maxsim_kernel<KIND, N, KC8, STREAM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
-  maxsim_kernel<KIND, N, KC8><<<grid, kThreads, p.smem, stream>>>(
+  maxsim_kernel<KIND, N, KC8, STREAM><<<grid, kThreads, p.smem, stream>>>(
       map_q, map_pool, static_cast<const uint8_t*>(pool),
       static_cast<const float*>(qs), static_cast<const __nv_bfloat16*>(aux),
       static_cast<float*>(out), p);
   return (int)cudaGetLastError();
 }
 
+// The launch of the kernel of tile width n, resident or K-sliced.
+template <int KIND, bool STREAM>
+int launch_width(Plan p, int n, int grid, const void* qw, const void* qs,
+                 const void* pool, const void* aux, void* out,
+                 cudaStream_t s) {
+  // V4's answers (W2P = 40): six whole candidates a 240-column tile, the
+  // candidate width known to the compiler; any other width: any W2S
+  if (n == 240 && p.w2s == 40 && p.w2p == 40 && p.n_c == 6)
+    return launch<KIND, 240, 5, STREAM>(p, grid, qw, qs, pool, aux, out, s);
+  if (n == 240)
+    return launch<KIND, 240, 0, STREAM>(p, grid, qw, qs, pool, aux, out, s);
+  if (n == 256)
+    return launch<KIND, 256, 0, STREAM>(p, grid, qw, qs, pool, aux, out, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The C entry points' common part: (nq, r, c, w2p, dp, g, n_c, w2s, tile n,
-// stages, tiles per unit, grid) -> the launch of the kernel of width n.
+// stages, tiles per unit, grid, stream) -> the launch of the kernel of
+// width n, K-sliced when `k_sliced` is 1.
 template <int KIND>
 int dispatch(const void* qw, const void* qs, const void* pool,
              const void* aux, void* out, int nq, int r, int c, int w2p,
              int dp, int g, int n_c, int w2s, int n, int stages,
-             int tiles_per_unit, int grid, int device, void* stream) {
+             int tiles_per_unit, int grid, int k_sliced, int device,
+             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Plan p = {};
   p.nq = nq, p.r = r, p.c = c, p.w2p = w2p, p.dp = dp, p.g = g, p.n_c = n_c;
   p.w2s = w2s, p.slabs = w2s > 0 ? w2p / w2s : 0, p.stages = stages;
-  p.tiles_per_unit = tiles_per_unit;
+  p.tiles_per_unit = tiles_per_unit, p.stream = k_sliced;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // V4's answers (W2P = 40): six whole candidates a 240-column tile, the
-  // candidate width known to the compiler and the tile's product split in
-  // two, pipelined; any other width: one product, any W2S
-  if (n == 240 && w2s == 40 && w2p == 40 && n_c == 6)
-    return launch<KIND, 240, 5>(p, grid, qw, qs, pool, aux, out, s);
-  if (n == 240)
-    return launch<KIND, 240, 0>(p, grid, qw, qs, pool, aux, out, s);
-  if (n == 256)
-    return launch<KIND, 256, 0>(p, grid, qw, qs, pool, aux, out, s);
-  return (int)cudaErrorInvalidValue;
+  if (k_sliced)
+    return launch_width<KIND, true>(p, n, grid, qw, qs, pool, aux, out, s);
+  return launch_width<KIND, false>(p, n, grid, qw, qs, pool, aux, out, s);
 }
 
 }  // namespace maxsim

@@ -34,17 +34,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures -> cudaError_t.  MaxSim: (pointers..., nq, r, c, w2p, dp,
 # launch plan..., device, stream), the plan (queries per group, candidates
-# per tile, tokens per slab, tile width, stages, tiles per unit, grid) of
+# per tile, tokens per slab, tile width, stages, tiles per unit, grid,
+# K-sliced) of
 # ``maxsim_geometry``; pair maps: (pointers..., n, w1, w2, d, m, launch
-# geometry..., device, stream), the geometry (rows, te, threads) for the
-# forward, (samples per chunk, d_rows, te, threads) for dW, none for dQ/dA
+# geometry..., device, stream), the geometry (rows, te, w2 tile, threads)
+# for the forward, (te, measures per group, then samples, x rows and output
+# rows for dQ and for dA) for dQ/dA, (samples per chunk, d_rows, te, w1
+# tile, threads) for dW
 _SIGNATURES = {
-    "maxsim_bf16": [_P] * 3 + [_I] * 13 + [_P],
-    "maxsim_int8": [_P] * 5 + [_I] * 13 + [_P],
-    "maxsim_int4": [_P] * 5 + [_I] * 13 + [_P],
-    "pair_maps_fwd": [_P] * 5 + [_I] * 9 + [_P],
-    "pair_maps_bwd_qa": [_P] * 6 + [_I] * 6 + [_P],
-    "pair_maps_bwd_w": [_P] * 5 + [_I] * 10 + [_P],
+    "maxsim_bf16": [_P] * 3 + [_I] * 14 + [_P],
+    "maxsim_int8": [_P] * 5 + [_I] * 14 + [_P],
+    "maxsim_int4": [_P] * 5 + [_I] * 14 + [_P],
+    "pair_maps_fwd": [_P] * 5 + [_I] * 10 + [_P],
+    "pair_maps_bwd_qa": [_P] * 6 + [_I] * 14 + [_P],
+    "pair_maps_bwd_w": [_P] * 5 + [_I] * 11 + [_P],
 }
 
 

@@ -29,8 +29,11 @@ Packed formats (this port's own; the reference padded D to 128 lanes):
   the 99.5th percentile of |value|, not the max.  Queries stay +-7 codes
   in int8 (they are small), with one f32 scale per row.
 
-W2P = round_up(W2, 8) in all three.  Scorers take any Dp, so the reference
-packers' 128-lane outputs score here too.
+W2P = round_up(W2, 8) in all three.  The CUDA scorers take any Dp that is
+a multiple of 32 bytes (16 bf16 or 32 int8 lanes), any W2P and any R a
+block's shared memory can hold the row terms of (rows past 256 bytes, or
+query rows that do not fit whole, take the K-sliced plan), so the
+reference packers' 128-lane outputs and V4_WIDE's D = 300 score here too.
 
 Each entry point is a wrapper over a hand-written CUDA kernel (``csrc/``).
 On CPU tensors the wrapper runs the plain PyTorch version beside it; on
@@ -73,7 +76,6 @@ INT4_CLIP_QUANTILE = 0.995  # the reference's candidate-scale percentile
 
 _SMEM_BYTES = 232448   # dynamic shared memory one sm_90 block may use
 _PLAIN_CHUNK_BYTES = 1 << 30  # similarity slab the plain versions hold
-PAIR_MAPS_MAX_W = 64   # largest W1, W2 the pair-map kernels take (MAXW)
 _GRID_Y = 65535        # largest gridDim.y and gridDim.z of a launch
 # the tiling of csrc/pair_maps.cu (its constants of the same names), which
 # the launch plans below size threads and shared memory from
@@ -83,6 +85,9 @@ _PM_FK = 32            # columns of q_n, rows of W per forward slab (FK)
 _PM_STAGES = 2         # slabs in the forward's ring (STAGES)
 _PM_MFW = 2            # 16-column fragments of P^T per warp (MFW)
 _PM_MAX_ROWS = 40      # rows of q_n per forward block (8 x MAX_NF)
+_QA_THREADS = 256      # threads of a dQ / dA block (QA_THREADS)
+_QA_ROWS = 128         # rows of x in a dQ / dA block's U, at most (QA_ROWS)
+_QA_COLS = 64          # columns of U a block, at most (QA_COLS, wgmma's N)
 _SMS = 132             # streaming multiprocessors of an H100 SXM
 # the MaxSim plan of csrc/maxsim_wgmma.cuh (constants of the same meaning
 # there), which maxsim_geometry sizes shared memory from
@@ -123,15 +128,17 @@ def bilinear_pair_maps_grads_plain(q, a, w, g, *, need_qa=True,
 
 class PairMapsFwdGeometry(NamedTuple):
     """Launch of ``pair_maps_fwd``: blocks (N, ceil(W1 / rows) *
-    col_tiles, ceil(M / 4)) of ``threads`` threads and ``smem`` bytes of
-    dynamic shared memory, each forming P = q_n W_m on ``te`` of its
-    columns; with ``col_tiles`` > 1 the blocks write one partial map per
-    column tile, summed in tile order."""
+    col_tiles * ceil(W2 / w2t), ceil(M / 4)) of ``threads`` threads and
+    ``smem`` bytes of dynamic shared memory, each forming P = q_n W_m on
+    ``te`` of its columns and out on ``w2t`` of W2's; with ``col_tiles`` >
+    1 the blocks write one partial map per column tile, summed in tile
+    order."""
     rows: int
     te: int
     col_tiles: int
     threads: int
     smem: int
+    w2t: int
 
 
 class PairMapsDwGeometry(NamedTuple):
@@ -145,6 +152,32 @@ class PairMapsDwGeometry(NamedTuple):
     te: int
     threads: int
     smem: int
+    w1t: int
+
+
+class PairMapsQaRole(NamedTuple):
+    """One of ``pair_maps_bwd_qa``'s two launches (dQ: K = W2 rows of a_n,
+    R = W1 output rows; dA: K = W1 rows of q_n, R = W2): blocks of
+    ``samples`` samples (several only with ``k_rows`` = K) x ceil(R /
+    ``r_rows``) x column tiles, each forming U = x_n V_m on up to 128 rows
+    of x, ``k_rows`` a chunk, and contracting it with G into a 4 x 8 tile
+    of the output per thread; ``smem`` bytes of dynamic shared memory."""
+    samples: int
+    k_rows: int
+    r_rows: int
+    blocks: int
+    smem: int
+
+
+class PairMapsQaGeometry(NamedTuple):
+    """Launch of ``pair_maps_bwd_qa``: output columns ``te`` a block, the
+    dQ blocks ``dq`` and the dA blocks ``da`` (one launch), each block
+    over ``m_per`` measures: with ceil(M / m_per) > 1 groups, each group
+    writes a partial output, summed in group order."""
+    te: int
+    dq: PairMapsQaRole
+    da: PairMapsQaRole
+    m_per: int
 
 
 def _cdiv(x: int, y: int) -> int:
@@ -153,39 +186,53 @@ def _cdiv(x: int, y: int) -> int:
 
 def _check_pair_maps_shape(name: str, n: int, w1: int, w2: int, d: int,
                            m: int) -> None:
-    if not (1 <= min(w1, w2) <= max(w1, w2) <= PAIR_MAPS_MAX_W
-            and n >= 1 and d >= 1 and 1 <= m <= _GRID_Y):
-        raise ValueError(f"{name} takes 1 <= W1, W2 <= {PAIR_MAPS_MAX_W}, "
-                         f"1 <= M <= {_GRID_Y}, N, D >= 1; got N={n} W1={w1} "
-                         f"W2={w2} D={d} M={m}")
+    if not (min(n, w1, w2, d) >= 1 and 1 <= m <= _GRID_Y):
+        raise ValueError(f"{name} takes N, W1, W2, D >= 1 and 1 <= M <= "
+                         f"{_GRID_Y}; got N={n} W1={w1} W2={w2} D={d} M={m}")
 
 
-def fwd_launch(w2: int, d: int, rows: int, te: int) -> PairMapsFwdGeometry:
-    """The forward's launch for a part of ``rows`` rows of q_n and column
-    tiles ``te`` wide: a warp per MFW 16-column fragments of P^T, a 2-row
-    x 8-column tile of the second product per thread, and ``fwd_smem`` of
-    csrc/pair_maps.cu: STAGES x (q slab [R8][FK + 4] + W slab [FK][MS te +
-    8]) + P tile [te][R8][MS] + a_n^T [te][W2P]."""
-    r8, w2p = _round_up(rows, 8), _round_up(w2, 8)
+def fwd_launch(w2t: int, d: int, rows: int, te: int) -> PairMapsFwdGeometry:
+    """The forward's launch for a part of ``rows`` rows of q_n, column
+    tiles ``te`` wide and tiles of ``w2t`` of W2: a warp per MFW 16-column
+    fragments of P^T, a 2-row x 8-column tile of the second product per
+    thread, and ``fwd_smem`` of csrc/pair_maps.cu: STAGES x (q slab
+    [R8][FK + 4] + W slab [FK][MS te + 8]) + P tile [te][R8][MS] + a_n^T
+    [te][round8(w2t)]."""
+    r8, w2p = _round_up(rows, 8), _round_up(w2t, 8)
     threads = _round_up(max(32 * _cdiv(_PM_MS * te // 16, _PM_MFW),
                             r8 // 2 * w2p // 8), 32)
     smem = 4 * (_PM_STAGES * (r8 * (_PM_FK + 4) + _PM_FK * (_PM_MS * te + 8))
                 + te * r8 * _PM_MS + te * w2p)
-    return PairMapsFwdGeometry(rows, te, _cdiv(d, te), threads, smem)
+    return PairMapsFwdGeometry(rows, te, _cdiv(d, te), threads, smem, w2t)
 
 
-def dw_launch(n: int, w1: int, w2: int, d: int, n_per: int, d_rows: int,
+def dw_launch(n: int, w1t: int, w2: int, d: int, n_per: int, d_rows: int,
               te: int) -> PairMapsDwGeometry:
-    """dW's launch for chunks of ``n_per`` samples and panels of ``d_rows``
-    x ``te``: an 8 x 8 tile of the panel per thread for each of the MS
-    measures, and ``bwd_w_smem`` of csrc/pair_maps.cu: 2 x (q rows
-    [W1][DR8] + G_n [W1][W2][MS] + a_n slice [W2][te]) + t [W1][MS][te]."""
+    """dW's launch for chunks of ``n_per`` samples, W1 tiles of ``w1t``
+    rows and panels of ``d_rows`` x ``te``: an 8 x 8 tile of the panel per
+    thread for each of the MS measures, and ``bwd_w_smem`` of
+    csrc/pair_maps.cu: 2 x (q rows [w1t][DR8] + G_n rows [w1t][W2][MS] +
+    a_n slice [W2][te]) + t [w1t][MS][te]."""
     dr8 = _round_up(d_rows, 8)
     threads = _round_up(dr8 // 8 * (te // 8) * _PM_MS, 32)
-    smem = 4 * (2 * (w1 * dr8 + w1 * w2 * _PM_MS + w2 * te)
-                + w1 * _PM_MS * te)
+    smem = 4 * (2 * (w1t * dr8 + w1t * w2 * _PM_MS + w2 * te)
+                + w1t * _PM_MS * te)
     return PairMapsDwGeometry(n_per, _cdiv(n, n_per), d_rows, te, threads,
-                              smem)
+                              smem, w1t)
+
+
+def qa_launch(n: int, kn: int, rn: int, d: int, samples: int, k_rows: int,
+              r_rows: int, te: int) -> PairMapsQaRole:
+    """A dQ or dA launch: blocks and ``qa_smem`` of csrc/pair_maps.cu: 1 KB
+    to align, STAGES raw slabs and one of their low TF32 parts, each
+    (x's 64 or 128 rows + 64 rows of W_m) x 128 bytes, which U reuses, + 2
+    x G [samples x k_rows][4 ceil(r_rows / 4)]."""
+    rows = 64 if samples * k_rows <= 64 else _QA_ROWS
+    slab = (rows + _QA_COLS) * _PM_FK * 4
+    smem = 1024 + (_PM_STAGES + 1) * slab \
+        + 2 * 4 * samples * k_rows * 4 * _cdiv(r_rows, 4)
+    blocks = _cdiv(n, samples) * _cdiv(rn, r_rows) * _cdiv(d, te)
+    return PairMapsQaRole(samples, k_rows, r_rows, blocks, smem)
 
 
 @functools.lru_cache(maxsize=256)
@@ -193,47 +240,123 @@ def pair_maps_fwd_geometry(n: int, w1: int, w2: int, d: int,
                            m: int) -> PairMapsFwdGeometry:
     """The launch of ``pair_maps_fwd`` for one shape, from the shape alone.
     P's columns: as few tiles of at most 64 as cover D, equal in width
-    (several write partial maps).  W1's rows: parts of at most 40 (the
+    (several write partial maps).  W2: one tile while 40 rows' second
+    product fits 512 threads (W2 <= 200), else as few equal tiles as fit
+    (each forms its P again).  W1's rows: parts of at most 40 (the
     kernel's row fragments), split in two again, down to 8 rows, while the
     grid, doubled, still fits one wave of the 132 SMs.  Every plan fits:
-    at most 256 threads and 136,448 bytes of shared memory for W <= 64.
-    Raises ValueError for a shape the kernel does not take."""
+    at most 512 threads and 184,320 bytes of shared memory.  Raises
+    ValueError for a shape the kernel does not take."""
     _check_pair_maps_shape("pair_maps_fwd", n, w1, w2, d, m)
     te = _round_up(_cdiv(d, _cdiv(d, 64)), 8)
-    blocks = n * _cdiv(d, te) * _cdiv(m, _PM_MS)
+    rows = min(w1, _PM_MAX_ROWS)
+    w2_tiles = next(t for t in range(1, w2 + 1)
+                    if (geo := fwd_launch(_cdiv(w2, t), d, rows, te)).threads
+                    <= _PM_THREADS and geo.smem <= _SMEM_BYTES)
+    w2t = _cdiv(w2, w2_tiles)
+    blocks = n * _cdiv(d, te) * _cdiv(m, _PM_MS) * _cdiv(w2, w2t)
     parts = _cdiv(w1, _PM_MAX_ROWS)
     while 2 * parts * blocks <= _SMS and _cdiv(w1, 2 * parts) >= 8:
         parts *= 2
-    return fwd_launch(w2, d, _cdiv(w1, parts), te)
+    geo = fwd_launch(w2t, d, _cdiv(w1, parts), te)
+    if _cdiv(w1, geo.rows) * geo.col_tiles * _cdiv(w2, w2t) > _GRID_Y:
+        raise ValueError(f"pair_maps_fwd: W1={w1} x W2={w2} x D={d} needs "
+                         f"more blocks than a grid dimension holds")
+    return geo
 
 
 @functools.lru_cache(maxsize=256)
 def pair_maps_bwd_w_geometry(n: int, w1: int, w2: int, d: int,
                              m: int) -> PairMapsDwGeometry:
     """The launch of ``pair_maps_bwd_w`` for one shape, from the shape
-    alone.  A panel spans all of D's rows, split only where no panel fits
-    (t = G_m a_n is then formed once per split), and the widest column
-    slice (a multiple of 8, at most 64) that fits 512 threads and the
-    shared memory; narrowed to at least 132 // (N x row splits x measure
-    groups) slices, so that a small batch's panels fill a wave; then
-    ceil(132 / panels) chunks of samples (at most N), which cover 0..N
-    exactly, none empty.  Raises ValueError for a shape the kernel does
-    not take."""
+    alone.  A sample's W1 rows in one tile where a panel fits at some split
+    of D, else in as few equal tiles as let one fit at the fewest splits
+    (G_n is staged a tile at a time; the sums over W1 keep their row
+    order).  A panel spans all of D's rows, split only where no panel fits
+    (t = G_m a_n is then formed once per split), and the widest column slice (a multiple of 8, at most 64) that
+    fits 512 threads and the shared memory; narrowed to at least 132 // (N
+    x row splits x measure groups) slices, so that a small batch's panels
+    fill a wave; then ceil(132 / panels) chunks of samples (at most N),
+    which cover 0..N exactly, none empty.  Raises ValueError for a shape
+    the kernel does not take."""
     _check_pair_maps_shape("pair_maps_bwd_w", n, w1, w2, d, m)
-    splits, te = 0, None
-    while te is None:           # at most 168 rows fit any W <= 64
-        splits += 1
-        d_rows = _cdiv(d, splits)
+    # W1 whole at any split of D first (every plan of W <= 64 is such),
+    # else W1 tiles before further splits of D
+    splits_all = range(1, _cdiv(d, 8) + 1)
+    tries = [(1, sp) for sp in splits_all] + [
+        (t, sp) for sp in splits_all for t in range(2, w1 + 1)]
+    te = None
+    for w1_tiles, splits in tries:
+        w1t, d_rows = _cdiv(w1, w1_tiles), _cdiv(d, splits)
         te = next((t for t in range(min(64, _round_up(d, 8)), 0, -8)
-                   if (geo := dw_launch(n, w1, w2, d, n, d_rows, t)).threads
+                   if (geo := dw_launch(n, w1t, w2, d, n, d_rows, t)).threads
                    <= _PM_THREADS and geo.smem <= _SMEM_BYTES), None)
+        if te is not None:
+            break
+    if te is None:
+        raise ValueError(f"pair_maps_bwd_w: no panel fits W2={w2}")
     row_parts, groups = _cdiv(d, d_rows), _cdiv(m, _PM_MS)
     e_tiles = max(_cdiv(d, te),
                   min(_cdiv(d, 8), _SMS // (n * row_parts * groups)))
     te = _round_up(_cdiv(d, e_tiles), 8)
     panels = row_parts * _cdiv(d, te) * groups
     n_per = _cdiv(n, min(n, _cdiv(_SMS, panels)))
-    return dw_launch(n, w1, w2, d, n_per, d_rows, te)
+    return dw_launch(n, w1t, w2, d, n_per, d_rows, te)
+
+
+def _qa_role(n: int, kn: int, rn: int, d: int, te: int) -> PairMapsQaRole:
+    """A dQ or dA launch before the grid is filled: x's rows of as many
+    whole samples as make at most 128 (one sample in equal chunks where K
+    is larger), then as many output rows as the 256 threads' 4 x 8 tiles
+    cover (R in equal tiles where they do not, or where G's tile would
+    not fit shared memory), fewer samples where not even 4 rows of each
+    fit."""
+    if kn <= _QA_ROWS:
+        k_rows, samples = kn, min(n, _QA_ROWS // kn)
+    else:
+        k_rows, samples = _cdiv(kn, _cdiv(kn, _QA_ROWS)), 1
+    col_groups = te // 8
+    samples = max(1, min(samples, _QA_THREADS // (col_groups
+                                                  * _cdiv(rn, 4))))
+    r_tiles = _cdiv(rn, min(rn, 4 * (_QA_THREADS // (col_groups
+                                                     * samples))))
+    while (role := qa_launch(n, kn, rn, d, samples, k_rows,
+                             _cdiv(rn, r_tiles), te)).smem \
+            > _SMEM_BYTES:       # G's tile too large: more row tiles
+        r_tiles += 1
+    return role
+
+
+@functools.lru_cache(maxsize=256)
+def pair_maps_bwd_qa_geometry(n: int, w1: int, w2: int, d: int,
+                              m: int) -> PairMapsQaGeometry:
+    """The launch of ``pair_maps_bwd_qa`` for one shape, from the shape
+    alone.  Output columns: as few tiles of at most 64 as cover D, equal in
+    width.  For dQ (x = a_n, K = W2, R = W1) and dA (x = q_n, K = W1, R =
+    W2) each: the rows of x of as many whole samples as make at most 128
+    (V4's 40: three samples a block; past 128, one sample in equal
+    chunks), the output rows the 256 threads' 4-row x 8-column tiles cover
+    (equal tiles of R where they do not); then, while both launches'
+    blocks, doubled, still fit one wave of the 132 SMs, half the samples a
+    block; and where the two launches' blocks still fill less than two a
+    SM, the measures in as many groups as make them do (each group a
+    partial output).  Every plan fits 256 threads and a block's shared
+    memory.  Raises ValueError for a shape the kernel does not take."""
+    _check_pair_maps_shape("pair_maps_bwd_qa", n, w1, w2, d, m)
+    te = _round_up(_cdiv(d, _cdiv(d, 64)), 8)
+    dq, da = _qa_role(n, w2, w1, d, te), _qa_role(n, w1, w2, d, te)
+    while 2 * (dq.blocks + da.blocks) <= _SMS \
+            and max(dq.samples, da.samples) > 1:
+        dq = qa_launch(n, w2, w1, d, _cdiv(dq.samples, 2), dq.k_rows,
+                       dq.r_rows, te)
+        da = qa_launch(n, w1, w2, d, _cdiv(da.samples, 2), da.k_rows,
+                       da.r_rows, te)
+    if max(_cdiv(w1, dq.r_rows), _cdiv(w2, da.r_rows)) * _cdiv(d, te) \
+            > _GRID_Y:
+        raise ValueError(f"pair_maps_bwd_qa: W1={w1} x W2={w2} x D={d} needs"
+                         f" more blocks than a grid dimension holds")
+    groups = min(m, _cdiv(2 * _SMS, dq.blocks + da.blocks))
+    return PairMapsQaGeometry(te, dq, da, _cdiv(m, groups))
 
 
 def pair_maps_fwd(q, a, w):
@@ -249,7 +372,7 @@ def pair_maps_fwd(q, a, w):
                        device=q.device) if geo.col_tiles > 1 else out
     _launch("pair_maps_fwd", q, q.data_ptr(), a.data_ptr(), w.data_ptr(),
             out.data_ptr(), part.data_ptr(), n, w1, w2, d, m, geo.rows,
-            geo.te, geo.threads)
+            geo.te, geo.w2t, geo.threads)
     return out
 
 
@@ -262,10 +385,17 @@ def pair_maps_bwd_qa(q, a, w, g):
         return bilinear_pair_maps_grads_plain(q, a, w, g, need_w=False)[:2]
     g = g.contiguous()
     n, w1, w2, d, m = _check_pair_maps_cuda(q, a, w, g=g)
-    dq, da = torch.empty_like(q), torch.empty_like(a)
+    geo = pair_maps_bwd_qa_geometry(n, w1, w2, d, m)
+    out = torch.empty(n * (w1 + w2) * d, dtype=torch.float32,
+                      device=q.device)
+    groups = _cdiv(m, geo.m_per)
+    part = torch.empty((groups, out.numel()), dtype=torch.float32,
+                       device=q.device) if groups > 1 else out
     _launch("pair_maps_bwd_qa", q, q.data_ptr(), a.data_ptr(), w.data_ptr(),
-            g.data_ptr(), dq.data_ptr(), da.data_ptr(), n, w1, w2, d, m)
-    return dq, da
+            g.data_ptr(), out.data_ptr(), part.data_ptr(), n, w1, w2, d, m,
+            geo.te, geo.m_per, *geo.dq[:3], *geo.da[:3])
+    return (out[:n * w1 * d].view(n, w1, d),
+            out[n * w1 * d:].view(n, w2, d))
 
 
 def pair_maps_bwd_w(q, a, w, g):
@@ -284,7 +414,7 @@ def pair_maps_bwd_w(q, a, w, g):
                        device=w.device) if geo.chunks > 1 else dw
     _launch("pair_maps_bwd_w", q, q.data_ptr(), a.data_ptr(), g.data_ptr(),
             dw.data_ptr(), part.data_ptr(), n, w1, w2, d, m, geo.n_per,
-            geo.d_rows, geo.te, geo.threads)
+            geo.d_rows, geo.te, geo.w1t, geo.threads)
     return dw
 
 
@@ -316,8 +446,8 @@ def bilinear_pair_maps(q, a, w):
     """Fused SimCross mode-2 map: q (N, W1, D), a (N, W2, D), w (M, D, D)
     -> (N, W1, W2, M) float32, differentiable in all three.
 
-    CUDA operands must be contiguous float32 with W1, W2 <= 64 and M <=
-    65535; any D is taken (it is tiled)."""
+    CUDA operands must be contiguous float32 with M <= 65535; any W1, W2
+    and D are taken (they are tiled)."""
     return BilinearPairMaps.apply(q, a, w)
 
 
@@ -413,13 +543,11 @@ def bilinear_maxsim_scores(qw, pool):
     Dp) from ``pack_candidate_pool`` -> (Nq, C) float32.
 
     CPU tensors: the plain version.  CUDA tensors: the ``maxsim_bf16``
-    kernel (Dp a multiple of 16 up to 128)."""
+    kernel (any Dp that is a multiple of 16)."""
     nq, r, dp = _check_shapes(qw, pool)
     if _on_cpu(qw, pool):
         return bilinear_maxsim_scores_plain(qw, pool)
     _check_cuda_operands(qw=(qw, torch.bfloat16), pool=(pool, torch.bfloat16))
-    if dp % 16 or dp > 128:
-        raise ValueError(f"maxsim_bf16 takes Dp in 16..128 step 16, got {dp}")
     c, w2p = pool.shape[0], pool.shape[1]
     out = torch.empty((nq, c), dtype=torch.float32, device=qw.device)
     geo = maxsim_geometry(nq, r, c, w2p, dp, "bf16")
@@ -520,7 +648,7 @@ def bilinear_maxsim_scores_int8(qw_i8, q_scales, pool_i8, aux):
 
     The query-row scales are rounded to bf16 here, as the reference does.
     CPU tensors: the plain version.  CUDA tensors: the ``maxsim_int8``
-    kernel (Dp a multiple of 32 up to 256)."""
+    kernel (any Dp that is a multiple of 32)."""
     return _maxsim_quantized("maxsim_int8", bilinear_maxsim_scores_int8_plain,
                              torch.int8, 1, qw_i8, q_scales, pool_i8, aux)
 
@@ -542,8 +670,6 @@ def _maxsim_quantized(name, plain, pool_dtype, lanes_per_byte, qw,
                          q_scales=(q_scales, torch.float32),
                          pool=(pool, pool_dtype),
                          aux=(aux, torch.bfloat16))
-    if dp % 32 or dp > 256:
-        raise ValueError(f"{name} takes Dp in 32..256 step 32, got {dp}")
     sq = q_scales.to(torch.bfloat16).to(torch.float32)
     out = torch.empty((nq, c), dtype=torch.float32, device=qw.device)
     geo = maxsim_geometry(nq, r, c, w2p, dp, name[-4:])
@@ -652,7 +778,7 @@ def bilinear_maxsim_scores_int4(qw_i4, q_scales, pool_i4, aux):
     ``pack_candidate_pool_int4`` -> (Nq, C) float32 approximate scores.
 
     CPU tensors: the plain version.  CUDA tensors: the ``maxsim_int4``
-    kernel (Dp a multiple of 32 up to 256, so Dp/2 packed bytes per
+    kernel (any Dp that is a multiple of 32, so Dp/2 packed bytes per
     token); its scores equal the ``maxsim_int8`` kernel's on the unpacked
     codes, bit for bit."""
     return _maxsim_quantized("maxsim_int4", bilinear_maxsim_scores_int4_plain,
@@ -702,8 +828,10 @@ class MaxSimGeometry(NamedTuple):
     ``tiles_per_unit`` pool tiles (unit u: group u % n_groups, range u //
     n_groups); a tile is ``n_c`` whole candidates in one ``n``-column
     wgmma, or, where a candidate has more than 256 tokens, one of its
-    ``slabs`` parts of ``w2s`` tokens; ``stages`` tiles in the ring;
-    ``smem`` bytes of dynamic shared memory."""
+    ``slabs`` parts of ``w2s`` tokens; ``stages`` slots in the ring;
+    ``smem`` bytes of dynamic shared memory.  ``k_sliced``: the group's
+    query rows are not resident; each slot holds one K span of a tile and
+    of a 64-row tile of query rows, half the slots for each consumer."""
     g: int
     n_c: int
     w2s: int
@@ -716,22 +844,58 @@ class MaxSimGeometry(NamedTuple):
     units: int
     grid: int
     smem: int
+    k_sliced: bool
+
+
+def maxsim_span(row_bytes: int) -> int:
+    """The K span (swizzle width) of a row of ``row_bytes``: 128 bytes when
+    they divide the row or the row is longer than 256 bytes (whose last
+    span then runs past Dp into zeros), else 64 or 32."""
+    if row_bytes % 128 == 0 or row_bytes > 256:
+        return 128
+    return 64 if row_bytes % 64 == 0 else 32
 
 
 def maxsim_smem(r: int, dp: int, dtype: str, g: int, n_c: int, n: int,
-                stages: int) -> int:
+                stages: int, k_sliced: bool) -> int:
     """Dynamic shared memory of a MaxSim plan, as ``make_plan`` of
-    csrc/maxsim_wgmma.cuh lays it out: the ring (tiles of n token rows,
-    each rounded to 1 KB), the group's query rows (64-row tiles), for
-    each consumer a (row, candidate) term buffer (pitch n_c | 1) and, for
-    int8 and int4, a buffer of row scales, the mbarriers and 1 KB to
-    align."""
+    csrc/maxsim_wgmma.cuh lays it out: the ring (resident: tiles of n
+    token rows, each rounded to 1 KB, then the group's query rows in
+    64-row tiles; K-sliced: slots of one K span of n token rows, rounded to
+    1 KB, and of 64 query rows, rounded to 1 KB), for each consumer a (row,
+    candidate) term buffer (pitch n_c | 1) and, for int8 and int4, a
+    buffer of row scales, the mbarriers and 1 KB to align."""
     row_bytes = dp * (2 if dtype == "bf16" else 1)
     rows = _round_up(g * r, _MS_ROW_TILE)
-    return (1024 + stages * _round_up(n * row_bytes, 1024) + rows * row_bytes
-            + _MS_CONSUMERS * rows * (n_c | 1) * 4
+    if k_sliced:
+        kc = maxsim_span(row_bytes)
+        ring = stages * _round_up(_round_up(n * kc, 1024)
+                                  + _MS_ROW_TILE * kc, 1024)
+    else:
+        ring = stages * _round_up(n * row_bytes, 1024) + rows * row_bytes
+    return (1024 + ring + _MS_CONSUMERS * rows * (n_c | 1) * 4
             + (0 if dtype == "bf16" else _MS_CONSUMERS * rows * 4)
             + (2 * stages + 2) * 8)
+
+
+def _maxsim_fits(r, w2s, slabs, nq, dp, dtype, k_sliced):
+    """Every (n, n_c, g, stages) that fits shared memory, best first: the
+    tile width holding the most whole slabs (the narrower on a tie), the
+    most candidates, then (at the wanted ring depth, else the fewest) the
+    largest group and the deepest ring."""
+    if k_sliced:   # two slots a consumer at least, three at most
+        stage_opts, most, step = (4,), 6, 2
+    else:
+        stage_opts, most, step = _MS_STAGES[:2], _MS_STAGES[2], 1
+    return [(n, n_c, g, s)
+            for n in sorted(_MS_TILE_N, key=lambda n: (-(n // w2s * w2s), n))
+            for n_c in range(min(_MS_MAX_CANDS, n // w2s) if slabs == 1
+                             else 1, 0, -1)
+            for least in stage_opts
+            for g in range(min(nq, _MS_MAX_GROUP), 0, -1)
+            for s in range(most, least - 1, -step)
+            if maxsim_smem(r, dp, dtype, g, n_c, n, s, k_sliced)
+            <= _SMEM_BYTES]
 
 
 @functools.lru_cache(maxsize=256)
@@ -744,29 +908,33 @@ def maxsim_geometry(nq: int, r: int, c: int, w2p: int, dp: int,
     the most whole slabs (the narrower on a tie; the other where nothing
     fits), n_c = n // W2S of them (at most 32; fewer only where nothing
     else fits); at W2P = 40 (V4's answers) six whole candidates fill 240
-    columns, and the kernel has a path of its own for them.  Groups of up
-    to 8 queries, the most that leave room for 3 tiles in the ring (2
-    where no group does); then as many tiles as fit, up to 6.  The pool's
-    tiles split into ranges so that there are about 32 units per block of
-    one wave (at least a tile a range for each consumer), and the grid is
-    at most one block per SM.  Raises ValueError for a shape the kernel
-    does not take."""
+    columns, and the kernel has a path of its own for them.  Rows of at
+    most 256 bytes keep the group's query rows resident: groups of up to 8
+    queries, the most that leave room for 3 tiles in the ring (2 where no
+    group does); then as many tiles as fit, up to 6.  Longer rows, or
+    query rows that do not fit beside a 2-tile ring (R = 800 at D = 300),
+    take the K-sliced plan: 4 to 6 slots of one 128-byte K span each,
+    groups as large as fit.  The pool's tiles split into ranges so that
+    there are about 32 units per block of one wave (at least a tile a
+    range for each consumer), and the grid is at most one block per SM.
+    Raises ValueError for a shape no plan covers: Dp not a multiple of 32
+    bytes, or R so large that one query's row terms do not fit beside the
+    smallest ring (past about 9,400 rows at bf16's Dp 304, 4,700 at int8's
+    Dp 320)."""
     es = 2 if dtype == "bf16" else 1
     if not (nq >= 1 and r >= 1 and c >= 1 and w2p >= 8 and w2p % 8 == 0
-            and 32 <= dp * es <= 256 and dp * es % 32 == 0):
+            and dp * es >= 32 and dp * es % 32 == 0):
         raise ValueError(f"no MaxSim plan for Nq={nq} R={r} C={c} W2P={w2p}"
                          f" Dp={dp} ({dtype})")
     w2s = w2p if w2p <= 256 else 8 * max(
         d for d in range(1, 33) if (w2p // 8) % d == 0)
     slabs = w2p // w2s
-    fits = [(n, n_c, g, s)
-            for n in sorted(_MS_TILE_N, key=lambda n: (-(n // w2s * w2s), n))
-            for n_c in range(min(_MS_MAX_CANDS, n // w2s) if slabs == 1
-                             else 1, 0, -1)
-            for least in _MS_STAGES[:2]
-            for g in range(min(nq, _MS_MAX_GROUP), 0, -1)
-            for s in range(_MS_STAGES[2], least - 1, -1)
-            if maxsim_smem(r, dp, dtype, g, n_c, n, s) <= _SMEM_BYTES]
+    k_sliced = dp * es > 256
+    fits = [] if k_sliced else _maxsim_fits(r, w2s, slabs, nq, dp, dtype,
+                                            False)
+    if not fits:
+        k_sliced = True
+        fits = _maxsim_fits(r, w2s, slabs, nq, dp, dtype, True)
     if not fits:
         raise ValueError(f"R={r} query rows need more shared memory than a "
                          f"block has (Dp={dp}, {dtype})")
@@ -777,13 +945,14 @@ def maxsim_geometry(nq: int, r: int, c: int, w2p: int, dp: int,
     units = n_groups * _cdiv(n_tiles, per)
     return MaxSimGeometry(g, n_c, w2s, slabs, n, stages, per, n_groups,
                           n_tiles, units, min(_SMS, units),
-                          maxsim_smem(r, dp, dtype, g, n_c, n, stages))
+                          maxsim_smem(r, dp, dtype, g, n_c, n, stages,
+                                      k_sliced), k_sliced)
 
 
 def _plan_args(geo: MaxSimGeometry) -> tuple[int, ...]:
     """The plan as the C entry points take it, after (..., dp)."""
     return (geo.g, geo.n_c, geo.w2s, geo.n, geo.stages, geo.tiles_per_unit,
-            geo.grid)
+            geo.grid, int(geo.k_sliced))
 
 
 def _launch(name: str, like: torch.Tensor, *args):

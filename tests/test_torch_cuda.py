@@ -155,12 +155,13 @@ def test_a_pairs_score_does_not_depend_on_the_launch_shape(dtype):
     assert len(seen) >= 30 and torch.equal(seen, seen[:1].expand_as(seen))
 
 
-# every Dp the wrappers take, at its ends, at W2P = 8, 24 and 40 (W2 = 8,
-# 21 and 37: padded tokens too); D sets Dp (bf16: D + 1 rounded to 16;
-# int8 and int4: D rounded to 32)
-DP_SHAPES = [(dtype, d, w2) for dtype, ds in (("bf16", (15, 127)),
-                                              ("int8", (20, 256)),
-                                              ("int4", (20, 256)))
+# Dp at the ends of the resident plan and past it (V4_WIDE's D = 300: Dp
+# 304 bf16, 320 int8 and int4, K-sliced, the last 128-byte span past Dp),
+# at W2P = 8, 24 and 40 (W2 = 8, 21 and 37: padded tokens too); D sets Dp
+# (bf16: D + 1 rounded to 16; int8 and int4: D rounded to 32)
+DP_SHAPES = [(dtype, d, w2) for dtype, ds in (("bf16", (15, 127, 300)),
+                                              ("int8", (20, 256, 300)),
+                                              ("int4", (20, 256, 300)))
              for d in ds for w2 in (8, 21, 37)]
 
 
@@ -222,13 +223,49 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
                                       .contiguous().transpose(0, 1), aux4)
     with pytest.raises(ValueError):          # operands on two devices
         T.bilinear_maxsim_scores_int4(q4, qs4, p4.cpu(), aux4)
-    with pytest.raises(ValueError):          # Dp the kernel has no path for
+    with pytest.raises(ValueError):          # Dp not a multiple of 32 bytes
         T.bilinear_maxsim_scores_int4(
-            torch.zeros((2, 3, 288), dtype=torch.int8, device=dev),
+            torch.zeros((2, 3, 80), dtype=torch.int8, device=dev),
             qs4[:, :3].contiguous(),
-            torch.zeros((5, 8, 144), dtype=torch.uint8, device=dev),
+            torch.zeros((5, 8, 40), dtype=torch.uint8, device=dev),
             aux4[:5])
     assert T.LAUNCH_COUNTS == n0
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int4"])
+def test_rows_past_256_bytes_match_plain(dtype):
+    """Dp 288 (int8 and int4) or 144 (bf16), once refused: the K-sliced
+    plan, whose last 128-byte span runs past Dp."""
+    dev = _cuda()
+    d = 143 if dtype == "bf16" else 288
+    q, cand, w = _operands(dev, 2, 50, 40, 3, 4, d)
+    kernel, plain, args = _scorer(dtype, q, cand, w)
+    assert args[0].shape[2] * args[0].element_size() > 256
+    geo = T.maxsim_geometry(2, 12, 50, 40, args[0].shape[2], dtype)
+    assert geo.k_sliced
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    _assert_close(got, plain(*args), T.KERNEL_VS_PLAIN_RTOL["maxsim_" + dtype])
+
+
+@pytest.mark.parametrize("d", [50, 300])
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int4"])
+def test_r_800_matches_plain(dtype, d):
+    """R = 800 query rows (W1 = 200, M = 4): resident at D = 50, K-sliced
+    with the query rows streamed at D = 300; int4 bit-identical to int8 on
+    the unpacked codes."""
+    dev = _cuda()
+    q, cand, w = _operands(dev, 3, 301, 40, 200, 4, d)
+    kernel, plain, args = _scorer(dtype, q, cand, w)
+    dp = args[0].shape[2]
+    assert T.maxsim_geometry(3, 800, 301, 40, dp, dtype).k_sliced == (d == 300)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    _assert_close(got, plain(*args), T.KERNEL_VS_PLAIN_RTOL["maxsim_" + dtype])
+    if dtype == "int4":
+        qi, qs, pool, aux = args
+        assert torch.equal(got, T.bilinear_maxsim_scores_int8(
+            qi, qs, T.unpack_int4(pool), aux))
 
 
 def test_topk_tie_rule_on_cuda():
@@ -350,10 +387,20 @@ PAIR_SHAPES = [(50, 40, 40, 50, 4), (7, 40, 40, 50, 4), (1, 40, 40, 50, 4),
                (1024, 40, 40, 50, 4), (1024, 64, 7, 50, 4),
                (1, 1, 7, 1, 4), (7, 7, 1, 31, 4), (50, 64, 40, 33, 4),
                (7, 40, 64, 64, 4), (50, 7, 40, 301, 4), (50, 40, 1, 300, 2),
-               (7, 40, 7, 64, 5), (1, 64, 64, 301, 4)]
+               (7, 40, 7, 64, 5), (1, 64, 64, 301, 4),
+               # past 64 rows: W1 in forward parts and W1 tiles of dW, W2
+               # tiles of the forward (W2 > 200), chunks of x in dQ / dA
+               # (K > 128), output row tiles; V4_WIDE at batch 1024
+               (7, 65, 40, 50, 4), (7, 40, 100, 300, 4),
+               (3, 100, 100, 300, 4), (2, 200, 64, 50, 4),
+               (2, 40, 201, 33, 4), (2, 130, 9, 300, 3),
+               (1024, 40, 40, 300, 4), (128, 65, 100, 300, 4),
+               (64, 200, 200, 300, 4)]
 # dW must come out bit-identical across runs where its batch is split in
-# chunks: V4 at batch 50 and 1024, V4_WIDE
-DW_SHAPES = [(50, 40, 40, 50, 4), (1024, 40, 40, 50, 4), (50, 40, 40, 300, 4)]
+# chunks: V4 at batch 50 and 1024, V4_WIDE, and W1 tiled
+DW_SHAPES = [(50, 40, 40, 50, 4), (1024, 40, 40, 50, 4), (50, 40, 40, 300, 4),
+             (1024, 40, 40, 300, 4), (1024, 65, 100, 300, 4),
+             (7, 200, 100, 300, 4)]
 
 
 def _pair_operands(dev, n, w1, w2, d, m, seed=0):
@@ -417,9 +464,11 @@ def test_pair_map_backward_takes_a_strided_gradient():
 def test_pair_map_wrapper_raises_on_what_the_kernels_do_not_take():
     dev = _cuda()
     q, a, w, _ = _pair_operands(dev, 2, 65, 40, 8, 2)
+    # W1 = 65, once refused, now runs
+    _assert_close_to_max(T.bilinear_pair_maps(q, a, w),
+                         T.bilinear_pair_maps_plain(q, a, w),
+                         T.KERNEL_VS_PLAIN_RTOL["pair_maps_fwd"])
     n0 = dict(T.LAUNCH_COUNTS)
-    with pytest.raises(ValueError):          # W1 > 64
-        T.bilinear_pair_maps(q, a, w)
     q, a, w, _ = _pair_operands(dev, 2, 40, 40, 8, 2)
     with pytest.raises(TypeError):
         T.bilinear_pair_maps(q.double(), a.double(), w.double())

@@ -220,16 +220,21 @@ def test_wrappers_reject_bad_operands():
 # takes any multiple of 8 up to 256; s32 += s8 * s8 takes 8, 16, 24, 32,
 # then multiples of 16 up to 256.
 _S8_WIDTHS = {8, 16, 24, 32} | set(range(48, 257, 16))
+# V4 and V4_WIDE (Dp 304 bf16, 320 int8 / int4: K-sliced), R = 800 (W1 =
+# 200: resident at Dp 64, K-sliced at Dp 304 / 320), ragged everything
 _PLAN_SWEEP = [(nq, r, c, w2p, dp, dtype)
                for nq, r, c in [(1, 160, 262_144), (256, 160, 262_144),
                                 (16, 160, 8192), (5, 160, 8192 + 37),
                                 (1, 20, 1), (3, 20, 37), (70, 160, 200),
-                                (1, 160, 2000), (9, 3 * 4, 1000)]
+                                (1, 160, 2000), (9, 3 * 4, 1000),
+                                (3, 800, 301), (32, 800, 8192)]
                for w2p, dp, dtype in [(40, 64, "bf16"), (40, 64, "int8"),
                                       (40, 64, "int4"), (8, 128, "bf16"),
                                       (24, 16, "bf16"), (8, 256, "int8"),
                                       (24, 32, "int4"), (296, 64, "bf16"),
-                                      (512, 96, "int8")]]
+                                      (512, 96, "int8"), (40, 304, "bf16"),
+                                      (40, 320, "int8"), (40, 320, "int4"),
+                                      (296, 320, "int8")]]
 
 
 def _visits(geo):
@@ -273,8 +278,10 @@ def test_maxsim_plan_fits_the_card(shape):
     assert geo.w2s % 8 == 0 and geo.n_c * geo.w2s <= geo.n
     assert 1 <= geo.n_c <= 32 and (geo.slabs == 1 or geo.n_c == 1)
     assert 1 <= geo.g <= min(nq, 8) and 2 <= geo.stages <= 6
+    if geo.k_sliced:   # two rings of two or three slots
+        assert geo.stages in (4, 6)
     assert geo.smem == T.maxsim_smem(r, dp, dtype, geo.g, geo.n_c, geo.n,
-                                     geo.stages) <= 232_448
+                                     geo.stages, geo.k_sliced) <= 232_448
     assert 1 <= geo.grid <= min(132, geo.units) and geo.grid <= 65_535
 
 
@@ -287,12 +294,36 @@ def test_maxsim_plan_keeps_the_serving_shape_whole():
     assert T.maxsim_geometry(1, 160, 262_144, 40, 64, "int8").g == 1
 
 
+def test_maxsim_plan_slices_k_only_where_it_must():
+    """Rows of at most 256 bytes whose query rows fit keep the resident
+    plan, V4's included, so its kernels are the ones built before; rows
+    past 256 bytes, or R = 800 at V4_WIDE's Dp, are K-sliced, in 128-byte
+    spans whose last one may run past Dp."""
+    for nq in (1, 16, 256):
+        for dtype in ("bf16", "int8", "int4"):
+            assert not T.maxsim_geometry(nq, 160, 262_144, 40, 64,
+                                         dtype).k_sliced
+            assert not T.maxsim_geometry(nq, 800, 8192, 40, 64,
+                                         dtype).k_sliced
+    for dtype, dp in (("bf16", 304), ("int8", 320), ("int4", 320),
+                      ("bf16", 144)):
+        for r in (160, 800):
+            assert T.maxsim_geometry(256, r, 262_144, 40, dp, dtype).k_sliced
+    assert T.maxsim_span(608) == T.maxsim_span(320) == 128
+    assert (T.maxsim_span(128), T.maxsim_span(64), T.maxsim_span(96)) \
+        == (128, 64, 32)
+    # the K-sliced V4_WIDE scan still fills a wave with six candidates a
+    # 240-column tile
+    geo = T.maxsim_geometry(256, 160, 262_144, 40, 304, "bf16")
+    assert (geo.n, geo.n_c, geo.grid) == (240, 6, 132)
+
+
 @pytest.mark.parametrize("shape", [(1, 160, 10, 44, 64, "bf16"),
                                    (1, 160, 10, 40, 72, "bf16"),
                                    (1, 160, 10, 40, 48, "int8"),
-                                   (1, 160, 10, 40, 288, "int4"),
+                                   (1, 160, 10, 40, 80, "int4"),
                                    (0, 160, 10, 40, 64, "bf16"),
-                                   (1, 4000, 10, 40, 128, "bf16")])
+                                   (1, 10_000, 10, 40, 128, "bf16")])
 def test_maxsim_plan_refuses_what_the_kernels_do_not_take(shape):
     with pytest.raises(ValueError):
         T.maxsim_geometry(*shape)

@@ -76,6 +76,27 @@ def test_gradients_match_custom_vjp_and_autodiff(shape):
         _close(g, u)
 
 
+@pytest.mark.parametrize("shape", [(2, 65, 100, 300, 4), (1, 100, 65, 300, 2),
+                                   (2, 130, 9, 50, 4)])
+def test_long_sentences_match_pallas_kernel_and_custom_vjp(shape):
+    """W1 != W2 past 64 (the CUDA kernels tile them) at V4_WIDE's D = 300:
+    the forward against the Pallas kernel, the three gradients of a given
+    dL/dout against the custom VJP.  Operands at the card tests' scales
+    (0.3, 0.3, 0.05), so the map stays O(1); same 1e-5 tolerance."""
+    q, a, w = _operands(*shape, seed=6)
+    q, a, w = q * 0.3, a * 0.3, w * 0.5
+    g = np.random.default_rng(7).normal(
+        size=(shape[0], shape[1], shape[2], shape[4])).astype(np.float32)
+    tq, ta, tw = (torch.from_numpy(x).requires_grad_(True) for x in (q, a, w))
+    out = T.bilinear_pair_maps(tq, ta, tw)
+    out.backward(torch.from_numpy(g))
+    _close(out, _pair_maps_forward(jnp.asarray(q), jnp.asarray(a),
+                                   jnp.asarray(w), interpret=True))
+    _, vjp = jax.vjp(j_pair_maps, *map(jnp.asarray, (q, a, w)))
+    for got, want in zip((tq.grad, ta.grad, tw.grad), vjp(jnp.asarray(g))):
+        _close(got, want)
+
+
 def test_grads_plain_are_the_closed_forms():
     q, a, w = _operands(2, 5, 6, 7, 3, seed=2)
     g = np.random.default_rng(3).normal(size=(2, 5, 6, 3)).astype(np.float32)
@@ -135,7 +156,7 @@ def test_shapes_are_checked(shapes):
 # split of rows, columns and samples across blocks, threads and shared
 # memory) is plain Python, held here to the kernels' own limits.
 SMEM_LIMIT = 232448          # dynamic shared memory of one sm_90 block
-GEO_WIDTHS = (1, 7, 40, 64)
+GEO_WIDTHS = (1, 7, 40, 64, 65, 100, 200, 512)
 GEO_DS = (1, 31, 33, 50, 64, 300, 301, 512, 1000, 4096)
 GEO_NS = (1, 7, 50, 1024)
 
@@ -145,11 +166,15 @@ def _fwd_fits(geo, n, w1, w2, d, m):
     assert 1 <= geo.rows <= min(w1, 40) and geo.rows * (parts - 1) < w1
     assert geo.te % 8 == 0 and geo.te * (geo.col_tiles - 1) < d \
         <= geo.te * geo.col_tiles
+    # W2's tiles cover it exactly, none empty
+    w2_tiles = -(-w2 // geo.w2t)
+    assert 1 <= geo.w2t <= w2 and geo.w2t * (w2_tiles - 1) < w2
     assert geo.threads % 32 == 0 and 32 <= geo.threads <= 512
     # a warp per two 16-column fragments of P^T; a 2-row x 8-column tile
     # of the second product per thread
     assert geo.threads // 32 * 2 >= geo.te * 4 // 16
-    assert -(-geo.rows // 8) * 4 * -(-w2 // 8) <= geo.threads
+    assert -(-geo.rows // 8) * 4 * -(-geo.w2t // 8) <= geo.threads
+    assert parts * geo.col_tiles * w2_tiles <= 65535
     assert 0 < geo.smem <= SMEM_LIMIT
 
 
@@ -159,10 +184,34 @@ def _dw_fits(geo, n, w1, w2, d, m):
     assert (geo.chunks - 1) * geo.n_per < n <= geo.chunks * geo.n_per
     assert geo.chunks <= 65535
     assert 1 <= geo.d_rows <= d and geo.te % 8 == 0 and geo.te <= 64
+    # W1's tiles cover a sample's rows exactly, none empty
+    assert 1 <= geo.w1t <= w1 and geo.w1t * (-(-w1 // geo.w1t) - 1) < w1
     # one 8 x 8 tile of the panel per thread, for each of the 4 measures
     assert geo.threads % 32 == 0 and 32 <= geo.threads <= 512
     assert -(-geo.d_rows // 8) * (geo.te // 8) * 4 <= geo.threads
     assert 0 < geo.smem <= SMEM_LIMIT
+
+
+def _qa_fits(geo, n, w1, w2, d, m):
+    assert geo.te % 8 == 0 and 8 <= geo.te <= 64
+    # measure groups cover 0..M exactly, none empty
+    assert 1 <= geo.m_per <= m and geo.m_per * (-(-m // geo.m_per) - 1) < m
+    for role, kn, rn in ((geo.dq, w2, w1), (geo.da, w1, w2)):
+        # whole samples with all of K, or one sample in chunks of x's rows
+        # that cover K exactly, none empty; at most 128 rows of x
+        assert 1 <= role.samples <= n and 1 <= role.k_rows <= kn
+        assert role.samples == 1 or role.k_rows == kn
+        assert role.k_rows * (-(-kn // role.k_rows) - 1) < kn
+        assert role.samples * role.k_rows <= 128
+        # output row tiles cover R exactly, none empty; a 4 x 8 tile of
+        # the output per thread of 256
+        assert 1 <= role.r_rows <= rn
+        assert role.r_rows * (-(-rn // role.r_rows) - 1) < rn
+        assert role.samples * -(-role.r_rows // 4) * (geo.te // 8) <= 256
+        assert role.blocks == -(-n // role.samples) * -(-rn // role.r_rows) \
+            * -(-d // geo.te)
+        assert -(-rn // role.r_rows) * -(-d // geo.te) <= 65535
+        assert 0 < role.smem <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("d", GEO_DS)
@@ -174,21 +223,54 @@ def test_launch_plans_fit_the_kernels(d):
                           n, w1, w2, d, 4)
                 _dw_fits(T.pair_maps_bwd_w_geometry(n, w1, w2, d, 4),
                          n, w1, w2, d, 4)
+                _qa_fits(T.pair_maps_bwd_qa_geometry(n, w1, w2, d, 4),
+                         n, w1, w2, d, 4)
 
 
 @pytest.mark.parametrize("shape", [(50, 40, 40, 50, 4), (1024, 40, 40, 50, 4),
                                    (50, 40, 40, 300, 4), (1600, 40, 40, 50, 4),
-                                   (7, 40, 7, 64, 5), (3, 64, 1, 301, 9)])
+                                   (7, 40, 7, 64, 5), (3, 64, 1, 301, 9),
+                                   (1024, 40, 40, 300, 4),
+                                   (50, 65, 100, 300, 4),
+                                   (7, 200, 200, 50, 4)])
 def test_launch_plans_depend_only_on_the_shape(shape):
-    first = (T.pair_maps_fwd_geometry(*shape),
-             T.pair_maps_bwd_w_geometry(*shape))
-    T.pair_maps_fwd_geometry.cache_clear()
-    T.pair_maps_bwd_w_geometry.cache_clear()
-    again = (T.pair_maps_fwd_geometry(*shape),
-             T.pair_maps_bwd_w_geometry(*shape))
+    plans = (T.pair_maps_fwd_geometry, T.pair_maps_bwd_w_geometry,
+             T.pair_maps_bwd_qa_geometry)
+    first = tuple(plan(*shape) for plan in plans)
+    for plan in plans:
+        plan.cache_clear()
+    again = tuple(plan(*shape) for plan in plans)
     assert first == again
     _fwd_fits(first[0], *shape)
     _dw_fits(first[1], *shape)
+    _qa_fits(first[2], *shape)
+
+
+def test_w_up_to_64_keeps_its_plans():
+    """Tiling W1 and W2 leaves every V4 / V4_WIDE plan whole: one W2 tile
+    in the forward, one W1 tile in dW."""
+    for n in (1, 50, 1024, 1600):
+        for d in (50, 300):
+            assert T.pair_maps_fwd_geometry(n, 40, 40, d, 4).w2t == 40
+            assert T.pair_maps_bwd_w_geometry(n, 40, 40, d, 4).w1t == 40
+    assert T.pair_maps_fwd_geometry(50, 40, 201, 50, 4).w2t == 101
+    assert T.pair_maps_bwd_w_geometry(7, 512, 512, 300, 4).w1t < 512
+
+
+def test_bwd_qa_plan_tiles_rows_across_samples():
+    """V4 at batch 1024: three samples' 40 rows (120) a block for both dQ
+    and dA, so one staged slab of W_m serves 120 rows; at batch 50 the
+    blocks shrink to one sample so that 100 blocks run; past 128 rows of
+    x a sample is cut into equal chunks."""
+    geo = T.pair_maps_bwd_qa_geometry(1024, 40, 40, 300, 4)
+    assert geo.te == 60 + 4 and geo.dq[:3] == geo.da[:3] == (3, 40, 40)
+    assert geo.m_per == 4                     # no partial outputs
+    small = T.pair_maps_bwd_qa_geometry(50, 40, 40, 50, 4)
+    assert small.dq.samples == small.da.samples == 1
+    assert small.dq.blocks + small.da.blocks == 100
+    assert small.m_per == 2                   # 200 blocks in two groups
+    wide = T.pair_maps_bwd_qa_geometry(4, 40, 200, 50, 4)
+    assert wide.dq.k_rows == 100 and wide.da.r_rows == 100
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 50, 65, 68, 1024, 1600, 100_000])
@@ -202,10 +284,11 @@ def test_dw_chunks_cover_the_batch(n):
 
 
 @pytest.mark.parametrize("plan", [T.pair_maps_fwd_geometry,
-                                  T.pair_maps_bwd_w_geometry])
+                                  T.pair_maps_bwd_w_geometry,
+                                  T.pair_maps_bwd_qa_geometry])
 @pytest.mark.parametrize("shape", [
     (50, 40, 40, 50, 65536),                   # M past the grid
-    (50, 65, 40, 50, 4), (50, 40, 65, 50, 4),  # W past 64
+    (50, -1, 40, 50, 4), (50, 40, -1, 50, 4),  # negative widths
     (0, 40, 40, 50, 4), (50, 0, 40, 50, 4),    # empty
     (50, 40, 40, 0, 4), (50, 40, 40, 50, 0)])
 def test_launch_plans_refuse_what_the_kernels_do_not_take(plan, shape):

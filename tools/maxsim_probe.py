@@ -10,10 +10,11 @@ max operations, which sets the floor of the token max.
     python3 tools/maxsim_probe.py --before _scratch/maxsim_before
 
 The earlier sources must export ``maxsim_bf16(qw, pool, out, nq, r, c, w2p,
-dp, tc, nwarps, q_per_block, device, stream)`` and ``maxsim_int8`` /
-``maxsim_int4(qw, qs, pool, aux, out, ...the same ints...)``, launched as
-their wrapper did: tiles of min(16 if Nq >= 8 else 4, what fits) candidates,
-min(8, Nq) warps, 64 queries a block.  Every kernel time is a burst of
+dp, g, n_c, w2s, n, stages, tiles_per_unit, grid, device, stream)`` and
+``maxsim_int8`` / ``maxsim_int4(qw, qs, pool, aux, out, ...the same
+ints...)``, as e2bf046's do; they are launched with the resident plan that
+``maxsim_geometry`` gives V4's shapes.  ``--quick`` times the kernels
+alone (no max-rate or engine phase).  Every kernel time is a burst of
 launches between two CUDA events (``chip_smoke.burst_ms``), taken in turns:
 before, now, now, before, at 1, 16, 32 and 256 queries x 262,144 candidates
 and 16 x 8,192, V4's widths (R = 160, W2P = 40, D = 50), each beside its
@@ -96,18 +97,23 @@ def nvcc_lib(name: str, sources: list[str]) -> ctypes.CDLL:
 
 def before_kernels(src_dir: Path):
     """The earlier kernels as a library of their own, and wrappers that
-    launch them as the earlier Python side did."""
+    launch them with the plan ``maxsim_geometry`` gives the shape (its
+    first seven numbers: the earlier entry points take no K-sliced flag,
+    and V4's shapes keep the resident plan)."""
     from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
 
     lib = nvcc_lib("maxsim_before", [str(src_dir / "maxsim_bf16.cu"),
                                      str(src_dir / "maxsim_int8.cu")])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.maxsim_bf16.argtypes = [p] * 3 + [i] * 9 + [p]
-    lib.maxsim_int8.argtypes = [p] * 5 + [i] * 9 + [p]
-    lib.maxsim_int4.argtypes = [p] * 5 + [i] * 9 + [p]
+    lib.maxsim_bf16.argtypes = [p] * 3 + [i] * 13 + [p]
+    lib.maxsim_int8.argtypes = [p] * 5 + [i] * 13 + [p]
+    lib.maxsim_int4.argtypes = [p] * 5 + [i] * 13 + [p]
 
-    def shape(nq, cand_bytes):
-        return min(16 if nq >= 8 else 4, 232448 // cand_bytes), min(8, nq), 64
+    def plan(nq, r, c, w2p, dp, kind):
+        geo = sk.maxsim_geometry(nq, r, c, w2p, dp, kind)
+        if geo.k_sliced:
+            raise ValueError("the earlier kernels have no K-sliced plan")
+        return sk._plan_args(geo)[:7]
 
     def call(fn, like, *args):
         err = fn(*args, like.device.index or 0,
@@ -121,10 +127,10 @@ def before_kernels(src_dir: Path):
         out = torch.empty((nq, c), device=qw.device)
         call(lib.maxsim_bf16, qw, qw.data_ptr(), pool.data_ptr(),
              out.data_ptr(), nq, r, c, w2p, dp,
-             *shape(nq, w2p * (dp + 8) * 2))
+             *plan(nq, r, c, w2p, dp, "bf16"))
         return out
 
-    def quantized(fn):
+    def quantized(fn, kind):
         def run(qw, qs, pool, aux):
             nq, r, dp = qw.shape
             c, w2p = pool.shape[:2]
@@ -132,12 +138,12 @@ def before_kernels(src_dir: Path):
             out = torch.empty((nq, c), device=qw.device)
             call(fn, qw, qw.data_ptr(), sq.data_ptr(), pool.data_ptr(),
                  aux.data_ptr(), out.data_ptr(), nq, r, c, w2p, dp,
-                 *shape(nq, w2p * (dp + 16)))
+                 *plan(nq, r, c, w2p, dp, kind))
             return out
         return run
 
-    return {"bf16": bf16, "int8": quantized(lib.maxsim_int8),
-            "int4": quantized(lib.maxsim_int4)}, sk
+    return {"bf16": bf16, "int8": quantized(lib.maxsim_int8, "int8"),
+            "int4": quantized(lib.maxsim_int4, "int4")}, sk
 
 
 def max_rates(card: str) -> dict:
@@ -273,6 +279,8 @@ def main() -> int:
     ap.add_argument("--before", type=Path, required=True,
                     help="directory holding the earlier maxsim_bf16.cu and "
                          "maxsim_int8.cu")
+    ap.add_argument("--quick", action="store_true",
+                    help="the kernel phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("maxsim_probe: no CUDA device", file=sys.stderr)
@@ -290,7 +298,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rates = max_rates(card)
     kernel_phase(sk, before, rates, gen, card)
-    engine_phase(sk, before, gen, card)
+    if not args.quick:
+        engine_phase(sk, before, gen, card)
     return 0
 
 

@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""Times the pair-map forward and dW kernels of ``csrc/pair_maps.cu``
-against an earlier version of that source on one GPU, the launch plans
-next to the ones the plan rules pass over, and the train steps that run
-the kernels.
+"""Times the pair-map kernels of ``csrc/pair_maps.cu`` (forward, dQ / dA
+and dW) against an earlier version of that source on one GPU, the launch
+plans next to the ones the plan rules pass over, and the train steps that
+run the kernels.
 
     git show <commit>:mms_answer_selection_tpu_torch/csrc/pair_maps.cu \\
         > _scratch/pair_maps_before.cu
     python3 tools/pair_maps_probe.py --before _scratch/pair_maps_before.cu
 
-The earlier source must export ``pair_maps_fwd(q, a, w, out, n, w1, w2, d,
-m, device, stream)`` and ``pair_maps_bwd_w(q, a, g, dw, part, n, w1, w2, d,
-m, samples per chunk, device, stream)`` (``--before-chunk`` gives the
-samples per chunk its wrapper passed).  Every time is a burst of launches
-between two CUDA events (``chip_smoke.burst_ms``), taken in turns: einsum,
-before, now, now, before, einsum.  Then V4 at batch 1024 and V4_WIDE (D =
-300) at batch 50 and 1024 train on synthetic corpus batches with the
-earlier and the current kernels in turns (step p50, host clock and a
-device sync), and ``torch.profiler`` reads each step's device time and
-the pair maps' share of it.  Needs a CUDA device; prints one line per
-measurement and the card's name and power limit first.
+The earlier source must export the entry points of e2bf046's:
+``pair_maps_fwd(q, a, w, out, part, n, w1, w2, d, m, rows, te, threads,
+device, stream)``, ``pair_maps_bwd_w(q, a, g, dw, part, n, w1, w2, d, m,
+n_per, d_rows, te, threads, device, stream)`` and ``pair_maps_bwd_qa(q, a,
+w, g, dq, da, n, w1, w2, d, m, device, stream)``; its forward and dW run
+the current rules' plans (the same for W <= 64).  Every time is a burst of
+launches between two CUDA events (``chip_smoke.burst_ms``), taken in
+turns: einsum, before, now, now, before, einsum; dQ and dA's yardstick is
+their two einsums.  Then V4 at batch 1024 and V4_WIDE (D = 300) at batch
+50 and 1024 train on synthetic corpus batches with the earlier and the
+current kernels in turns (step p50, host clock and a device sync), and
+``torch.profiler`` reads each step's device time and the pair maps' share
+of it.  ``--skip-plans`` leaves out the plan phase.  Needs a CUDA device;
+prints one line per measurement and the card's name and power limit
+first.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import burst_ms, pair_bound, sync_ms  # noqa: E402
 
 W1, W2, M = 40, 40, 4
-SHAPES = ((50, 50), (1024, 50), (50, 300))   # (N, D) of both kernels
+SHAPES = ((50, 50), (1024, 50), (50, 300), (1024, 300))   # (N, D)
 FWD_ONLY = ((1600, 50),)                     # the rerank's pairs
 REPS = 100
 
@@ -54,13 +58,15 @@ def build_before(src: Path) -> ctypes.CDLL:
                     str(so), str(src)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pair_maps_fwd.argtypes = [p] * 4 + [i] * 6 + [p]
-    lib.pair_maps_bwd_w.argtypes = [p] * 5 + [i] * 7 + [p]
+    lib.pair_maps_fwd.argtypes = [p] * 5 + [i] * 9 + [p]
+    lib.pair_maps_bwd_w.argtypes = [p] * 5 + [i] * 10 + [p]
+    lib.pair_maps_bwd_qa.argtypes = [p] * 6 + [i] * 6 + [p]
     return lib
 
 
-def before_kernels(lib, chunk: int):
-    """Wrappers of the earlier kernels, as its Python side launched them."""
+def before_kernels(lib, sk):
+    """Wrappers of the earlier kernels (forward, dQ / dA, dW), launched as
+    its Python side did, with the current rules' plans."""
     def call(fn, q, *args):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*args, q.device.index or 0, stream)
@@ -69,33 +75,54 @@ def before_kernels(lib, chunk: int):
 
     def fwd(q, a, w):
         n, w1, d = q.shape
-        out = torch.empty((n, w1, a.shape[1], w.shape[0]), device=q.device)
+        w2, m = a.shape[1], w.shape[0]
+        geo = sk.pair_maps_fwd_geometry(n, w1, w2, d, m)
+        out = torch.empty((n, w1, w2, m), device=q.device)
+        part = torch.empty((geo.col_tiles, n, w1, w2, m), device=q.device) \
+            if geo.col_tiles > 1 else out
         call(lib.pair_maps_fwd, q, q.data_ptr(), a.data_ptr(), w.data_ptr(),
-             out.data_ptr(), n, w1, a.shape[1], d, w.shape[0])
+             out.data_ptr(), part.data_ptr(), n, w1, w2, d, m, geo.rows,
+             geo.te, geo.threads)
         return out
+
+    def bwd_qa(q, a, w, g):
+        g = g.contiguous()
+        n, w1, d = q.shape
+        dq, da = torch.empty_like(q), torch.empty_like(a)
+        call(lib.pair_maps_bwd_qa, q, q.data_ptr(), a.data_ptr(),
+             w.data_ptr(), g.data_ptr(), dq.data_ptr(), da.data_ptr(), n, w1,
+             a.shape[1], d, w.shape[0])
+        return dq, da
 
     def bwd_w(q, a, w, g):
         g = g.contiguous()
         n, w1, d = q.shape
-        chunks = -(-n // chunk)
+        geo = sk.pair_maps_bwd_w_geometry(n, w1, a.shape[1], d, w.shape[0])
         dw = torch.empty_like(w)
-        part = torch.empty((chunks,) + tuple(w.shape), device=w.device) \
-            if chunks > 1 else dw
+        part = torch.empty((geo.chunks,) + tuple(w.shape), device=w.device) \
+            if geo.chunks > 1 else dw
         call(lib.pair_maps_bwd_w, q, q.data_ptr(), a.data_ptr(),
              g.data_ptr(), dw.data_ptr(), part.data_ptr(), n, w1,
-             a.shape[1], d, w.shape[0], chunk)
+             a.shape[1], d, w.shape[0], geo.n_per, geo.d_rows, geo.te,
+             geo.threads)
         return dw
 
-    return fwd, bwd_w
+    return fwd, bwd_qa, bwd_w
 
 
 def kernel_phase(sk, before, normal, card: str) -> None:
-    fwd_b, dw_b = before
+    fwd_b, qa_b, dw_b = before
     grads = sk.bilinear_pair_maps_grads_plain
+
+    def both(f):   # dQ and dA as one tensor, to compare
+        return lambda *o: torch.cat([t.flatten() for t in f(*o)])
+
     kernels = {
         "pair_maps_fwd": (lambda q, a, w, g: sk.bilinear_pair_maps_plain(
             q, a, w), lambda q, a, w, g: fwd_b(q, a, w),
             lambda q, a, w, g: sk.pair_maps_fwd(q, a, w)),
+        "pair_maps_bwd_qa": (both(lambda *o: grads(*o, need_w=False)[:2]),
+                             both(qa_b), both(sk.pair_maps_bwd_qa)),
         "pair_maps_bwd_w": (lambda *o: grads(*o, need_qa=False)[2], dw_b,
                             sk.pair_maps_bwd_w)}
     for n, d in SHAPES + FWD_ONLY:
@@ -172,10 +199,10 @@ def step_phase(sk, before, card: str) -> None:
     from mms_answer_selection_tpu_torch.training import (
         SolverConfig, Trainer, TrainerConfig)
 
-    now = (sk.pair_maps_fwd, sk.pair_maps_bwd_w)
+    now = (sk.pair_maps_fwd, sk.pair_maps_bwd_qa, sk.pair_maps_bwd_w)
 
     def use(kernels):
-        sk.pair_maps_fwd, sk.pair_maps_bwd_w = kernels
+        sk.pair_maps_fwd, sk.pair_maps_bwd_qa, sk.pair_maps_bwd_w = kernels
 
     recipe = SolverConfig(solver_type="adadelta", base_lr=1.0, momentum=0.95,
                           delta=5e-7, weight_decay=5e-4)
@@ -234,8 +261,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--before", type=Path, required=True,
                     help="the earlier csrc/pair_maps.cu")
-    ap.add_argument("--before-chunk", type=int, default=8,
-                    help="samples per dW chunk the earlier wrapper passed")
+    ap.add_argument("--skip-plans", action="store_true",
+                    help="leave out the plan phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("pair_maps_probe: no CUDA device", file=sys.stderr)
@@ -250,14 +277,15 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(card, torch.__version__, torch.version.cuda, flush=True)
     _build.load_library()
-    before = before_kernels(build_before(args.before), args.before_chunk)
+    before = before_kernels(build_before(args.before), sk)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def normal(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
 
     kernel_phase(sk, before, normal, card)
-    plan_phase(sk, normal, card)
+    if not args.skip_plans:
+        plan_phase(sk, normal, card)
     step_phase(sk, before, card)
     return 0
 
