@@ -25,6 +25,21 @@ at the V4 recipe's widths, after building the hand-written kernels from
   every 100 steps), holding the best params' test-split probabilities
   against the CPU's and scoring them through ``trec_eval`` against the
   in-process MAP/MRR;
+* the CLI, the path a user takes (``cli.main`` in this process, V4's
+  widths, the recipe-sized corpus written as XML and a GloVe-format
+  ``.txt``): ``prep --mmsp``, ``train --stream`` (the packed store's ring
+  through ``next_device``) to step 200 with snapshots every 100 and
+  ``--resume`` to 400 beside an uninterrupted 400-step run (from a xavier
+  W: dev MAP and the last snapshot's params within a stated tolerance;
+  from the recipe's W = 0: the loss falls, the two runs read against each
+  other), ``eval`` of the best checkpoint (``trec_eval`` = in-graph MAP to
+  1e-6), an int8 index of 262,144 candidates from it behind ``serve
+  --int8 --index --listen 0`` whose /query (1 and 32 queries, with and
+  without a rerank of 50), /add, /remove and /compact answer as the
+  engine does, stopped through the module hook; it fails unless prep to
+  eval launched the three pair-map kernels and the server's HTTP requests
+  alone launched ``maxsim_int8`` and ``pair_maps_fwd``, and times the HTTP
+  /query p50s, one snapshot and the stream's step against ``fit``'s;
 * V4_WIDE (D = 300) and long sentences: each MaxSim kernel against its
   plain version at D = 300 (rows past 256 bytes, the K-sliced plan) and
   at R = 800 query rows (W1 = 200, D = 50 and 300), a 262,144-candidate
@@ -51,7 +66,7 @@ or any phase fails.  The last line of stdout is
 the line before it lists every kernel with its launches on the main path,
 its error against the plain version, its time, the plain version's, the
 bound and what sets it, and the one-call library time (null where no
-single PyTorch call computes the function).  About 100-120 s on an
+single PyTorch call computes the function).  About 130-165 s on an
 H100, build included, peaking near 27 GiB of device memory.
 """
 
@@ -108,6 +123,23 @@ WIDE_STEP_BATCHES = (BATCH, 1024)
 PROB_ATOL = 1e-4
 STEP_BATCHES = (50, 256, 1024)
 ADADELTA_STEP = (5e-7 / 0.05) ** 0.5   # lr * sqrt(delta / (1 - momentum))
+# the CLI path: train --stream to step CLI_SPLIT - 1, --resume to
+# CLI_STEPS - 1, beside one uninterrupted run (evals and snapshots every
+# 100 steps); an int8 index of POOL candidates behind serve --listen,
+# each HTTP route timed over HTTP_REPS requests
+CLI_SPLIT, CLI_STEPS, SNAP_EVERY, HTTP_REPS = 201, 401, 100, 30
+STREAM_STEP_REPS = 200
+# a resumed run on the card against the uninterrupted one: the runs part by
+# rounding (the embedding-gradient scatter sums in the order its atomics
+# land), so dev MAP is held to RESUME_MAP_ATOL and each param (but the conv
+# biases, rounding noise under train-mode BN) to RESUME_PARAM_RTOL of its
+# max |value| (an H100 run read 0 and 3.1e-6).  The held runs start from
+# a xavier W: from the recipe's W = 0 the first step's scores are near-ties
+# that rounding orders, so any two card runs part at step 0 (dev MAP 0.451
+# / 0.439 after it); the W = 0 runs are read, not held
+RESUME_MAP_ATOL, RESUME_PARAM_RTOL = 5e-3, 1e-3
+CLI_TRAIN_KERNELS = ("pair_maps_fwd", "pair_maps_bwd_w", "pair_maps_bwd_qa")
+CLI_SERVE_KERNELS = ("maxsim_int8", "pair_maps_fwd")   # query, the rerank
 
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): bytes/s of
 # HBM3, and operations/s by operand type.  The pair maps' products must be
@@ -231,19 +263,28 @@ def maxsim_bound(name: str, args, out_bytes: int,
     return bound_ms(name, ops, nbytes)
 
 
-def recipe_corpus(dim: int):
+def recipe_xml(dim: int):
     """The recipe-sized synthetic TREC-QA corpus (50,093 / 1,195 / 1,569
-    pairs) with embeddings of ``dim`` lanes: (splits, vocab info, host
-    prep seconds)."""
+    pairs) as the three splits' XML and the word vectors of ``dim``
+    lanes."""
     from mms_answer_selection_tpu_torch.data import (
-        prepare_trec_qa, synthetic_split, synthetic_world)
+        synthetic_split, synthetic_world)
+
+    world = synthetic_world(vocab_words=22500, n_topics=250, dim=dim, seed=22)
+    xmls = (synthetic_split(world, TRAIN_Q, 30, 50, seed=101),
+            synthetic_split(world, DEV_Q, 12, 24, seed=202),
+            synthetic_split(world, TEST_Q, 15, 29, seed=303))
+    return xmls, world["w2v"]
+
+
+def recipe_corpus(dim: int):
+    """The recipe-sized corpus, prepped: (splits, vocab info, host prep
+    seconds)."""
+    from mms_answer_selection_tpu_torch.data import prepare_trec_qa
 
     t0 = time.perf_counter()
-    world = synthetic_world(vocab_words=22500, n_topics=250, dim=dim, seed=22)
-    splits, info = prepare_trec_qa(
-        synthetic_split(world, TRAIN_Q, 30, 50, seed=101),
-        synthetic_split(world, DEV_Q, 12, 24, seed=202),
-        synthetic_split(world, TEST_Q, 15, 29, seed=303), world["w2v"])
+    xmls, w2v = recipe_xml(dim)
+    splits, info = prepare_trec_qa(*xmls, w2v)
     prep_s = time.perf_counter() - t0
     log(f"data (D={dim}): {({k: len(v['label']) for k, v in splits.items()})}"
         f" pairs, vocab {info['vocab_size']}, host prep {prep_s:.3f} s")
@@ -877,6 +918,7 @@ def ivf_phase(params, cfg, gen, dev, card: str) -> None:
     both kernels."""
     from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
     from mms_answer_selection_tpu_torch.serve import QueryEngine
+    from mms_answer_selection_tpu_torch.serve import topk
     from mms_answer_selection_tpu_torch.serve.ivf import ivf_recall
 
     topical, cand, q = topic_pool(params, gen, dev)
@@ -921,6 +963,27 @@ def ivf_phase(params, cfg, gen, dev, card: str) -> None:
                          shortlist=IVF_SHORTLIST, brute_idx=brute_idx)
         ms = sync_ms(lambda: ivf.query_coarse(q[:1], k=K,
                                               shortlist=IVF_SHORTLIST), 20)
+        if pd == "int8":
+            # the candidate-major int8 kernel's shape (PERF.md §6 row 3):
+            # one query against the rows of its nprobe 8 best buckets,
+            # gathered as IVFIndex.query gathers them
+            q_tok = eng.query_tokens(q[:1])
+            proj = eng.project(q_tok)
+            u = ivf._route(q_tok, proj).to(torch.float32).sum(1)[
+                :, :ivf.centroids.shape[1]]
+            _, cl = topk(u @ ivf.centroids.T, 8)
+            rows = ivf.bucket_map[cl[0]].reshape(-1).clamp(min=0)
+            args = (*proj, eng.pool[rows], eng.aux[rows])
+            probe_ms = burst_ms(
+                lambda: sk.bilinear_maxsim_scores_int8(*args), 200)
+            plain_ms = burst_ms(
+                lambda: sk.bilinear_maxsim_scores_int8_plain(*args), 20)
+            b_ms, b_by = maxsim_bound("maxsim_int8", args, rows.numel() * 4)
+            log(f"time maxsim_int8 on the IVF probe (1 q x {rows.numel()} "
+                f"gathered rows, nprobe 8 of {ivf.n_clusters} clusters, "
+                f"bucket {ivf.bucket}, {POOL} pool): kernel {probe_ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                f"{b_ms / probe_ms:.1%} of it reached) [{card}]")
         log(f"IVF {pd} at {eng.pool_size} (topic pool): {ivf.n_clusters} "
             f"clusters, bucket {ivf.bucket}, spilled {ivf.spilled}, built in "
             f"{build_s:.3f} s (T={IVF_TOKENS} mini pool included); probe-all "
@@ -960,6 +1023,371 @@ def scale_phase(params, state, cfg, queries, gen, dev, card: str) -> None:
             f"{one:.3f} ms{rr} [{card}]")
         del eng
         torch.cuda.empty_cache()
+
+
+def run_cli(argv) -> list:
+    """``cli.main(argv)`` in this process; returns its stdout lines (the
+    trec_eval tables stay off the smoke's own output)."""
+    import contextlib
+    import io
+
+    from mms_answer_selection_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(list(argv))
+    return out.getvalue().splitlines()
+
+
+def stream_vs_fit_steps(model, tcfg, splits, info, mmsp, dev, card) -> None:
+    """Step p50 at batch 50 on the corpus: the packed store's ring through
+    ``next_device`` (pinned staging, non-blocking copies) against ``fit``'s
+    device-side batch stream, each step ended by a device sync."""
+    from mms_answer_selection_tpu_torch.native import (
+        NativePrefetcher, PackedStore)
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    tr = Trainer(model, tcfg, device=dev)
+    p, s, o = tr.init(pretrained=info["pretrained"])
+    ring = NativePrefetcher(PackedStore(mmsp), ["question", "answer",
+                                                "label", "overlap_feat"],
+                            tcfg.batch_size, seed=tcfg.seed)
+    train = tr._full_batch({k: v for k, v in splits["train"].items()
+                            if k != "group"})
+    epoch = iter(tr._epoch_batches(train, 0))
+
+    def stream_step():
+        b = ring.next_device(dev)
+        b["label"] = b["label"][:, 0]
+        tr._train_step(p, s, o, b, 0)
+
+    def fit_step():
+        tr._train_step(p, s, o, next(epoch), 0)
+
+    t = [sync_ms(fit_step, STREAM_STEP_REPS),
+         sync_ms(stream_step, STREAM_STEP_REPS),
+         sync_ms(stream_step, STREAM_STEP_REPS),
+         sync_ms(fit_step, STREAM_STEP_REPS)]
+    log(f"time train step batch {tcfg.batch_size}: train --stream (packed "
+        f"store, next_device) p50 {(t[1] + t[2]) / 2:.3f} ms, fit p50 "
+        f"{(t[0] + t[3]) / 2:.3f} ms [turns {[round(x, 3) for x in t]}; "
+        f"{card}]")
+    ring.close()
+
+
+def http_json(base: str, path: str, payload=None):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"},
+                                 method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def same_reply(reply, vals, idx, what: str, atol: float = 0.0) -> None:
+    """A /query reply against the engine's (vals, idx): the same candidates
+    and scores (exact, or within ``atol`` for the rerank's P)."""
+    vals, idx = vals.cpu().tolist(), idx.cpu().tolist()
+    got = [r["topk"] for r in reply["results"]]
+    for g, v, i in zip(got, vals, idx, strict=True):
+        if [c for c, _ in g] != i or any(
+                abs(x - y) > atol for (_, x), y in zip(g, v, strict=True)):
+            raise AssertionError(f"{what}: the server's reply differs from "
+                                 f"the engine's")
+
+
+def cli_phase(dev, card: str) -> dict:
+    """The path a user takes, through ``cli.main`` at V4's widths on the
+    recipe-sized corpus: ``prep --mmsp``; ``train --stream`` to step 200
+    with snapshots every 100, ``--resume`` to 400, beside an uninterrupted
+    400-step run (a xavier W, held to each other), the same three runs
+    from the recipe's W = 0 (read against each other, not held); ``eval``
+    of the best checkpoint; an int8 index of POOL candidates from it
+    behind ``serve --int8 --index --listen 0``, its /query (1 q, 32 q,
+    rerank 50), /add, /remove and /compact against the engine; the server
+    stopped through the module hook.  The launches are counted in two
+    windows, each held to its kernels: prep to eval, and the HTTP requests
+    alone.  Returns both counts."""
+    import dataclasses
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch import cli
+    from mms_answer_selection_tpu_torch.convert import params_from_numpy
+    from mms_answer_selection_tpu_torch.data import load_dataset
+    from mms_answer_selection_tpu_torch.models.mms_qa import V4
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+    from mms_answer_selection_tpu_torch.serve import QueryEngine
+    from mms_answer_selection_tpu_torch.training import Trainer
+    from mms_answer_selection_tpu_torch.training.checkpoint import (
+        latest_checkpoint, load_checkpoint, save_checkpoint)
+    from mms_answer_selection_tpu_torch.utils.config import (
+        experiment_to_json)
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    xmls, w2v = recipe_xml(D)
+    for name, xml in zip(("train", "dev", "test"), xmls):
+        (root / f"{name}.xml").write_text(xml)
+    with open(root / "glove.txt", "w") as f:
+        for w, v in w2v.items():
+            f.write(w + " " + " ".join(map(repr, v)) + "\n")
+    corpus_s = time.perf_counter() - t0
+    for name in sk.LAUNCH_COUNTS:
+        sk.LAUNCH_COUNTS[name] = 0
+    started = time.perf_counter()
+    prep = root / "prep"
+    run_cli(["prep", "--train-xml", str(root / "train.xml"), "--dev-xml",
+             str(root / "dev.xml"), "--test-xml", str(root / "test.xml"),
+             "--glove", str(root / "glove.txt"), "--out", str(prep),
+             "--mmsp"])
+    prep_s = time.perf_counter() - started
+    meta = json.loads((prep / "meta.json").read_text())
+    recipe = dataclasses.replace(V4, vocab_size=meta["vocab_size"])
+    model = dataclasses.replace(recipe, sim_weight_init="xavier")
+    tcfg = dataclasses.replace(recipe_trainer(), max_iter=CLI_STEPS,
+                               snapshot_interval=SNAP_EVERY,
+                               test_interval=SNAP_EVERY)
+    exps = {}
+    for name, cfg in (("full", model), ("part", model),
+                      ("zero_full", recipe), ("zero_part", recipe)):
+        exps[name] = root / name
+        exps[name].mkdir()
+        (exps[name] / "cfg.json").write_text(experiment_to_json(
+            cfg, dataclasses.replace(
+                tcfg, snapshot_dir=str(exps[name] / "models"))))
+
+    def train(name, *extra):
+        t = time.perf_counter()
+        run_cli(["train", "--data", str(prep), "--exp", str(exps[name]),
+                 "--config", str(exps[name] / "cfg.json"), "--stream",
+                 "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    def resumed_vs_full(part, full):
+        """Runs ``part`` (interrupted, resumed) and ``full``: their
+        histories (each checked for its evals, a falling loss and dev
+        MAPs in [0, 1]), the max abs dev-MAP difference, and the step
+        CLI_STEPS - 1 params' max difference relative to each leaf's max
+        |value| (conv biases apart) with its leaf."""
+        hist = {n: json.loads((exps[n] / "history.json").read_text())
+                for n in (part, full)}
+        for n, h in hist.items():
+            losses = np.asarray(h["train_loss"])
+            if h["steps"] != list(range(0, CLI_STEPS, SNAP_EVERY)):
+                raise AssertionError(f"train --stream {n} evaluated at "
+                                     f"{h['steps']}")
+            if not np.isfinite(losses).all() \
+                    or not losses[-5:].mean() < losses[0]:
+                raise AssertionError(f"cli train {n}: the loss did not "
+                                     f"fall: {losses}")
+            if not all(0.0 <= m <= 1.0 for m in h["dev_map"]):
+                raise AssertionError(f"cli train {n}: dev MAP {h['dev_map']}")
+        map_diff = float(np.abs(np.subtract(hist[part]["dev_map"],
+                                            hist[full]["dev_map"])).max())
+        last = f"models/qa_iter_{CLI_STEPS - 1}"
+        a, _ = load_checkpoint(str(exps[full] / last))
+        b, _ = load_checkpoint(str(exps[part] / last))
+        worst, where = 0.0, ""
+        for name, sub in a["params"].items():
+            for k, want in sub.items():
+                if name.startswith("conv") and k == "b":
+                    continue
+                rel = float(np.abs(b["params"][name][k] - want).max()
+                            / np.abs(want).max())
+                if rel > worst:
+                    worst, where = rel, f"{name}.{k}"
+        return hist, map_diff, worst, where
+
+    def curve(h):
+        return (f"loss {h['train_loss'][0]:.4f} -> "
+                f"{np.mean(h['train_loss'][-5:]):.4f}, dev MAP "
+                f"{[round(x, 4) for x in h['dev_map']]}")
+
+    t_part = train("part", "--max-iter", str(CLI_SPLIT))
+    t_resume = train("part", "--resume")
+    t_full = train("full")
+    hist, map_diff, worst, where = resumed_vs_full("part", "full")
+    log(f"cli train --stream: {CLI_SPLIT} steps ({t_part:.3f} s), --resume "
+        f"to {CLI_STEPS} ({t_resume:.3f} s), uninterrupted {CLI_STEPS} "
+        f"({t_full:.3f} s); prep --mmsp {prep_s:.3f} s (corpus written in "
+        f"{corpus_s:.3f} s); uninterrupted {curve(hist['full'])}; resumed "
+        f"dev MAP {[round(x, 4) for x in hist['part']['dev_map']]}: max abs "
+        f"diff {map_diff:.3e} (tol {RESUME_MAP_ATOL:g}); step "
+        f"{CLI_STEPS - 1} params max rel diff {worst:.3e} at {where} (tol "
+        f"{RESUME_PARAM_RTOL:g}, conv biases apart) [{card}]")
+    if map_diff > RESUME_MAP_ATOL or worst > RESUME_PARAM_RTOL:
+        raise AssertionError("a resumed train --stream run parts from the "
+                             "uninterrupted one")
+
+    # the recipe's own W = 0 through the same commands: from it two card
+    # runs part at step 0 (near-tied first scores), so the resumed run is
+    # read against the uninterrupted one, not held to it
+    t0 = time.perf_counter()
+    train("zero_part", "--max-iter", str(CLI_SPLIT))
+    train("zero_part", "--resume")
+    train("zero_full")
+    zero, map_diff, worst, where = resumed_vs_full("zero_part", "zero_full")
+    log(f"cli train --stream, the recipe's W = 0 ({CLI_SPLIT} + --resume "
+        f"and {CLI_STEPS} uninterrupted, {time.perf_counter() - t0:.3f} s): "
+        f"uninterrupted {curve(zero['zero_full'])}; resumed "
+        f"{curve(zero['zero_part'])}; dev MAP max abs diff {map_diff:.3e}, "
+        f"step {CLI_STEPS - 1} params max rel diff {worst:.3e} at "
+        f"{where or '-'} (read, not held) [{card}]")
+
+    # ------------------------------------------------------------- eval
+    ev = json.loads(run_cli(["eval", "--data", str(prep), "--exp",
+                             str(exps["full"]), "--device", "cuda"])[-1])
+    log(f"cli eval (best_iter_{hist['full']['best_step']}, test split): "
+        f"trec_eval MAP {ev['trec_map']:.6f} MRR {ev['trec_mrr']:.6f}, "
+        f"in-graph MAP {ev['in_graph_map']:.6f} MRR "
+        f"{ev['in_graph_mrr']:.6f}")
+    if abs(ev["trec_map"] - ev["in_graph_map"]) > 1e-6 \
+            or abs(ev["trec_mrr"] - ev["in_graph_mrr"]) > 1e-6:
+        raise AssertionError("cli eval: trec_eval disagrees with the "
+                             "in-graph metrics")
+    trained = dict(sk.LAUNCH_COUNTS)
+    log(f"launches of prep, train --stream, --resume and eval: {trained}; "
+        f"{time.perf_counter() - started:.1f} s")
+    for name in CLI_TRAIN_KERNELS:
+        if trained[name] < 1:
+            raise AssertionError(f"the CLI's training never launched {name}")
+
+    # ------------------------------------------------------------ serve
+    splits = {n: load_dataset(str(prep / f"{n}.npz"))
+              for n in ("train", "dev", "test")}
+    best = latest_checkpoint(str(exps["full"]), prefix="best")
+    bundle, _ = load_checkpoint(best)
+    params, state = params_from_numpy(bundle["params"], bundle["state"], dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    answers = torch.as_tensor(splits["train"]["answer"], device=dev)
+    cand = torch.cat([answers, torch.randint(
+        0, model.vocab_size, (POOL - len(answers), W2), generator=gen,
+        device=dev, dtype=answers.dtype)])
+    engine = QueryEngine(params, model, pool_dtype="int8", chunk_size=CHUNK,
+                         device=dev).build_index(cand)
+    index = str(root / "pool.npz")
+    engine.save_index(index)
+    cli._LAST_SERVER = None
+    th = threading.Thread(target=cli.main, args=([
+        "serve", "--data", str(prep), "--exp", str(exps["full"]), "--int8",
+        "--index", index, "--listen", "0", "--device", "cuda"],),
+        daemon=True)
+    th.start()
+    for _ in range(1200):
+        if cli._LAST_SERVER is not None or not th.is_alive():
+            break
+        time.sleep(0.05)
+    srv = cli._LAST_SERVER
+    if srv is None:
+        raise AssertionError("serve --listen never came up")
+    base = f"http://{srv.host}:{srv.port}"
+    served = dict.fromkeys(sk.LAUNCH_COUNTS, 0)
+
+    def request(path, payload=None):
+        """One HTTP request; the launches made while it was answered join
+        ``served`` (this process calls the engine only between
+        requests)."""
+        before = dict(sk.LAUNCH_COUNTS)
+        reply = http_json(base, path, payload)
+        for name, n in sk.LAUNCH_COUNTS.items():
+            served[name] += n - before[name]
+        return reply
+
+    try:
+        health = request("/healthz")
+        if health["pool"] != POOL or health["pool_dtype"] != "int8":
+            raise AssertionError(f"serve --index: {health}")
+        q_all = torch.as_tensor(splits["test"]["question"][:32], device=dev)
+        timed, direct = {}, {}
+        for nq in (1, 32):
+            q = q_all[:nq]
+            for rerank in (0, SHORTLIST):
+                req = {"tokens": q.tolist(), "k": K, "rerank": rerank}
+                reply = request("/query", req)
+                if rerank:
+                    same_reply(reply, *engine.query_rerank(
+                        state, q, k=K, shortlist=rerank),
+                        f"/query {nq} q rerank {rerank}", atol=1e-6)
+                else:
+                    same_reply(reply, *engine.query(q, k=K),
+                               f"/query {nq} q")
+                times = []
+                for _ in range(HTTP_REPS):
+                    t = time.perf_counter()
+                    request("/query", req)
+                    times.append((time.perf_counter() - t) * 1e3)
+                timed[nq, rerank] = statistics.median(times)
+                # the same call on the engine in this process, results
+                # fetched to the host as the server fetches them
+                call = (lambda: engine.query_rerank(
+                    state, q, k=K, shortlist=rerank)) if rerank else (
+                    lambda: engine.query(q, k=K))
+                direct[nq, rerank] = sync_ms(
+                    lambda: [t.cpu() for t in call()], HTTP_REPS)
+        added = request("/add", {"tokens": cand[:3].tolist()})
+        if added["added"] != engine.add_candidates(cand[:3]).tolist():
+            raise AssertionError("/add differs from the engine")
+        dead = [0, 5, POOL + 1]
+        removed = request("/remove", {"rows": dead})
+        engine.remove_candidates(dead)
+        if removed["n_live"] != engine.n_live:
+            raise AssertionError("/remove differs from the engine")
+        same_reply(request("/query", {"tokens": q_all[:4].tolist(),
+                                      "k": K}),
+                   *engine.query(q_all[:4], k=K), "/query after /remove")
+        compacted = request("/compact", {})
+        mapping = engine.compact()
+        if compacted["pool"] != engine.pool_size \
+                or compacted["reclaimed"] != int((mapping < 0).sum()):
+            raise AssertionError("/compact differs from the engine")
+        same_reply(request("/query", {"tokens": q_all[:4].tolist(),
+                                      "k": K}),
+                   *engine.query(q_all[:4], k=K), "/query after /compact")
+    finally:
+        srv.httpd.shutdown()            # the module hook stops the server
+        th.join(timeout=60)
+    if th.is_alive():
+        raise AssertionError("serve --listen did not stop")
+    log(f"launches of serve --int8 --index --listen while it answered "
+        f"HTTP requests (the engine it is held to apart): {served}; "
+        f"{time.perf_counter() - started:.1f} s since prep")
+    for name in CLI_SERVE_KERNELS:
+        if served[name] < 1:
+            raise AssertionError(f"serve never launched {name}")
+    log(f"cli serve --int8 --index ({POOL} candidates, loaded from the "
+        f"saved index) over HTTP, /query p50 (the engine called in-process): "
+        + ", ".join(f"{nq} q{f' rerank {r}' if r else ''} "
+                    f"{timed[nq, r]:.3f} ms ({direct[nq, r]:.3f})"
+                    for nq, r in timed)
+        + f" ({HTTP_REPS} requests each); replies = the engine's; /add, "
+        f"/remove, /compact = the engine's [{card}]")
+
+    # --------------------------------------------- snapshot and step times
+    tr = Trainer(model, tcfg, device=dev)
+    p, s, o = tr.init(pretrained=np.load(prep / "vocab.npz")["pretrained"])
+    torch.cuda.synchronize()
+    snap_ms = sync_ms(lambda: save_checkpoint(
+        str(root / "timed"), 0, {"params": p, "state": s, "opt_state": o}),
+        5)
+    size = (root / "timed" / "qa_iter_0" / "ckpt.msgpack").stat().st_size
+    log(f"time snapshot (V4 params + BN state + AdaDelta state, "
+        f"{size / 2**20:.3f} MiB, card to ckpt.msgpack): p50 {snap_ms:.3f} ms"
+        f" [{card}]")
+    stream_vs_fit_steps(model, tcfg, splits, {"pretrained": np.load(
+        prep / "vocab.npz")["pretrained"]}, str(prep / "train.mmsp"), dev,
+        card)
+
+    del engine, srv
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return {"train": trained, "serve": served}
 
 
 def main() -> int:
@@ -1076,6 +1504,7 @@ def main() -> int:
     train_launches = train_phase(dev, normal, card, max_err, timed)
     launches.update({k: train_launches[k] for k in KERNELS
                      if k not in MAXSIM})
+    cli_phase(dev, card)
 
     # ---------------------------------------------------------------- times
     for name, (kernel, plain) in scorers.items():

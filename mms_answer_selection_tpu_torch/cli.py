@@ -1,0 +1,420 @@
+"""The command-line tool of the port (counterpart of ``cli.py``): the
+path every user takes, data prep, training with early stopping and
+snapshots, ``trec_eval`` scoring and the retrieval service.
+
+    python -m mms_answer_selection_tpu_torch.cli prep  --train-xml ... --glove ... --mmsp
+    python -m mms_answer_selection_tpu_torch.cli train --data DIR --exp DIR [--stream] [--resume]
+    python -m mms_answer_selection_tpu_torch.cli eval  --data DIR --exp DIR
+    python -m mms_answer_selection_tpu_torch.cli serve --data DIR --exp DIR --int8 --index pool.npz --listen 0
+
+``train``, ``eval`` and ``serve`` run on ``--device`` (default ``cuda``,
+which raises where no card is present; ``cpu`` runs the plain PyTorch
+paths).  Artifacts are the JAX package's: ``config.json`` (the same
+text), ``<exp>/models/qa_iter_<N>`` snapshots, ``best_iter_<N>``,
+``truth`` / ``result``, ``history.json``; the prepped data dir is the same
+set of ``.npz`` files and ``train.mmsp``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import os
+import sys
+
+import numpy as np
+
+log = logging.getLogger("mms_tpu_torch.cli")
+
+# the last QAServer ``serve --listen`` started: an embedding process (or a
+# test) stops it through this hook instead of signalling
+_LAST_SERVER = None
+
+
+# --------------------------------------------------------------------- prep
+def cmd_prep(args):
+    from .data import prepare_trec_qa, prepare_wikiqa, save_dataset
+    from .ops.embed import load_pretrained_vectors
+
+    words, vecs = load_pretrained_vectors(args.glove, args.dim)
+    w2v = {w: v for w, v in zip(words, vecs)}
+    log.info("loaded %d pretrained vectors", len(w2v))
+    prepare = prepare_wikiqa if args.format == "wikiqa" else prepare_trec_qa
+    splits, info = prepare(args.train_xml, args.dev_xml, args.test_xml, w2v,
+                           q_len=args.q_len, a_len=args.a_len)
+    os.makedirs(args.out, exist_ok=True)
+    for name, split in splits.items():
+        save_dataset(os.path.join(args.out, f"{name}.npz"), split)
+        log.info("%s: %d pairs", name, len(split["label"]))
+    np.savez_compressed(
+        os.path.join(args.out, "vocab.npz"),
+        pretrained=info["pretrained"],
+        words=np.asarray(list(info["vocab"].keys())),
+    )
+    with open(os.path.join(args.out, "meta.json"), "w") as f:
+        json.dump({"vocab_size": info["vocab_size"],
+                   "unknown_idx": info["unknown_idx"],
+                   "pad_idx": info["pad_idx"],
+                   "dim": args.dim, "q_len": args.q_len,
+                   "a_len": args.a_len}, f)
+    if args.mmsp:
+        from .native import write_mmsp
+        write_mmsp(os.path.join(args.out, "train.mmsp"), splits["train"])
+        log.info("wrote packed train.mmsp (train --stream input)")
+    print(f"wrote {args.out}: vocab_size={info['vocab_size']}")
+
+
+def _load_prepped(data_dir):
+    from .data import load_dataset
+
+    with open(os.path.join(data_dir, "meta.json")) as f:
+        meta = json.load(f)
+    splits = {name: load_dataset(os.path.join(data_dir, f"{name}.npz"))
+              for name in ("train", "dev", "test")
+              if os.path.exists(os.path.join(data_dir, f"{name}.npz"))}
+    vocab = np.load(os.path.join(data_dir, "vocab.npz"), allow_pickle=False)
+    return splits, meta, vocab
+
+
+def _experiment_configs(args, meta):
+    from .models.mms_qa import V4
+    from .training import SolverConfig, TrainerConfig
+    from .utils.config import experiment_from_json
+
+    if getattr(args, "config", None):
+        with open(args.config) as f:
+            return experiment_from_json(f.read())
+    # no explicit --config: prefer the config the experiment was trained
+    # with (written by cmd_train), so eval and serve rebuild its model
+    saved = os.path.join(getattr(args, "exp", "") or "", "config.json")
+    if getattr(args, "exp", None) and os.path.exists(saved):
+        with open(saved) as f:
+            return experiment_from_json(f.read())
+    model_cfg = dataclasses.replace(
+        V4, vocab_size=meta["vocab_size"], embed_dim=meta["dim"],
+        question_len=meta["q_len"], answer_len=meta["a_len"])
+    trainer_cfg = TrainerConfig(
+        solver=SolverConfig(),
+        max_iter=getattr(args, "max_iter", None) or 40001,
+        snapshot_dir=os.path.join(args.exp, "models"))
+    return model_cfg, trainer_cfg
+
+
+def _load_model(path, device):
+    """A checkpoint's params and BN state as tensors on ``device``."""
+    from .convert import params_from_numpy
+    from .training.checkpoint import load_checkpoint
+
+    bundle, _ = load_checkpoint(path)
+    return params_from_numpy(bundle["params"], bundle["state"], device)
+
+
+# -------------------------------------------------------------------- train
+def cmd_train(args):
+    from .metrics import format_trec_table, trec_eval, write_trec_files
+    from .training import Trainer
+    from .training.checkpoint import save_checkpoint
+    from .utils.config import experiment_to_json
+
+    splits, meta, vocab = _load_prepped(args.data)
+    model_cfg, trainer_cfg = _experiment_configs(args, meta)
+    if args.max_iter is not None:
+        trainer_cfg = dataclasses.replace(trainer_cfg, max_iter=args.max_iter)
+    os.makedirs(args.exp, exist_ok=True)
+    with open(os.path.join(args.exp, "config.json"), "w") as f:
+        f.write(experiment_to_json(model_cfg, trainer_cfg))
+
+    resume_from = None
+    if args.resume:
+        # bare --resume resumes the experiment's own snapshot dir
+        # (`caffe train -snapshot`, tools/caffe.cpp:208-210)
+        resume_from = (os.path.join(args.exp, "models")
+                       if args.resume == "auto" else args.resume)
+    trainer = Trainer(model_cfg, trainer_cfg, device=args.device)
+    if args.stream:
+        # out-of-core batches from the MMSP packed store (C++ prefetch
+        # ring) when present, else an in-memory iterator
+        mmsp = os.path.join(args.data, "train.mmsp")
+        if os.path.exists(mmsp):
+            from .native import NativePrefetcher, PackedStore
+            batches = NativePrefetcher(
+                PackedStore(mmsp),
+                ["question", "answer", "label", "overlap_feat"],
+                batch_size=trainer_cfg.batch_size, seed=trainer_cfg.seed)
+            log.info("streaming from %s", mmsp)
+        else:
+            from .data.loader import ArrayDataset, BatchIterator
+            batches = BatchIterator(
+                ArrayDataset({k: v for k, v in splits["train"].items()
+                              if k != "group"}),
+                trainer_cfg.batch_size, seed=trainer_cfg.seed)
+        if resume_from:
+            # a snapshot records no stream cursor: skip the batches the
+            # snapshot's steps took, so the resumed run sees the batches
+            # the uninterrupted one would
+            ckpt = trainer._resolve_ckpt(resume_from)
+            with open(os.path.join(ckpt, "meta.json")) as f:
+                done = int(json.load(f)["step"]) + 1
+            for _ in range(done * trainer_cfg.solver.iter_size):
+                next(batches)
+        hist = trainer.fit_stream(
+            batches, splits["dev"], steps=trainer_cfg.max_iter,
+            test_data=splits.get("test"), pretrained=vocab["pretrained"],
+            patience_evals=trainer_cfg.early_stop_patience,
+            handle_signals=True, resume_from=resume_from,
+            weights=args.weights, log_every=50,
+            steps_per_dispatch=args.fused_steps)
+    else:
+        hist = trainer.fit(splits["train"], splits["dev"],
+                           test_data=splits.get("test"),
+                           pretrained=vocab["pretrained"], log_every=50,
+                           handle_signals=True, resume_from=resume_from,
+                           weights=args.weights,
+                           steps_per_dispatch=args.fused_steps)
+    save_checkpoint(args.exp, hist["best_step"],
+                    {"params": hist["params"], "state": hist["state"]},
+                    prefix="best", meta={"dev_map": hist["best_dev_map"]})
+    print(f"best dev MAP {hist['best_dev_map']:.4f} @ step "
+          f"{hist['best_step']}")
+
+    if "test" in splits:
+        res = trainer.evaluate(hist["params"], hist["state"], splits["test"])
+        scores = res["prob"][:, 1]
+        truth = os.path.join(args.exp, "truth")
+        result = os.path.join(args.exp, "result")
+        write_trec_files(truth, result, scores, splits["test"]["label"],
+                         splits["test"]["group"])
+        print(format_trec_table(trec_eval(truth, result)))
+    _write_curves(args.exp, hist)
+
+
+def _write_curves(exp_dir, hist):
+    """Learning curves (curve.png / loss-curve.png analogues): json always,
+    png when matplotlib imports."""
+    with open(os.path.join(exp_dir, "history.json"), "w") as f:
+        json.dump({k: v for k, v in hist.items()
+                   if k not in ("params", "state")}, f)
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except Exception:  # noqa: BLE001
+        return
+    fig, (ax1, ax2) = plt.subplots(2, 1, figsize=(8, 8))
+    steps = hist["steps"]
+    for key, color in (("dev_map", "m"), ("dev_mrr", "y"), ("dev_auc", "k"),
+                       ("test_map", "r"), ("test_mrr", "g"),
+                       ("test_auc", "b")):
+        if hist.get(key):
+            ax1.plot(steps[: len(hist[key])], hist[key], color, label=key)
+    ax1.legend(loc=4, ncol=2, fontsize=8)
+    ax1.set_xlabel("iteration")
+    ax2.plot(np.arange(len(hist["train_loss"])), hist["train_loss"], "r",
+             label="train loss")
+    ax2.legend()
+    fig.savefig(os.path.join(exp_dir, "curve.png"))
+    plt.close(fig)
+
+
+# --------------------------------------------------------------------- eval
+def cmd_eval(args):
+    from .metrics import format_trec_table, trec_eval
+    from .training import Trainer
+    from .training.checkpoint import latest_checkpoint
+
+    splits, meta, vocab = _load_prepped(args.data)
+    model_cfg, trainer_cfg = _experiment_configs(args, meta)
+    path = args.ckpt or latest_checkpoint(args.exp, prefix="best") or \
+        latest_checkpoint(os.path.join(args.exp, "models"))
+    if path is None:
+        sys.exit("no checkpoint found")
+    trainer = Trainer(model_cfg, trainer_cfg, device=args.device)
+    params, state = _load_model(path, trainer.device)
+    split = splits[args.split]
+    res = trainer.evaluate(params, state, split)
+    ev = trec_eval(scores=res["prob"][:, 1], labels=split["label"],
+                   groups=split["group"])
+    print(format_trec_table(ev))
+    print(json.dumps({"in_graph_map": float(res["map"]),
+                      "in_graph_mrr": float(res["mrr"]),
+                      "auc": float(res["auc"]),
+                      "trec_map": ev.get("map"),
+                      "trec_mrr": ev.get("recip_rank")}))
+
+
+# -------------------------------------------------------------------- serve
+def cmd_serve(args):
+    global _LAST_SERVER
+    from .device import resolve_device
+    from .serve import QAServer, QueryEngine
+    from .training.checkpoint import latest_checkpoint
+
+    splits, meta, vocab = _load_prepped(args.data)
+    model_cfg, _ = _experiment_configs(args, meta)
+    path = args.ckpt or latest_checkpoint(args.exp, prefix="best")
+    if path is None:
+        sys.exit("no checkpoint found")
+    device = resolve_device(args.device)
+    params, state = _load_model(path, device)
+    split = splits[args.split]
+    pd = args.pool_dtype or ("int8" if args.int8 else "bf16")
+    engine = QueryEngine(params, model_cfg, pool_dtype=pd, device=device)
+    if args.index and os.path.exists(args.index):
+        # warm restart: skip re-embedding and re-clustering the pool
+        engine.load_index(args.index)
+        print(json.dumps({"index_loaded": args.index,
+                          "pool": engine.pool_size,
+                          "ivf": engine.ivf is not None}), flush=True)
+    else:
+        engine.build_index(split["answer"])
+        if args.ivf_clusters:
+            engine.build_ivf(n_clusters=args.ivf_clusters,
+                             coarse_tokens=args.coarse_tokens)
+        if args.index:
+            engine.save_index(args.index)
+            print(json.dumps({"index_saved": args.index}), flush=True)
+    if args.listen is not None:
+        # the persistent HTTP retrieval service (serve/server.py) over the
+        # built index; raw-text queries tokenize with the prepped vocab
+        srv = QAServer(engine, state=state, vocab_words=vocab["words"],
+                       host=args.host, port=args.listen, default_k=args.k,
+                       batch_window_ms=args.batch_window_ms)
+        print(json.dumps({"listening": f"http://{srv.host}:{srv.port}",
+                          "pool": engine.pool_size}), flush=True)
+        _LAST_SERVER = srv
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            srv.close()
+        return
+    n = min(args.n_queries, len(split["question"]))
+    if args.rerank:
+        # two-phase: kernel shortlist -> exact model rescoring
+        vals, idx = engine.query_rerank(state, split["question"][:n],
+                                        k=args.k, shortlist=args.rerank)
+    else:
+        vals, idx = engine.query(split["question"][:n], k=args.k)
+    vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+    for qi in range(n):
+        print(json.dumps({"query": qi,
+                          "topk": [[int(i), float(v)]
+                                   for i, v in zip(idx[qi], vals[qi])]}))
+
+
+# --------------------------------------------------------------------- main
+def _device_flag(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "PyTorch paths)")
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    ap = argparse.ArgumentParser(prog="mms_answer_selection_tpu_torch.cli")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("prep",
+                       help="TREC-QA XML / WikiQA TSV + vectors -> arrays")
+    p.add_argument("--format", default="trec", choices=["trec", "wikiqa"])
+    p.add_argument("--train-xml", required=True,
+                   help="train split (XML for trec, TSV for wikiqa)")
+    p.add_argument("--dev-xml", required=True)
+    p.add_argument("--test-xml", required=True)
+    p.add_argument("--glove", required=True)
+    p.add_argument("--dim", type=int, default=50)
+    p.add_argument("--q-len", type=int, default=40)
+    p.add_argument("--a-len", type=int, default=40)
+    p.add_argument("--out", required=True)
+    p.add_argument("--mmsp", action="store_true",
+                   help="also write the packed train.mmsp store for "
+                        "`train --stream`")
+    p.set_defaults(fn=cmd_prep)
+
+    p = sub.add_parser("train", help="train + early stop + trec_eval score")
+    p.add_argument("--data", required=True)
+    p.add_argument("--exp", required=True)
+    p.add_argument("--config", help="experiment config json")
+    p.add_argument("--max-iter", type=int, default=None,
+                   help="iterations (default 40001; overrides --config's "
+                        "max_iter when given)")
+    p.add_argument("--resume", nargs="?", const="auto",
+                   help="resume training from a checkpoint dir (default: "
+                        "latest under <exp>/models) -- `caffe train "
+                        "-snapshot`")
+    p.add_argument("--weights",
+                   help="finetune: partial-load params from a checkpoint "
+                        "by name+shape -- `caffe train -weights`")
+    p.add_argument("--stream", action="store_true",
+                   help="train from a batch stream (the MMSP packed store "
+                        "via the C++ prefetch ring when <data>/train.mmsp "
+                        "exists, else an in-memory iterator)")
+    p.add_argument("--fused-steps", type=int, default=1,
+                   help="up to K steps a chunk (scan_train_steps); chunks "
+                        "end at eval and snapshot steps")
+    _device_flag(p)
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("eval", help="evaluate a checkpoint on a split")
+    p.add_argument("--data", required=True)
+    p.add_argument("--exp", required=True)
+    p.add_argument("--ckpt")
+    p.add_argument("--config")
+    p.add_argument("--split", default="test")
+    p.add_argument("--max-iter", type=int, default=40001)
+    _device_flag(p)
+    p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("serve", help="index candidates + top-k retrieval")
+    p.add_argument("--data", required=True)
+    p.add_argument("--exp", required=True)
+    p.add_argument("--ckpt")
+    p.add_argument("--config")
+    p.add_argument("--split", default="test")
+    p.add_argument("--k", type=int, default=10)
+    p.add_argument("--n-queries", type=int, default=5)
+    p.add_argument("--int8", action="store_true",
+                   help="int8 pool (half the bytes of bf16, ~1%% score "
+                        "error)")
+    p.add_argument("--pool-dtype", choices=["bf16", "int8", "int4"],
+                   help="pool precision (int4: a quarter of bf16's bytes, "
+                        "serve behind --rerank; overrides --int8)")
+    p.add_argument("--rerank", type=int, default=0, metavar="SHORTLIST",
+                   help="two-phase serve: kernel-shortlist this many "
+                        "candidates, rescore them with the exact "
+                        "interaction model, return top-k by P(correct)")
+    p.add_argument("--max-iter", type=int, default=40001)
+    p.add_argument("--listen", type=int, default=None, metavar="PORT",
+                   help="run as a persistent HTTP retrieval service on "
+                        "this port (0 = ephemeral; prints the bound "
+                        "port) instead of the one-shot split scoring")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="bind address for --listen (default loopback)")
+    p.add_argument("--batch-window-ms", type=float, default=0.0,
+                   help="coalesce concurrent requests that share "
+                        "(k, rerank) into one device call, waiting up to "
+                        "this long for peers (0 = off)")
+    p.add_argument("--ivf-clusters", type=int, default=0,
+                   help="build an IVF index over the pool so requests "
+                        "can send 'shortlist' for the approximate "
+                        "coarse-probe path (bf16 or int8 pools)")
+    p.add_argument("--coarse-tokens", type=int, default=8,
+                   help="token centroids per candidate for the IVF "
+                        "coarse stage (1 = mean vector)")
+    p.add_argument("--index", metavar="PATH",
+                   help="persisted index file (.npz): load it if it "
+                        "exists (warm restart, skips re-embedding and "
+                        "re-clustering), else build then save it there")
+    _device_flag(p)
+    p.set_defaults(fn=cmd_serve)
+
+    args = ap.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

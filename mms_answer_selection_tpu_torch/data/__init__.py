@@ -12,3 +12,5 @@ from .trec_qa import (  # noqa: F401
     synthetic_split,
     synthetic_world,
 )
+from .loader import ArrayDataset, BatchIterator  # noqa: F401
+from .wikiqa import parse_wikiqa_tsv, prepare_wikiqa  # noqa: F401

@@ -13,24 +13,31 @@ and of the QA script (do_trec_qa_clean.py:782-845):
   (do_trec_qa_clean.py:826-838, including its quirk of counting the first
   epoch boundary immediately because ``epoch`` starts at -1)
 * the best-dev-MAP params and BN state are kept and returned
+* snapshots every ``snapshot_interval`` steps to <dir>/<prefix>_iter_<N>/
+  (``training/checkpoint.py``, the JAX package's layout), ``resume_from``
+  and ``weights`` (`caffe train -snapshot` / `-weights`)
 * a deterministic reshuffle of the training set each pass, the
-  HDF5DataLayer shuffle equivalent (hdf5_data_layer.cpp:55-68).
+  HDF5DataLayer shuffle equivalent (hdf5_data_layer.cpp:55-68)
+* ``fit_stream``: the same loop over a batch iterator (``data/loader.py``,
+  the packed store's ``NativePrefetcher``) with patience counted in evals.
 
 Randomness: dropout draws from a ``torch.Generator`` on the training device
 seeded from (seed, step[, micro-batch]); the shuffle of a pass from a CPU
 generator seeded from (seed, epoch index).  A run is thus a function of
-its seed and step, which a resume can reproduce.  The draws differ from
-the JAX package's for the same seed.
+its seed and step, so a run resumed from a snapshot at step k repeats the
+uninterrupted run bit for bit on the CPU.  The draws differ from the JAX
+package's for the same seed.
 
-Not here yet: snapshots, ``resume_from`` and ``weights`` (they need a
-checkpoint format; ROADMAP Queue 1 item 6), ``fit_stream`` and mesh
-data parallelism.
+Not here yet: mesh data parallelism and the reference's .caffemodel /
+.solverstate files (ROADMAP Queue 1 items 6 and 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+import time
 from typing import Callable
 
 import numpy as np
@@ -47,6 +54,13 @@ from ..metrics import (
 )
 from ..models.mms_qa import MMSQAConfig, mms_qa_apply, mms_qa_init, param_spec
 from ..utils.tree import tree_leaves, tree_map
+from .checkpoint import (
+    latest_checkpoint,
+    load_checkpoint,
+    load_weights_into,
+    restore,
+    save_checkpoint,
+)
 from .optim import SolverConfig, make_solver
 
 # above this eval-split size the O(N^2) pairwise-rank metrics give way to
@@ -56,8 +70,8 @@ _SORTED_METRICS_THRESHOLD = 2048
 # seed-derivation tags, so dropout and shuffle streams never coincide
 _DROPOUT, _SHUFFLE = 1, 2
 
-_NO_CHECKPOINTS = ("{} needs a checkpoint format, which the port does not "
-                   "have yet (ROADMAP Queue 1 item 6: training/checkpoint.py)")
+_CAFFE_FILES = (".caffemodel", ".caffemodel.h5", ".solverstate",
+                ".solverstate.h5")
 
 log = logging.getLogger("mms_tpu_torch.trainer")
 
@@ -83,6 +97,67 @@ def derive_seed(*ints: int) -> int:
     state = np.random.SeedSequence([int(i) for i in ints]).generate_state(
         2, np.uint32)
     return (int(state[0]) << 31) ^ int(state[1])
+
+
+def _new_history(cfg: TrainerConfig) -> dict:
+    return {"train_loss_record_interval": cfg.train_loss_record_interval,
+            "train_loss": [], "dev_map": [], "dev_mrr": [], "dev_auc": [],
+            "test_map": [], "test_mrr": [], "test_auc": [], "steps": []}
+
+
+class _EpochStop:
+    """``fit``'s stop rule (QA-script semantics, do_trec_qa_clean.py:
+    826-838): epochs counted from the samples each step consumed, the
+    first boundary counted at once (``epoch`` starts at -1), a stop after
+    ``early_stop_patience`` epochs without a better dev MAP."""
+
+    def __init__(self, cfg: TrainerConfig, train_size: int, epoch: int,
+                 wait_epoch: int):
+        self.cfg, self.train_size = cfg, train_size
+        self.samples_per_step = cfg.batch_size * cfg.solver.iter_size
+        self.epoch, self.wait_epoch = epoch, wait_epoch
+
+    def evaluated(self, improved: bool) -> bool:
+        if improved:
+            self.wait_epoch = 0
+        return False
+
+    def stepped(self, it: int) -> bool:
+        if it * self.samples_per_step < self.epoch * self.train_size:
+            return False
+        self.epoch += 1
+        self.wait_epoch += 1
+        # early stop needs a dev signal; with test_interval 0 ("never
+        # test") train to max_iter
+        if self.cfg.test_interval \
+                and self.wait_epoch > self.cfg.early_stop_patience:
+            log.info("Epoch-%d [%d] early stop", self.epoch, it)
+            return True
+        return False
+
+    def meta(self) -> dict:
+        return {"epoch": self.epoch, "wait_epoch": self.wait_epoch}
+
+
+class _EvalPatience:
+    """``fit_stream``'s stop rule: a stop after ``patience`` evals without
+    a better dev MAP (``None``: never); an iterator has no epoch."""
+
+    def __init__(self, patience: int | None, waited: int):
+        self.patience, self.waited = patience, waited
+
+    def evaluated(self, improved: bool) -> bool:
+        if improved:
+            self.waited = 0
+            return False
+        self.waited += 1
+        return self.patience is not None and self.waited > self.patience
+
+    def stepped(self, it: int) -> bool:
+        return False
+
+    def meta(self) -> dict:
+        return {"wait_epoch": self.waited, "stream": True}
 
 
 class Trainer:
@@ -167,8 +242,8 @@ class Trainer:
         """Run K training steps over ``batches`` (dict of (K, ...) stacked
         tensors), step ``step0 + i`` on slice i, exactly as K ``_train_step``
         calls do.  The JAX package fuses these into one compiled dispatch;
-        here it is a plain loop, so ``fit`` steps one batch at a time
-        instead.  Returns (params, state, opt_state, losses (K,) tensor)."""
+        here it is a plain loop, so a chunk gives the bits of K single
+        steps.  Returns (params, state, opt_state, losses (K,) tensor)."""
         k = next(iter(batches.values())).shape[0]
         losses = []
         for i in range(k):
@@ -180,10 +255,10 @@ class Trainer:
 
     @staticmethod
     def _plan_chunk(it: int, k: int, limit: int, intervals) -> int:
-        """Length of the next ``scan_train_steps`` chunk starting at step
-        ``it``: at most ``k`` and ``limit`` steps, and always ending exactly
-        at the next multiple of any bookkeeping interval (so an eval step
-        is a chunk's LAST step, where the params are the post-that-step
+        """Length of the next chunk starting at step ``it``: at most ``k``
+        and ``limit`` steps, and always ending exactly at the next multiple
+        of any bookkeeping interval (so an eval or snapshot step is a
+        chunk's LAST step, where the params are the post-that-step
         state)."""
         k_plan = min(k, limit)
         for interval in intervals:
@@ -222,45 +297,246 @@ class Trainer:
         return {k: torch.as_tensor(np.asarray(v), device=self.device)
                 for k, v in data.items()}
 
+    # --------------------------------------------------------------- restore
+    def _resolve_ckpt(self, path: str) -> str:
+        """A concrete checkpoint dir, or a snapshot root (-> its latest
+        checkpoint), like `caffe train -snapshot`."""
+        if path.endswith(_CAFFE_FILES):
+            raise NotImplementedError(
+                f"{path}: the reference's .caffemodel / .solverstate files "
+                f"need utils/caffemodel.py, which the port does not have yet "
+                f"(ROADMAP Queue 1 item 6); pass a checkpoint directory")
+        if os.path.exists(os.path.join(path, "ckpt.msgpack")):
+            return path
+        latest = latest_checkpoint(path, prefix=self.cfg.snapshot_prefix)
+        if latest is None and self.cfg.snapshot_prefix != "qa":
+            latest = latest_checkpoint(path)
+        if latest is None:
+            raise FileNotFoundError(f"no checkpoint under {path}")
+        return latest
+
+    def _load_weights(self, params, state, weights: str):
+        """The `caffe train -weights` finetune load: a name+shape-checked
+        partial restore from a checkpoint directory."""
+        params, state, report = load_weights_into(
+            params, state, self._resolve_ckpt(weights))
+        skipped = {k: v for k, v in report.items() if v != "loaded"}
+        log.info("finetune: loaded %d/%d leaves from %s%s",
+                 len(report) - len(skipped), len(report), weights,
+                 f", skipped {sorted(skipped)}" if skipped else "")
+        return params, state
+
+    def _resume(self, resume_from, params, state, opt_state, history, best):
+        """Restore params, BN state, solver history, the loop counters and
+        the history from a snapshot, and the best params from their own
+        snapshot.  Returns (params, state, opt_state, meta)."""
+        ckpt = self._resolve_ckpt(resume_from)
+        template = {"params": params, "state": state, "opt_state": opt_state}
+        bundle, meta = load_checkpoint(ckpt, template=template)
+        best["dev_map"] = float(meta.get("best_dev_map", -1.0))
+        best["step"] = int(meta.get("best_step", 0))
+        for k, v in (meta.get("history") or {}).items():
+            if k in history:
+                history[k] = v
+        # the best-so-far params live in their own snapshot; reload them so
+        # the run returns the true best, not the best since the resume
+        # (the reference's script reloads the best snapshot the same way,
+        # do_trec_qa_clean.py:840)
+        if self.cfg.snapshot_dir:
+            bp = os.path.join(self.cfg.snapshot_dir,
+                              f"{self.cfg.snapshot_prefix}_iter_"
+                              f"{best['step']}")
+            if os.path.exists(os.path.join(bp, "ckpt.msgpack")):
+                bb, _ = load_checkpoint(bp)
+                best["params"] = restore(params, bb["params"], "params")
+                best["state"] = restore(state, bb["state"], "state")
+        log.info("resumed from %s at iter %d, best dev MAP %.4f @ %d", ckpt,
+                 int(meta.get("step", -1)) + 1, best["dev_map"], best["step"])
+        return bundle["params"], bundle["state"], bundle["opt_state"], meta
+
+    def _snapshot(self, it, params, state, opt_state, history, best,
+                  **meta):
+        save_checkpoint(
+            self.cfg.snapshot_dir, it,
+            {"params": params, "state": state, "opt_state": opt_state},
+            prefix=self.cfg.snapshot_prefix,
+            meta={"dev_map": history["dev_map"][-1]
+                  if history["dev_map"] else None,
+                  **meta, "best_step": best["step"],
+                  "best_dev_map": best["dev_map"], "history": history})
+
+    def _record_eval(self, it, params, state, dev_batch, test_batch,
+                     history) -> float:
+        """Eval on dev (and test) at step ``it``, appended to the history;
+        returns the dev MAP."""
+        dev = self._eval_step(params, state, dev_batch)
+        dev_map = float(dev["map"])
+        history["dev_map"].append(dev_map)
+        history["dev_mrr"].append(float(dev["mrr"]))
+        history["dev_auc"].append(float(dev["auc"]))
+        history["steps"].append(it)
+        if test_batch is not None:
+            te = self._eval_step(params, state, test_batch)
+            history["test_map"].append(float(te["map"]))
+            history["test_mrr"].append(float(te["mrr"]))
+            history["test_auc"].append(float(te["auc"]))
+        return dev_map
+
+    @staticmethod
+    def _finish(history, best, params, state):
+        history["best_step"] = best["step"]
+        history["best_dev_map"] = best["dev_map"]
+        history["params"] = best["params"] if best["params"] is not None \
+            else params
+        history["state"] = best["state"] if best["state"] is not None \
+            else state
+        return history
+
+    # ------------------------------------------------------------------ loop
+    def _loop(self, pull, carry, it: int, steps: int, *, stop_rule,
+              eval_interval, dev_batch, test_batch, history, best,
+              log_every, callback, handle_signals, steps_per_dispatch,
+              what: str):
+        """The loop ``fit`` and ``fit_stream`` share: steps ``it`` to
+        ``steps - 1`` on the batches ``pull()`` returns (StopIteration ends
+        the run after the partial chunk), dev (and test) evals every
+        ``eval_interval`` steps with the best params kept in ``best``,
+        snapshots, signals.  ``stop_rule`` decides the early stop and the
+        snapshots' meta.
+
+        Chunks of up to ``steps_per_dispatch`` steps end at every eval and
+        snapshot step.  The JAX package fuses a chunk into one dispatch;
+        here its steps run one by one, so only the signal poll (once a
+        chunk) depends on the chunk length.  Returns the history dict."""
+        from .signals import Action, SignalHandler
+        cfg = self.cfg
+        params, state, opt_state = carry
+        intervals = [eval_interval] if eval_interval else []
+        if cfg.snapshot_dir and cfg.snapshot_interval:
+            intervals.append(cfg.snapshot_interval)
+        t0 = time.time()
+        stop = exhausted = False
+        sig_ctx = SignalHandler() if handle_signals else None
+        if sig_ctx is not None:
+            sig_ctx.__enter__()
+        try:
+            while it < steps and not stop and not exhausted:
+                losses = []
+                for _ in range(self._plan_chunk(it, steps_per_dispatch,
+                                                steps - it, intervals)):
+                    try:
+                        batch = pull()
+                    except StopIteration:
+                        exhausted = True
+                        break
+                    params, state, opt_state, loss = self._train_step(
+                        params, state, opt_state, batch, it + len(losses))
+                    losses.append(loss)
+                # per-step bookkeeping over the chunk; the planner puts
+                # every eval and snapshot step at a chunk's end, where the
+                # params are that step's
+                last_j = len(losses) - 1
+                for j, loss in enumerate(losses):
+                    if it % cfg.train_loss_record_interval == 0:
+                        history["train_loss"].append(float(loss))
+                    if log_every and it % log_every == 0:
+                        log.info("%s %d loss %.4f (%.1fs)", what, it,
+                                 float(loss), time.time() - t0)
+                    if eval_interval and it % eval_interval == 0:
+                        assert j == last_j, "chunk planner missed a boundary"
+                        dev_map = self._record_eval(it, params, state,
+                                                    dev_batch, test_batch,
+                                                    history)
+                        improved = dev_map > best["dev_map"]
+                        if improved:
+                            # the solver and BN return new tensors each
+                            # step, so references stay the post-step state
+                            best.update(dev_map=dev_map, step=it,
+                                        params=params, state=state)
+                        stop |= stop_rule.evaluated(improved)
+                        if callback:
+                            callback({"step": it, "dev_map": dev_map,
+                                      "loss": float(loss)})
+                    stop |= stop_rule.stepped(it)
+
+                    # snapshots after the stop rule's bookkeeping, so their
+                    # meta resumes exactly; signals are polled once a chunk
+                    snap_meta = stop_rule.meta()
+                    if sig_ctx is not None and j == last_j:
+                        action = sig_ctx.get_requested_action()
+                        if action != Action.NONE and cfg.snapshot_dir:
+                            self._snapshot(it, params, state, opt_state,
+                                           history, best, **snap_meta,
+                                           signal=action.name)
+                        if action == Action.STOP:
+                            log.info("SIGINT: stop at %s %d", what, it)
+                            stop = True
+                    if (cfg.snapshot_dir and cfg.snapshot_interval
+                            and it % cfg.snapshot_interval == 0):
+                        assert j == last_j, "chunk planner missed a boundary"
+                        self._snapshot(it, params, state, opt_state, history,
+                                       best, **snap_meta)
+                    it += 1
+                    if it >= steps or stop:
+                        break
+        finally:
+            if sig_ctx is not None:
+                sig_ctx.__exit__(None, None, None)
+        return self._finish(history, best, params, state)
+
     # ------------------------------------------------------------------- fit
     def fit(self, train_data: dict, dev_data: dict, *, test_data: dict = None,
-            pretrained=None,
+            pretrained=None, log_every: int | None = None,
             callback: Callable[[dict], None] | None = None,
             handle_signals: bool = False, resume_from: str | None = None,
-            weights: str | None = None):
+            weights: str | None = None, steps_per_dispatch: int = 1):
         """Run the full training recipe on dicts of numpy arrays.  Returns
         a history dict with the best params and BN state (by dev MAP) and
         the metric curves, shaped as the JAX package's.
 
-        handle_signals: SIGINT stops the run after the current step and
-        SIGHUP is ignored, since there is nothing to snapshot to (the
-        reference's SignalHandler contract, minus the snapshot).
+        handle_signals: SIGINT snapshots (with ``snapshot_dir``) and stops
+        after the current chunk, SIGHUP snapshots and carries on (the
+        reference's SignalHandler contract, solver.cpp:259-272).
+
+        resume_from: a checkpoint dir, or a snapshot root (-> its latest),
+        to restore params, BN state, solver history, step, epoch and the
+        early-stop counters from; the resumed run repeats the
+        uninterrupted one (the same shuffles and dropout draws).
+
+        weights: a checkpoint dir to partial-load params and BN state from
+        by name and shape before training (`caffe train -weights`).
+        Mutually exclusive with resume_from.
+
+        steps_per_dispatch: chunks of up to K steps, ending at eval and
+        snapshot steps, as the JAX package plans its fused dispatches; the
+        steps run one by one (see ``_loop``), so the history is that of
+        K = 1, bit for bit.
         """
-        from .signals import Action, SignalHandler
-        for name, value in (("resume_from", resume_from),
-                            ("weights", weights),
-                            ("snapshot_dir", self.cfg.snapshot_dir)):
-            if value:
-                raise NotImplementedError(_NO_CHECKPOINTS.format(name))
+        if resume_from and weights:
+            raise ValueError("resume_from and weights are mutually exclusive "
+                             "(tools/caffe.cpp:208-210 has the same CHECK)")
         cfg = self.cfg
         params, state, opt_state = self.init(pretrained=pretrained)
+        if weights:
+            params, state = self._load_weights(params, state, weights)
         train = self._full_batch({k: v for k, v in train_data.items()
                                   if k != "group"})
         dev_batch = self._full_batch(dev_data)
         test_batch = self._full_batch(test_data) if test_data else None
 
-        history = {"train_loss_record_interval":
-                   cfg.train_loss_record_interval,
-                   "train_loss": [], "dev_map": [], "dev_mrr": [],
-                   "dev_auc": [], "test_map": [], "test_mrr": [],
-                   "test_auc": [], "steps": []}
+        history = _new_history(cfg)
         best = {"dev_map": -1.0, "step": 0, "params": None, "state": None}
         train_size = len(train_data["label"])
         samples_per_step = cfg.batch_size * cfg.solver.iter_size
         steps_per_pass = max(1, -(-train_size // samples_per_step))
         epoch, wait_epoch = -1, 0
-        stop = False
         it = 0
+        if resume_from:
+            params, state, opt_state, meta = self._resume(
+                resume_from, params, state, opt_state, history, best)
+            it = int(meta.get("step", -1)) + 1
+            epoch = int(meta.get("epoch", -1))
+            wait_epoch = int(meta.get("wait_epoch", 0))
 
         def batch_stream(s_it):
             """Continuous batch stream across passes; each pass's shuffle
@@ -274,66 +550,96 @@ class Trainer:
                     yield b
                     s_it += 1
 
-        sig_ctx = SignalHandler() if handle_signals else None
-        if sig_ctx is not None:
-            sig_ctx.__enter__()
-        try:
-            stream = batch_stream(it)
-            while it < cfg.max_iter and not stop:
-                params, state, opt_state, loss = self._train_step(
-                    params, state, opt_state, next(stream), it)
-                if it % cfg.train_loss_record_interval == 0:
-                    history["train_loss"].append(float(loss))
+        return self._loop(
+            batch_stream(it).__next__, (params, state, opt_state), it,
+            cfg.max_iter, stop_rule=_EpochStop(cfg, train_size, epoch,
+                                               wait_epoch),
+            eval_interval=cfg.test_interval, dev_batch=dev_batch,
+            test_batch=test_batch, history=history, best=best,
+            log_every=log_every, callback=callback,
+            handle_signals=handle_signals,
+            steps_per_dispatch=steps_per_dispatch, what="iter")
 
-                if cfg.test_interval and it % cfg.test_interval == 0:
-                    dev = self._eval_step(params, state, dev_batch)
-                    dev_map = float(dev["map"])
-                    history["dev_map"].append(dev_map)
-                    history["dev_mrr"].append(float(dev["mrr"]))
-                    history["dev_auc"].append(float(dev["auc"]))
-                    history["steps"].append(it)
-                    if test_batch is not None:
-                        te = self._eval_step(params, state, test_batch)
-                        history["test_map"].append(float(te["map"]))
-                        history["test_mrr"].append(float(te["mrr"]))
-                        history["test_auc"].append(float(te["auc"]))
-                    if dev_map > best["dev_map"]:
-                        wait_epoch = 0
-                        # the solver and BN return new tensors each step,
-                        # so references stay the post-step state
-                        best = {"dev_map": dev_map, "step": it,
-                                "params": params, "state": state}
-                    if callback:
-                        callback({"step": it, "dev_map": dev_map,
-                                  "loss": float(loss)})
+    # ---------------------------------------------------------------- stream
+    def fit_stream(self, batches, dev_data: dict, *, steps: int,
+                   test_data: dict = None,
+                   params=None, state=None, opt_state=None, pretrained=None,
+                   eval_interval: int | None = None,
+                   patience_evals: int | None = None,
+                   handle_signals: bool = False,
+                   resume_from: str | None = None,
+                   weights: str | None = None,
+                   log_every: int | None = None,
+                   callback: Callable[[dict], None] | None = None,
+                   steps_per_dispatch: int = 1):
+        """Train from a batch iterator (``BatchIterator``,
+        ``NativePrefetcher`` or any iterator of dicts of arrays) instead of
+        in-memory splits: the streaming path for pools that do not fit
+        host memory.  Early stopping counts evals without dev-MAP
+        improvement (``patience_evals``): an iterator has no epoch.
 
-                # epoch accounting + early stop (QA-script semantics
-                # :832-838), counting the samples each step consumed
-                if it * samples_per_step >= epoch * train_size:
-                    epoch += 1
-                    wait_epoch += 1
-                    # early stop needs a dev signal; with test_interval 0
-                    # ("never test") train to max_iter
-                    if cfg.test_interval \
-                            and wait_epoch > cfg.early_stop_patience:
-                        log.info("Epoch-%d [%d] early stop", epoch, it)
-                        stop = True
+        A ``NativePrefetcher`` hands each batch to the device through
+        ``next_device`` (pinned staging, non-blocking copies on CUDA).
+        Packed labels of shape (B, 1) become (B,); with iter_size > 1,
+        iter_size consecutive batches stack into one step.
 
-                if sig_ctx is not None \
-                        and sig_ctx.get_requested_action() == Action.STOP:
-                    log.info("SIGINT: stop at iter %d", it)
-                    stop = True
-                it += 1
-        finally:
-            if sig_ctx is not None:
-                sig_ctx.__exit__(None, None, None)
-        history["best_step"] = best["step"]
-        history["best_dev_map"] = best["dev_map"]
-        history["params"] = best["params"] if best["params"] is not None \
-            else params
-        history["state"] = best["state"] if best["state"] is not None \
-            else state
-        return history
+        Snapshots carry ``"stream": True``; ``resume_from`` restores
+        params, solver history, step, best and history (the stream's
+        position is the caller's to restore, as the reference's
+        .solverstate records no data cursor either); ``weights`` is the
+        finetune load.  Chunks of ``steps_per_dispatch`` end at eval and
+        snapshot steps; an exhausted iterator ends the run after the
+        partial chunk.  Returns the history dict of ``fit``."""
+        if resume_from and weights:
+            raise ValueError("resume_from and weights are mutually exclusive")
+        cfg = self.cfg
+        if params is None:
+            params, state, opt_state = self.init(pretrained=pretrained)
+        if weights:
+            params, state = self._load_weights(params, state, weights)
+        eval_interval = eval_interval or cfg.test_interval
+        dev_batch = self._full_batch(dev_data)
+        test_batch = self._full_batch(test_data) if test_data else None
+        history = _new_history(cfg)
+        best = {"dev_map": -1.0, "step": 0, "params": None, "state": None}
+        waited = 0
+        it = 0
+        if resume_from:
+            params, state, opt_state, meta = self._resume(
+                resume_from, params, state, opt_state, history, best)
+            it = int(meta.get("step", -1)) + 1
+            waited = int(meta.get("wait_epoch", 0))
+
+        direct = hasattr(batches, "next_device")
+        iter_size = cfg.solver.iter_size
+
+        def pull_one():
+            if direct:
+                raw = batches.next_device(self.device)
+            else:
+                raw = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                       for k, v in next(batches).items()}
+            b = {k: v for k, v in raw.items() if k != "group"}
+            if "label" in b and b["label"].ndim == 2:
+                b["label"] = b["label"][:, 0]
+            return b
+
+        def pull():
+            if iter_size == 1:
+                return pull_one()
+            # gradient accumulation: iter_size consecutive stream batches
+            # on a leading micro-batch axis, the shape fit() steps take
+            micro = [pull_one() for _ in range(iter_size)]
+            return {k: torch.stack([m[k] for m in micro]) for k in micro[0]}
+
+        return self._loop(
+            pull, (params, state, opt_state), it, steps,
+            stop_rule=_EvalPatience(patience_evals, waited),
+            eval_interval=eval_interval, dev_batch=dev_batch,
+            test_batch=test_batch, history=history, best=best,
+            log_every=log_every, callback=callback,
+            handle_signals=handle_signals,
+            steps_per_dispatch=steps_per_dispatch, what="stream iter")
 
     # ------------------------------------------------------------- inference
     def evaluate(self, params, state, data: dict):

@@ -532,3 +532,159 @@ def test_train_step_on_cuda_matches_cpu():
             else:
                 assert torch.allclose(got, want, rtol=1e-4, atol=1e-5), \
                     (name, k, float((got - want).abs().max()))
+
+
+def test_checkpoint_of_cuda_tensors_round_trips_onto_the_card(tmp_path):
+    """Tensors on the card are saved through the host and restored onto
+    the template's device, bit for bit."""
+    dev = _cuda()
+    from mms_answer_selection_tpu_torch.training import (
+        SolverConfig, Trainer, TrainerConfig)
+    from mms_answer_selection_tpu_torch.training.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from mms_answer_selection_tpu_torch.utils.tree import (
+        tree_leaves, tree_map)
+
+    tr = Trainer(dataclasses.replace(TM.MMSQAConfig(), vocab_size=500,
+                                     sim_weight_init="xavier"),
+                 TrainerConfig(solver=SolverConfig()), device=dev)
+    p, s, o = tr.init()
+    bundle = {"params": p, "state": s, "opt_state": o}
+    path = save_checkpoint(str(tmp_path), 3, bundle, meta={"epoch": 1})
+    got, meta = load_checkpoint(path,
+                                template=tree_map(torch.zeros_like, bundle))
+    assert meta == {"step": 3, "epoch": 1}
+    for a, b in zip(tree_leaves(got), tree_leaves(bundle)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def test_next_device_equals_a_direct_gather_under_refill(tmp_path):
+    """40 batches of about 20 MB through next_device at ring depth 2, each
+    kept on the card while the worker refills its slot at once, equal
+    the rows a direct PackedStore.gather reads (each row carries its own
+    index, so the batch names its rows)."""
+    dev = _cuda()
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch.native import (
+        NativePrefetcher, PackedStore, write_mmsp)
+
+    n, cols, bs = 6000, 1280, 4096
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / "big.mmsp")
+    write_mmsp(path, {"row": np.arange(n, dtype=np.int32),
+                      "x": rng.random((n, cols), dtype=np.float32),
+                      "ids": rng.integers(0, 2**31 - 1, (n, 7)).astype(
+                          np.int32)})
+    store = PackedStore(path)
+    ring = NativePrefetcher(store, ["row", "x", "ids"], bs, seed=3, depth=2)
+    kept = [ring.next_device(dev) for _ in range(40)]
+    torch.cuda.synchronize()
+    for batch in kept:
+        assert batch["x"].device.type == "cuda"
+        rows = batch["row"][:, 0].cpu().numpy()
+        for name in ("x", "ids"):
+            want = torch.from_numpy(store.gather(name, rows))
+            assert torch.equal(batch[name].cpu(), want), name
+    seen = np.concatenate([b["row"][:, 0].cpu().numpy() for b in kept])
+    assert len(np.unique(seen[:n])) == n      # the first pass is a shuffle
+
+
+def test_fit_stream_on_cuda_matches_cpu(tmp_path):
+    """Three steps of fit_stream from one packed file (V4, batch 50,
+    dropout off, xavier W) on the card and on the CPU: the same steps and
+    evals, losses within 1e-5 relative, params within the one-step check's
+    rtol 1e-4 + atol 1e-5.  The conv biases are left out: each feeds a
+    train-mode BN, so its true gradient is 0 and AdaDelta moves it on
+    either device by a normalized step of rounding noise, inside a band
+    that any gradient would keep to.
+
+    Dev MAP is a step function of the scores, so it is held group by
+    group: each device's in-graph MAP equals the numpy MAP of its own dev
+    probabilities (1e-6), and a group's AP on the card equals the CPU's
+    wherever every positive-negative gap of the CPU's scores exceeds twice
+    the largest card-vs-CPU probability difference (no near-tie that
+    rounding could reorder); at least 9 of the 12 groups must qualify.
+    The embedding starts from vectors of GloVe's scale, as the recipe's
+    does: from the ±0.08 fill alone the sim map's spread is so small that
+    eval-mode BN magnifies the conv biases' noise steps (an H100 run read
+    P(correct) 1.1e-2 apart after one step)."""
+    dev = _cuda()
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch.metrics import mean_average_precision
+    from mms_answer_selection_tpu_torch.native import (
+        NativePrefetcher, PackedStore, write_mmsp)
+    from mms_answer_selection_tpu_torch.training import (
+        SolverConfig, Trainer, TrainerConfig)
+
+    class Recording(Trainer):
+        """Keeps each eval's P(correct) on the host."""
+        probs: list
+
+        def _eval_step(self, params, state, batch):
+            res = super()._eval_step(params, state, batch)
+            self.probs.append(res["prob"][:, 1].cpu().double().numpy())
+            return res
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(TM.MMSQAConfig(), vocab_size=500,
+                              sim_weight_init="xavier", sim_dropout=0.0,
+                              fc1_dropout=0.0)
+    tcfg = TrainerConfig(solver=SolverConfig(), batch_size=50,
+                         test_interval=2, train_loss_record_interval=1)
+    rng = np.random.default_rng(5)
+
+    def rows(n):
+        return {"question": rng.integers(0, 500, (n, 40)).astype(np.int32),
+                "answer": rng.integers(0, 500, (n, 40)).astype(np.int32),
+                "overlap_feat": rng.random((n, 2)).astype(np.float32),
+                "label": (rng.random(n) < 0.3).astype(np.int32)}
+
+    path = str(tmp_path / "train.mmsp")
+    write_mmsp(path, rows(300))
+    groups = np.repeat(np.arange(12), 10)
+    dev_split = rows(120) | {"group": groups}
+    labels = dev_split["label"]
+    glove = (0.5 * rng.standard_normal((500, 50))).astype(np.float32)
+    out, probs = {}, {}
+    for where in ("cpu", dev):
+        ring = NativePrefetcher(PackedStore(path), ["question", "answer",
+                                                    "label", "overlap_feat"],
+                                50, seed=1)
+        tr = Recording(cfg, tcfg, device=where)
+        tr.probs = []
+        out[str(where)] = tr.fit_stream(ring, dev_split, steps=3,
+                                        pretrained=glove)
+        probs[str(where)] = tr.probs
+    cpu, card = out["cpu"], out[str(dev)]
+    assert card["steps"] == cpu["steps"] == [0, 2]
+    np.testing.assert_allclose(card["train_loss"], cpu["train_loss"],
+                               rtol=1e-5)
+    for name, sub in cpu["params"].items():
+        for k, want in sub.items():
+            if name.startswith("conv") and k == "b":
+                continue
+            got = card["params"][name][k].cpu()
+            assert torch.allclose(got, want, rtol=1e-4, atol=1e-5), \
+                (name, k, float((got - want).abs().max()))
+
+    for e, (p_cpu, p_card) in enumerate(zip(probs["cpu"], probs[str(dev)],
+                                            strict=True)):
+        for where, p in (("cpu", p_cpu), (str(dev), p_card)):
+            assert abs(out[where]["dev_map"][e] - mean_average_precision(
+                p, labels, groups)) <= 1e-6, (where, e)
+        diff = float(np.abs(p_card - p_cpu).max())
+        held = 0
+        for g in range(12):
+            at = groups == g
+            pos, neg = p_cpu[at & (labels == 1)], p_cpu[at & (labels == 0)]
+            if np.abs(pos[:, None] - neg[None, :]).min() <= 2 * diff:
+                continue
+            held += 1
+            assert mean_average_precision(p_card[at], labels[at],
+                                          groups[at]) \
+                == mean_average_precision(p_cpu[at], labels[at],
+                                          groups[at]), (e, g, diff)
+        assert held >= 9, (e, held, diff)

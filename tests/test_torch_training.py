@@ -17,6 +17,7 @@ numbers up to float32 summation order.  Tolerances, with their reasons:
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -417,17 +418,33 @@ def test_evaluate_matches_numpy_metrics(two_fits):
     assert res["prob"].shape == (len(labels), 2)
 
 
-@pytest.mark.parametrize("kw", [dict(resume_from="x"), dict(weights="x")])
-def test_checkpoint_paths_raise(kw):
+@pytest.mark.parametrize("together", [False, True])
+def test_checkpoint_paths_raise(together, tmp_path):
+    """resume_from, weights and snapshot_dir train (each alone, from a
+    snapshot of a short run); resume_from and weights together raise."""
     splits, info = _fit_data()
-    tt = Trainer(_tcfg(_small_cfg(vocab_size=info["vocab_size"])),
-                 TrainerConfig(max_iter=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.fit(splits["train"], splits["dev"], **kw)
-    snap = Trainer(tt.model_cfg, TrainerConfig(snapshot_dir="x"),
+    cfg = _tcfg(_small_cfg(vocab_size=info["vocab_size"], embed_dim=50))
+    snap = Trainer(cfg, TrainerConfig(max_iter=3, batch_size=10,
+                                      test_interval=2, snapshot_interval=2,
+                                      snapshot_dir=str(tmp_path)),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        snap.fit(splits["train"], splits["dev"])
+    first = snap.fit(splits["train"], splits["dev"],
+                     pretrained=info["pretrained"])
+    assert sorted(os.listdir(tmp_path)) == ["qa_iter_0", "qa_iter_2"]
+    tt = Trainer(cfg, TrainerConfig(max_iter=5, batch_size=10,
+                                    test_interval=2), device="cpu")
+    kws = [dict(resume_from=str(tmp_path)),
+           dict(weights=str(tmp_path / "qa_iter_2"))]
+    if together:
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            tt.fit(splits["train"], splits["dev"], **kws[0], **kws[1])
+        return
+    resumed, tuned = (tt.fit(splits["train"], splits["dev"], **kw)
+                      for kw in kws)
+    assert resumed["steps"] == [0, 2, 4]                 # 0, 2 from the meta
+    assert resumed["dev_map"][:2] == first["dev_map"]
+    assert tuned["steps"] == [0, 2, 4]
+    assert np.all(np.isfinite(tuned["train_loss"]))
 
 
 def test_fit_is_reproducible_with_dropout():
