@@ -47,6 +47,17 @@ at the V4 recipe's widths, after building the hand-written kernels from
   the same checks as V4's, the pair-map kernels at (W1, W2) past 64 rows
   at D = 50 and 300, one V4_WIDE train step on the card against the CPU,
   and its step p50 at batch 50 and 1024;
+* the multimodal side (configs[4]) at its published defaults: the
+  pair-map kernels at (W1, W2, M) = (12, 25, 2) and the MaxSim kernels at
+  R = 24 query rows, W2P = 32 against their plain versions, 200
+  caption-to-image AdaDelta steps through ``Trainer(apply_fn=
+  caption_image_apply, init_fn=caption_image_init)`` on a planted-signal
+  corpus (rank accuracy must rise, card = CPU after 1 and 3 steps, the
+  pair-map kernels' launches counted), 262,144 images encoded in chunks
+  into bf16, int8 and int4 engines (``build_index_from_tokens`` from the
+  host) queried with 1 and 256 captions (top-10 = brute force, p50s,
+  overlap with the float32 scorer), and 100 image-pair steps from
+  ``PairImageDataset`` (the loss falls, card = CPU after one);
 
 and times the kernels, the engine and the train step.  The pair-map
 kernels are timed at batch 50 and 1024 at D = 50 and at V4_WIDE's D = 300
@@ -66,8 +77,9 @@ or any phase fails.  The last line of stdout is
 the line before it lists every kernel with its launches on the main path,
 its error against the plain version, its time, the plain version's, the
 bound and what sets it, and the one-call library time (null where no
-single PyTorch call computes the function).  About 130-165 s on an
-H100, build included, peaking near 27 GiB of device memory.
+single PyTorch call computes the function); a line before it, the
+launches of the multimodal path.  About 150-190 s on an H100, build
+included, peaking near 27 GiB of device memory.
 """
 
 from __future__ import annotations
@@ -140,6 +152,31 @@ STREAM_STEP_REPS = 200
 RESUME_MAP_ATOL, RESUME_PARAM_RTOL = 5e-3, 1e-3
 CLI_TRAIN_KERNELS = ("pair_maps_fwd", "pair_maps_bwd_w", "pair_maps_bwd_qa")
 CLI_SERVE_KERNELS = ("maxsim_int8", "pair_maps_fwd")   # query, the rerank
+
+# the multimodal side (configs[4]) at CaptionImageConfig()'s and
+# PairImageConfig()'s published defaults: captions of 12 tokens, 16 x 16 x 3
+# images, P = 25 patch tokens, D = 50, M = 2, so the pair maps run at (W1,
+# W2, M) = (12, 25, 2) and MaxSim at R = 24 query rows, W2P = 32.  Caption
+# training: MM_STEPS AdaDelta steps at batch BATCH on a planted-signal
+# corpus (pixel row f of the positive image encodes the caption's token
+# f), card against CPU after MM_CHECK_STEPS; an image pool of POOL images
+# encoded in chunks of MM_ENCODE_CHUNK; PAIR_STEPS image-pair steps
+MM_W1, MM_P, MM_M = 12, 25, 2
+MM_PAIR_CHECKS = ((BATCH, MM_W1, MM_P, D, MM_M),
+                  (1024, MM_W1, MM_P, D, MM_M))
+MM_KERNEL_NQ = (1, 16, N_QUERIES)
+MM_STEPS, MM_ACC_WINDOW, MM_CHECK_STEPS = 200, 20, (1, 3)
+MM_ENCODE_CHUNK = 32_768
+PAIR_STEPS, PAIR_CORPUS = 100, 1000
+# card against CPU on the same weights and batches, each param leaf's max
+# abs difference over its max |value| (conv biases apart: rounding noise
+# under train-mode BN, held to AdaDelta's band; so is the image-pair score
+# bias, which the loss reads only through score differences).  An H100
+# 80GB HBM3 at 700 W read the loss 2.1e-7 / 7.3e-7 relative and the params
+# 9.0e-6 / 5.8e-6 apart after 1 / 3 caption steps, the image-pair step
+# 0 and 5.3e-6
+MM_LOSS_RTOL, MM_PARAM_RTOL = 1e-5, 1e-4
+MM_NOISE_LEAVES = ("conv0.b", "conv1.b", "score.b")
 
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): bytes/s of
 # HBM3, and operations/s by operand type.  The pair maps' products must be
@@ -229,6 +266,16 @@ def sass_counts(so: Path) -> dict:
     return counts
 
 
+def in_turns(kernel, plain, ops, k_reps: int = 100, p_reps: int = 30):
+    """``burst_ms`` of ``kernel(*ops)`` and ``plain(*ops)`` in turns: plain,
+    kernel, kernel, plain.  Returns (kernel ms, plain ms, the four)."""
+    t = [burst_ms(lambda: plain(*ops), p_reps),
+         burst_ms(lambda: kernel(*ops), k_reps),
+         burst_ms(lambda: kernel(*ops), k_reps),
+         burst_ms(lambda: plain(*ops), p_reps)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
 def bound_ms(name: str, ops: float, nbytes: float) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes over
     the HBM rate and the operations over the peak for the kernel's operand
@@ -239,26 +286,28 @@ def bound_ms(name: str, ops: float, nbytes: float) -> tuple[float, str]:
                                                               "bytes")
 
 
-def pair_bound(name: str, n: int, d: int) -> tuple[float, str]:
-    """``bound_ms`` of a pair-map kernel at W1 = W2 = 40, M = 4: 2 N M W1
-    D (D + W2) operations (twice that for dQ and dA together), each input
-    read and each output written once."""
-    ops = 2 * n * M * W1 * d * (d + W2) * (2 if name == "pair_maps_bwd_qa"
+def pair_bound(name: str, n: int, d: int, w1: int = W1, w2: int = W2,
+               m: int = M) -> tuple[float, str]:
+    """``bound_ms`` of a pair-map kernel (V4's W1 = W2 = 40, M = 4 unless
+    given): 2 N M W1 D (D + W2) operations (twice that for dQ and dA
+    together), each input read and each output written once."""
+    ops = 2 * n * m * w1 * d * (d + w2) * (2 if name == "pair_maps_bwd_qa"
                                             else 1)
-    q, a, w, g = n * W1 * d, n * W2 * d, M * d * d, n * W1 * W2 * M
+    q, a, w, g = n * w1 * d, n * w2 * d, m * d * d, n * w1 * w2 * m
     floats = {"pair_maps_fwd": q + a + w + g,
               "pair_maps_bwd_w": q + a + g + w,
               "pair_maps_bwd_qa": q + a + w + g + q + a}[name]
     return bound_ms(name, ops, 4 * floats)
 
 
-def maxsim_bound(name: str, args, out_bytes: int,
-                 d: int = D) -> tuple[float, str]:
-    """``bound_ms`` of a MaxSim kernel: 2 x (Nq M W1) x C x W2 x D
-    operations (the unpadded widths), the operands as given read once and
-    the scores written once."""
+def maxsim_bound(name: str, args, out_bytes: int, d: int = D,
+                 r: int = M * W1, w2: int = W2) -> tuple[float, str]:
+    """``bound_ms`` of a MaxSim kernel: 2 x Nq R x C x W2 x D operations
+    (the unpadded widths: R = M W1 projected query rows, W2 candidate
+    tokens; V4's unless given), the operands as given read once and the
+    scores written once."""
     nq, c = args[0].shape[0], args[2 if len(args) > 2 else 1].shape[0]
-    ops = 2 * nq * M * W1 * c * W2 * d
+    ops = 2 * nq * r * c * w2 * d
     nbytes = sum(t.numel() * t.element_size() for t in args) + out_bytes
     return bound_ms(name, ops, nbytes)
 
@@ -303,10 +352,11 @@ def recipe_trainer():
                          test_interval=TEST_INTERVAL, seed=22)
 
 
-def pair_operands(normal, n: int, d: int, w1: int = W1, w2: int = W2):
-    """q, a, W and dL/dout of a pair-map call at M = 4."""
+def pair_operands(normal, n: int, d: int, w1: int = W1, w2: int = W2,
+                  m: int = M):
+    """q, a, W and dL/dout of a pair-map call (M = 4 unless given)."""
     return (normal(n, w1, d, scale=0.3), normal(n, w2, d, scale=0.3),
-            normal(M, d, d, scale=0.05), normal(n, w1, w2, M))
+            normal(m, d, d, scale=0.05), normal(n, w1, w2, m))
 
 
 def pair_kernels(sk) -> dict:
@@ -330,7 +380,7 @@ def check_pair_kernels(sk, pairs: dict, ops, max_err: dict) -> None:
     ``KERNEL_VS_PLAIN_RTOL`` of the output's max |value|, and dW twice,
     bit for bit."""
     n, w1, d = ops[0].shape
-    w2 = ops[1].shape[1]
+    w2, m = ops[1].shape[1], ops[2].shape[0]
     for name, (kernel, plain) in pairs.items():
         got = kernel(*ops)
         torch.cuda.synchronize()
@@ -343,7 +393,7 @@ def check_pair_kernels(sk, pairs: dict, ops, max_err: dict) -> None:
             err = float((x - y).abs().max())
             rel = err / float(y.abs().max())
             max_err[name] = max(max_err[name], err)
-            log(f"check {name} N={n} W1={w1} W2={w2} D={d} out "
+            log(f"check {name} N={n} W1={w1} W2={w2} D={d} M={m} out "
                 f"{tuple(x.shape)}: max_abs_err {err:.3e}, max_rel_err "
                 f"{rel:.3e} (rtol {rtol:g} of the output's max |value|)")
             if rel > rtol:
@@ -351,7 +401,7 @@ def check_pair_kernels(sk, pairs: dict, ops, max_err: dict) -> None:
                                      f"version: {rel:.3e} > {rtol:g}")
     if not torch.equal(sk.pair_maps_bwd_w(*ops), sk.pair_maps_bwd_w(*ops)):
         raise AssertionError(f"pair_maps_bwd_w: dW differs between two runs "
-                             f"at N={n} W1={w1} W2={w2} D={d}")
+                             f"at N={n} W1={w1} W2={w2} D={d} M={m}")
 
 
 def step_card_vs_cpu(model, tcfg, splits, info, dev, label: str) -> None:
@@ -522,12 +572,7 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
         ops = pair_operands(normal, n, d)
         names = pairs if (n, d) in PAIR_TIMED else ("pair_maps_fwd",)
         for name in names:
-            kernel, plain = pairs[name]
-            t = [burst_ms(lambda: plain(*ops), 30),
-                 burst_ms(lambda: kernel(*ops), 100),
-                 burst_ms(lambda: kernel(*ops), 100),
-                 burst_ms(lambda: plain(*ops), 30)]
-            k_ms, p_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            k_ms, p_ms, t = in_turns(*pairs[name], ops)
             lib_ms = None if name == "pair_maps_bwd_qa" else p_ms
             b_ms, b_by = pair_bound(name, n, d)
             if (n, d) == (BATCH, D):
@@ -1390,6 +1435,336 @@ def cli_phase(dev, card: str) -> dict:
     return {"train": trained, "serve": served}
 
 
+def planted_batch(gen, dev, n: int, cfg):
+    """A caption training batch of the planted-signal corpus, made on the
+    device from ``gen``: caption token f everywhere, the positive image
+    noise at 0.1 with pixel row f at 2 in channel 0, the negative noise."""
+    first = torch.randint(0, 8, (n,), generator=gen, device=dev)
+    shape = (n, cfg.height, cfg.width, cfg.channels)
+    pos = 0.1 * torch.randn(shape, generator=gen, device=dev)
+    pos[torch.arange(n, device=dev), first, :, 0] += 2.0
+    return {"caption": first[:, None].expand(n, cfg.caption_len).contiguous(),
+            "image_pos": pos,
+            "image_neg": torch.randn(shape, generator=gen, device=dev)}
+
+
+def pool_images(gen, dev, n: int, cfg):
+    """An image pool of the same corpus: half the images planted with a
+    token f in [0, 8), half noise."""
+    f = torch.randint(0, 16, (n,), generator=gen, device=dev)
+    imgs = torch.randn((n, cfg.height, cfg.width, cfg.channels),
+                       generator=gen, device=dev)
+    rows = (f < 8).nonzero().flatten()
+    imgs[rows] *= 0.1
+    imgs[rows, f[rows], :, 0] += 2.0
+    return imgs
+
+
+def caption_queries(gen, dev, n: int, cfg):
+    """Caption ids: token f in every slot, a quarter of them replaced by
+    random words."""
+    first = torch.randint(0, 8, (n, 1), generator=gen, device=dev)
+    noise = torch.randint(0, cfg.vocab_size, (n, cfg.caption_len),
+                          generator=gen, device=dev)
+    keep = torch.rand((n, cfg.caption_len), generator=gen, device=dev) < 0.75
+    return torch.where(keep, first, noise)
+
+
+def steps_card_vs_cpu(make_trainer, batches, checks, dev,
+                      label: str) -> dict:
+    """The same training steps on the CPU and on the card from the same
+    weights (drawn on the CPU) and batches; after each step in ``checks``
+    the loss within MM_LOSS_RTOL relative and every param leaf within
+    MM_PARAM_RTOL of its max |value| (MM_NOISE_LEAVES within AdaDelta's
+    band of 2 x lr_mult 2 x its normalized step a step).  Returns the
+    measured worst differences by step."""
+    from mms_answer_selection_tpu_torch.utils.tree import tree_map
+
+    runs = []
+    for where in (torch.device("cpu"), dev):
+        tr = make_trainer(where)
+        p, s, o = tr.init()
+        runs.append([])
+        for i, b in enumerate(batches[:max(checks)]):
+            p, s, o, loss = tr._train_step(
+                p, s, o, {k: v.to(where) for k, v in b.items()}, i)
+            if i + 1 in checks:
+                runs[-1].append(tree_map(lambda t: t.detach().cpu(),
+                                         {"p": p, "loss": loss}))
+    measured = {}
+    for step, cpu, card in zip(checks, *runs):
+        loss_rel = abs(float(card["loss"]) / float(cpu["loss"]) - 1)
+        worst, where, band = 0.0, "", 2 * 2 * ADADELTA_STEP * step
+        for name, sub in cpu["p"].items():
+            for k, want in sub.items():
+                diff = float((card["p"][name][k] - want).abs().max())
+                if f"{name}.{k}" in MM_NOISE_LEAVES:
+                    if diff > band:
+                        raise AssertionError(f"{label} step {step}: {name}.{k}"
+                                             f" moved {diff:.3e} apart")
+                    continue
+                rel = diff / max(float(want.abs().max()), 1e-30)
+                if rel > worst:
+                    worst, where = rel, f"{name}.{k}"
+        log(f"check {label} card vs CPU after {step} step(s): loss "
+            f"{float(card['loss']):.6f}, rel diff {loss_rel:.3e} (tol "
+            f"{MM_LOSS_RTOL:g}); params max diff / leaf max {worst:.3e} at "
+            f"{where} (tol {MM_PARAM_RTOL:g}; {', '.join(MM_NOISE_LEAVES)} "
+            f"within {band:.3e})")
+        if loss_rel > MM_LOSS_RTOL or worst > MM_PARAM_RTOL:
+            raise AssertionError(f"{label}: card and CPU part after {step} "
+                                 f"step(s)")
+        measured[step] = (loss_rel, worst)
+    return measured
+
+
+def multimodal_phase(sk, normal, dev, card: str, max_err: dict) -> dict:
+    """The multimodal side at its published defaults: the pair-map kernels
+    at (W1, W2, M) = (12, 25, 2) and the MaxSim kernels at R = 24, W2P = 32
+    against their plain versions; MM_STEPS caption-to-image AdaDelta steps
+    through ``Trainer(apply_fn=caption_image_apply, init_fn=
+    caption_image_init)`` (rank accuracy must rise, card = CPU after
+    MM_CHECK_STEPS, launches counted); POOL images encoded in chunks into
+    bf16, int8 and int4 engines (``build_index_from_tokens`` from the
+    host), queried with 1 and 256 captions (top-10 = brute force, bf16
+    against the float32 ``caption_image_score``, p50s); PAIR_STEPS
+    image-pair steps from ``PairImageDataset`` (the loss falls, card = CPU
+    after one).  Returns the launches of each path."""
+    import tempfile
+
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch.data.pair_image import (
+        PairImageDataset, synthetic_pair_corpus)
+    from mms_answer_selection_tpu_torch.models import (
+        CaptionImageConfig, MMSQAConfig, PairImageConfig,
+        caption_image_apply, caption_image_init, caption_image_score,
+        encode_image, pair_image_apply, pair_image_init)
+    from mms_answer_selection_tpu_torch.ops.embed import embed_lookup
+    from mms_answer_selection_tpu_torch.serve import QueryEngine
+    from mms_answer_selection_tpu_torch.training import (
+        SolverConfig, Trainer, TrainerConfig)
+
+    cfg = CaptionImageConfig()
+    if cfg.patch_grid() != (5, 5) or cfg.sim_measures != MM_M:
+        raise AssertionError(f"CaptionImageConfig() moved: {cfg}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    # ------------------------------------- kernels vs plain at these shapes
+    pairs = pair_kernels(sk)
+    for n, w1, w2, d, m in MM_PAIR_CHECKS:
+        check_pair_kernels(sk, pairs, pair_operands(normal, n, d, w1, w2, m),
+                           max_err)
+    w_mm = normal(MM_M, D, D, scale=0.05)
+    for name in MAXSIM:
+        for nq in MM_KERNEL_NQ:
+            for c in KERNEL_POOLS:
+                args = scorer_args(sk, name, normal(nq, MM_W1, D, scale=0.3),
+                                   normal(c, MM_P, D, scale=0.3), w_mm)
+                check_maxsim(sk, name, args, f"R={MM_M * MM_W1} W2={MM_P} "
+                             f"nq={nq} C={c}", max_err)
+
+    # ---------------------------------------------- caption training, once
+    tcfg = TrainerConfig(solver=SolverConfig(solver_type="adadelta",
+                                             weight_decay=0.0),
+                         batch_size=BATCH, seed=SEED + 2)
+    accs = []
+
+    def recorded(params, state, batch, model_cfg, *, train, generator=None):
+        out, new_state = caption_image_apply(params, state, batch, model_cfg,
+                                             train=train, generator=generator)
+        if train:
+            accs.append(out["rank_accuracy"].detach())
+        return out, new_state
+
+    def caption_trainer(where, apply_fn=caption_image_apply):
+        return Trainer(cfg, tcfg, device=where, apply_fn=apply_fn,
+                       init_fn=caption_image_init)
+
+    batches = [planted_batch(gen, dev, BATCH, cfg) for _ in range(MM_STEPS)]
+    steps_card_vs_cpu(caption_trainer, batches, MM_CHECK_STEPS, dev,
+                      "caption step")
+    tr = caption_trainer(dev, recorded)
+    p, s, o = tr.init()
+    torch.cuda.synchronize()
+    for name in sk.LAUNCH_COUNTS:
+        sk.LAUNCH_COUNTS[name] = 0
+    t0 = time.perf_counter()
+    losses = []
+    for i, b in enumerate(batches):
+        p, s, o, loss = tr._train_step(p, s, o, b, i)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trained = dict(sk.LAUNCH_COUNTS)
+    acc = torch.stack(accs).cpu().numpy()
+    first, last = acc[:MM_ACC_WINDOW].mean(), acc[-MM_ACC_WINDOW:].mean()
+    losses = torch.stack(losses).cpu().numpy()
+    log(f"launches of {MM_STEPS} caption training steps: {trained} (per "
+        f"step {({k: v / MM_STEPS for k, v in trained.items() if v})})")
+    for name in CLI_TRAIN_KERNELS:
+        if trained[name] < 1:
+            raise AssertionError(f"caption training never launched {name}")
+    log(f"caption training ({MM_STEPS} AdaDelta steps, batch {BATCH}, "
+        f"{train_s:.3f} s): loss {losses[0]:.4f} -> "
+        f"{losses[-MM_ACC_WINDOW:].mean():.4f}, rank accuracy first "
+        f"{MM_ACC_WINDOW} {first:.4f}, last {MM_ACC_WINDOW} {last:.4f} (held "
+        f"above max(0.6, first))")
+    if not np.isfinite(losses).all() or not last > max(0.6, first):
+        raise AssertionError("caption training did not learn the planted "
+                             "alignment")
+    step_ms = sync_ms(lambda: tr._train_step(p, s, o, batches[0], 0), 100)
+    log(f"time caption train step batch {BATCH}: p50 {step_ms:.3f} ms "
+        f"({1e3 / step_ms:.1f} steps/s) [{card}]")
+
+    # ------------------------- pair-map times at the caption shapes
+    timed = {}
+    for n, w1, w2, d, m in MM_PAIR_CHECKS:
+        ops = pair_operands(normal, n, d, w1, w2, m)
+        for name in pairs:
+            k_ms, p_ms, t = in_turns(*pairs[name], ops)
+            b_ms, b_by = pair_bound(name, n, d, w1, w2, m)
+            timed[name, n] = (k_ms, p_ms, b_ms)
+            plain = "plain (2 einsums)" if name == "pair_maps_bwd_qa" \
+                else "einsum"
+            log(f"time {name} at N={n}, W1={w1}, W2={w2}, D={d}, M={m}: "
+                f"kernel {k_ms:.4f} ms, {plain} {p_ms:.4f} ms "
+                f"({p_ms / k_ms:.2f}x), bound {b_ms:.4f} ms "
+                f"({b_by}; {b_ms / k_ms:.1%} of it reached) "
+                f"[{[round(x, 4) for x in t]}; {card}]")
+
+    # ------------------------------------------------------- the image pool
+    with torch.no_grad():
+        images = pool_images(gen, dev, POOL, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks = [encode_image(p, s, images[a:a + MM_ENCODE_CHUNK], cfg,
+                               train=False)[0]
+                  for a in range(0, POOL, MM_ENCODE_CHUNK)]
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        tokens = torch.cat([c.cpu() for c in chunks])   # a host source
+        del images, chunks
+    log(f"time encode_image: {POOL} images in chunks of {MM_ENCODE_CHUNK} in "
+        f"{encode_s * 1e3:.3f} ms ({POOL / encode_s:.4g} images/s); tokens "
+        f"{tuple(tokens.shape)} on the host, {tokens.numel() * 4 / 2**30:.3f} "
+        f"GiB [{card}]")
+    if not torch.isfinite(tokens).all():
+        raise AssertionError("encode_image: tokens not finite")
+    qa = MMSQAConfig(vocab_size=cfg.vocab_size, embed_dim=cfg.embed_dim,
+                     sim_measures=cfg.sim_measures)
+    q_tok = embed_lookup(p["embed"], caption_queries(gen, dev, N_QUERIES,
+                                                     cfg)).detach()
+    engines, results = {}, {}
+    for pd in POOL_DTYPES:
+        t0 = time.perf_counter()
+        engines[pd] = QueryEngine(p, qa, pool_dtype=pd, chunk_size=CHUNK,
+                                  device=dev).build_index_from_tokens(tokens)
+        torch.cuda.synchronize()
+        log(f"image engine {pd}: built {POOL} images in "
+            f"{time.perf_counter() - t0:.3f} s from the host, pool "
+            f"{gib(engines[pd]):.3f} GiB, {tuple(engines[pd].pool.shape)}")
+    for name in sk.LAUNCH_COUNTS:
+        sk.LAUNCH_COUNTS[name] = 0
+    for pd, eng in engines.items():          # the image-pool path, once
+        results[pd] = (eng.query(q_tok[:1], k=K), eng.query(q_tok, k=K))
+    torch.cuda.synchronize()
+    served = dict(sk.LAUNCH_COUNTS)
+    log(f"launches of the image-pool queries (1 and {N_QUERIES} captions on "
+        f"each dtype): {served}")
+    for name in MAXSIM:
+        if served[name] < 1:
+            raise AssertionError(f"the image pool never launched {name}")
+    for pd, eng in engines.items():
+        (v1, i1), (vals, idx) = results[pd]
+        if vals.shape != (N_QUERIES, K) or not torch.isfinite(vals).all() \
+                or not (torch.equal(v1, vals[:1])
+                        and torch.equal(i1, idx[:1])):
+            raise AssertionError(f"image pool {pd}: bad query result")
+        check_topk(eng, q_tok[:N_CHECK], vals[:N_CHECK], idx[:N_CHECK],
+                   f"image pool {pd}")
+    def exact_scores(q):
+        """(POOL,) float32 scores of one caption by the model's scorer."""
+        out = []
+        for a in range(0, POOL, MM_ENCODE_CHUNK):
+            img = tokens[a:a + MM_ENCODE_CHUNK].to(dev)
+            cap = q[None].expand(img.shape[0], -1, -1).contiguous()
+            out.append(caption_image_score(p, cap, img, cfg))
+        return torch.cat(out)
+
+    with torch.no_grad():
+        exact = torch.stack([exact_scores(q) for q in q_tok[:N_CHECK]])
+    want = exact.topk(K, dim=1).indices
+    agree = {pd: float((results[pd][1][1][:N_CHECK, :, None]
+                        == want[:, None, :]).any(-1).float().mean())
+             for pd in POOL_DTYPES}
+    log(f"image pool top-{K} = brute force on its own pool ({N_CHECK} "
+        f"queries, each dtype); top-{K} overlap with float32 "
+        f"caption_image_score on {N_CHECK} queries: {agree}")
+    for pd, eng in engines.items():
+        one = sync_ms(lambda: eng.query(q_tok[:1], k=K), 20)
+        full = sync_ms(lambda: eng.query(q_tok, k=K), 5)
+        ops = (*eng.project(q_tok), eng.pool) \
+            + (() if eng.aux is None else (eng.aux,))
+        name = "maxsim_" + pd
+        scan = burst_ms(lambda: maxsim_scorers(sk)[name][0](*ops), 5)
+        b_ms, b_by = maxsim_bound(name, ops, N_QUERIES * POOL * 4,
+                                  cfg.embed_dim, MM_M * MM_W1, MM_P)
+        small = scorer_args(sk, name, normal(TIMED_NQ, MM_W1, D, scale=0.3),
+                            normal(TIMED_POOL, MM_P, D, scale=0.3), w_mm)
+        k_ms, p_ms, _ = in_turns(*maxsim_scorers(sk)[name], small, 20, 5)
+        sb_ms, sb_by = maxsim_bound(name, small, TIMED_NQ * TIMED_POOL * 4,
+                                    D, MM_M * MM_W1, MM_P)
+        log(f"time image engine {pd} at {POOL} (chunks of {CHUNK}): query 1q "
+            f"p50 {one:.3f} ms, query {N_QUERIES}q p50 {full:.3f} ms "
+            f"({N_QUERIES * POOL / full * 1e3:.4g} pairs/s; kernel alone, "
+            f"unchunked, {scan:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{b_ms / scan:.1%} of it reached)); {name} {TIMED_NQ}q x "
+            f"{TIMED_POOL}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+            f"{sb_ms:.4f} ms ({sb_by}) [{card}]")
+        del ops
+    del engines, results, tokens, exact
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ image-pair training
+    tmp = tempfile.TemporaryDirectory()
+    pcfg = PairImageConfig()
+    listing = synthetic_pair_corpus(tmp.name, n_pairs=PAIR_CORPUS,
+                                    hw=pcfg.height, channels=pcfg.channels,
+                                    seed=SEED)
+    data = PairImageDataset(listing, BATCH, root=tmp.name, seed=SEED)
+    t0 = time.perf_counter()
+    pair_batches = [{k: torch.as_tensor(v) for k, v in next(data).items()
+                     if k != "angles"} for _ in range(PAIR_STEPS)]
+    load_s = time.perf_counter() - t0
+    tmp.cleanup()
+
+    def pair_trainer(where):
+        return Trainer(pcfg, tcfg, device=where, apply_fn=pair_image_apply,
+                       init_fn=pair_image_init)
+
+    steps_card_vs_cpu(pair_trainer, pair_batches, (1,), dev,
+                      "image-pair step")
+    tr = pair_trainer(dev)
+    p, s, o = tr.init()
+    on_card = [{k: v.to(dev) for k, v in b.items()} for b in pair_batches]
+    t0 = time.perf_counter()
+    losses = []
+    for i, b in enumerate(on_card):
+        p, s, o, loss = tr._train_step(p, s, o, b, i)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().numpy()
+    pair_s = time.perf_counter() - t0
+    log(f"image-pair training ({PAIR_STEPS} steps, batch {BATCH}, "
+        f"{PAIR_CORPUS} pairs through PairImageDataset, loaded in "
+        f"{load_s:.3f} s; {pair_s:.3f} s): loss {losses[:10].mean():.4f} "
+        f"(first 10) -> {losses[-10:].mean():.4f} (last 10) [{card}]")
+    if not np.isfinite(losses).all() \
+            or not losses[-10:].mean() < losses[:10].mean():
+        raise AssertionError("image-pair training: the loss did not fall")
+    return {"caption training": trained, "image pool": served}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1548,6 +1923,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide_serving_phase(sk, normal, gen, dev, card, max_err)
     wide_train_phase(dev, normal, card, max_err)
+    torch.cuda.empty_cache()
+    mm = multimodal_phase(sk, normal, dev, card, max_err)
+    log(f"launches on the multimodal path: {json.dumps(mm)}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
         f"GiB; run {time.perf_counter() - started:.1f} s, build included")
 

@@ -7,12 +7,19 @@ snapshots, ``trec_eval`` scoring and the retrieval service.
     python -m mms_answer_selection_tpu_torch.cli eval  --data DIR --exp DIR
     python -m mms_answer_selection_tpu_torch.cli serve --data DIR --exp DIR --int8 --index pool.npz --listen 0
 
-``train``, ``eval`` and ``serve`` run on ``--device`` (default ``cuda``,
-which raises where no card is present; ``cpu`` runs the plain PyTorch
-paths).  Artifacts are the JAX package's: ``config.json`` (the same
-text), ``<exp>/models/qa_iter_<N>`` snapshots, ``best_iter_<N>``,
-``truth`` / ``result``, ``history.json``; the prepped data dir is the same
-set of ``.npz`` files and ``train.mmsp``.
+and the tools beside it: ``extract`` (embeddings and probabilities of a
+split), ``saliency`` (per-token |dLoss/dEmbedding|), ``summarize`` (the
+model's layer table, a history as CSV), ``parse_log`` (a training log as
+CSV), ``reproduce`` (the published recipe from the raw inputs, held to
+the published MAP/MRR) and ``device_query``.
+
+The commands that run a model take ``--device`` (default ``cuda``, which
+raises where no card is present; ``cpu`` runs the plain PyTorch paths).
+Artifacts are the JAX package's: ``config.json`` (the same text),
+``<exp>/models/qa_iter_<N>`` snapshots, ``best_iter_<N>``, ``truth`` /
+``result``, ``history.json``, ``features_<split>.npz``, ``saliency.npz``;
+the prepped data dir is the same set of ``.npz`` files and
+``train.mmsp``.
 """
 
 from __future__ import annotations
@@ -109,6 +116,16 @@ def _load_model(path, device):
 
     bundle, _ = load_checkpoint(path)
     return params_from_numpy(bundle["params"], bundle["state"], device)
+
+
+def _best_checkpoint(args):
+    """--ckpt, else the experiment's best snapshot."""
+    from .training.checkpoint import latest_checkpoint
+
+    path = args.ckpt or latest_checkpoint(args.exp, prefix="best")
+    if path is None:
+        sys.exit("no checkpoint found")
+    return path
 
 
 # -------------------------------------------------------------------- train
@@ -249,13 +266,10 @@ def cmd_serve(args):
     global _LAST_SERVER
     from .device import resolve_device
     from .serve import QAServer, QueryEngine
-    from .training.checkpoint import latest_checkpoint
 
     splits, meta, vocab = _load_prepped(args.data)
     model_cfg, _ = _experiment_configs(args, meta)
-    path = args.ckpt or latest_checkpoint(args.exp, prefix="best")
-    if path is None:
-        sys.exit("no checkpoint found")
+    path = _best_checkpoint(args)
     device = resolve_device(args.device)
     params, state = _load_model(path, device)
     split = splits[args.split]
@@ -303,6 +317,177 @@ def cmd_serve(args):
         print(json.dumps({"query": qi,
                           "topk": [[int(i), float(v)]
                                    for i, v in zip(idx[qi], vals[qi])]}))
+
+
+# ------------------------------------------------------------------- tools
+def cmd_extract(args):
+    """Dump a split's token embeddings and probabilities as npz (the
+    `extract_features` tool's role)."""
+    import torch
+
+    from .ops.embed import embed_lookup
+    from .training import Trainer
+
+    splits, meta, vocab = _load_prepped(args.data)
+    model_cfg, trainer_cfg = _experiment_configs(args, meta)
+    trainer = Trainer(model_cfg, trainer_cfg, device=args.device)
+    params, state = _load_model(_best_checkpoint(args), trainer.device)
+    split = splits[args.split]
+    res = trainer.evaluate(params, state, split)
+    with torch.no_grad():
+        emb = {k: embed_lookup(params["embed"], torch.as_tensor(
+            split[k], device=trainer.device)).cpu().numpy()
+            for k in ("question", "answer")}
+    out_path = args.out or os.path.join(args.exp,
+                                        f"features_{args.split}.npz")
+    np.savez_compressed(out_path,
+                        prob=res["prob"],
+                        question_embeddings=emb["question"],
+                        answer_embeddings=emb["answer"],
+                        label=split["label"], group=split["group"])
+    print(f"wrote {out_path}")
+
+
+def cmd_saliency(args):
+    """Per-token saliency heatmaps for the first N pairs of a split (the
+    reference's test_networks_single analysis)."""
+    import torch
+
+    from .device import resolve_device
+    from .utils.saliency import save_saliency_png, token_saliency
+
+    splits, meta, vocab = _load_prepped(args.data)
+    model_cfg, _ = _experiment_configs(args, meta)
+    device = resolve_device(args.device)
+    params, state = _load_model(_best_checkpoint(args), device)
+    split = splits[args.split]
+    n = min(args.n, len(split["label"]))
+    batch = {k: torch.as_tensor(v[:n], device=device)
+             for k, v in split.items() if k != "group"}
+    q_sal, a_sal = token_saliency(params, state, batch, model_cfg)
+    out = args.out or os.path.join(args.exp, "saliency.png")
+    np.savez_compressed(os.path.splitext(out)[0] + ".npz",
+                        question_saliency=q_sal, answer_saliency=a_sal)
+    if save_saliency_png(out, q_sal, a_sal):
+        print(f"wrote {out}")
+    print(f"wrote {os.path.splitext(out)[0]}.npz")
+
+
+def cmd_summarize(args):
+    """The model's layer table (tools/extra/summarize.py's role) and an
+    optional history.json as train / eval CSVs."""
+    from .utils.history import history_to_csv, summarize_model
+
+    if args.config:
+        from .utils.config import experiment_from_json
+        with open(args.config) as f:
+            model_cfg, _ = experiment_from_json(f.read())
+    else:
+        from .models.mms_qa import V3, V4, V4_2, V5
+        model_cfg = {"v3": V3, "v4": V4, "v4_2": V4_2,
+                     "v5": V5}[args.variant]
+    print(summarize_model(model_cfg))
+    if args.history:
+        with open(args.history) as f:
+            hist = json.load(f)
+        train_csv, eval_csv = history_to_csv(hist)
+        base = os.path.splitext(args.history)[0]
+        with open(base + ".train.csv", "w") as f:
+            f.write(train_csv)
+        with open(base + ".eval.csv", "w") as f:
+            f.write(eval_csv)
+        print(f"wrote {base}.train.csv / {base}.eval.csv")
+
+
+def cmd_parse_log(args):
+    """tools/extra/parse_log.py: a training log -> `<log>.train` /
+    `<log>.test` CSV tables."""
+    from .utils.parse_log import parse_log_file
+
+    train_path, test_path = parse_log_file(args.log, out_dir=args.out_dir)
+    print(f"wrote {train_path}\nwrote {test_path}")
+
+
+def cmd_reproduce(args):
+    """The real-data parity gate: the published recipe (V4, AdaDelta,
+    batch 50, eval every 100 steps, patience 5 epochs, seed 22) from the
+    raw inputs, TREC-QA XML and GloVe vectors; prints the trec_eval table
+    and exits 1 unless MAP and MRR land within ``--tolerance`` of the
+    published 0.7793 / 0.8487."""
+    from .data import prepare_trec_qa
+    from .metrics import format_trec_table, trec_eval, write_trec_files
+    from .models.mms_qa import V4
+    from .ops.embed import load_pretrained_vectors
+    from .training import SolverConfig, Trainer, TrainerConfig
+
+    words, vecs = load_pretrained_vectors(args.glove, args.dim)
+    w2v = dict(zip(words, vecs))
+    log.info("loaded %d pretrained vectors", len(w2v))
+    splits, info = prepare_trec_qa(args.train_xml, args.dev_xml,
+                                   args.test_xml, w2v,
+                                   q_len=args.q_len, a_len=args.a_len)
+    for name, split in splits.items():
+        log.info("%s: %d pairs", name, len(split["label"]))
+    model_cfg = dataclasses.replace(
+        V4, vocab_size=info["vocab_size"], embed_dim=args.dim,
+        question_len=args.q_len, answer_len=args.a_len)
+    trainer_cfg = TrainerConfig(
+        solver=SolverConfig(solver_type="adadelta", base_lr=1.0,
+                            momentum=0.95, delta=5e-7, weight_decay=5e-4),
+        max_iter=args.max_iter, batch_size=50, test_interval=100,
+        early_stop_patience=5, seed=22, snapshot_interval=0,
+        snapshot_dir=None)
+    os.makedirs(args.out, exist_ok=True)
+    trainer = Trainer(model_cfg, trainer_cfg, device=args.device)
+    hist = trainer.fit(splits["train"], splits["dev"],
+                       pretrained=info["pretrained"], log_every=100,
+                       steps_per_dispatch=args.fused_steps or 1)
+    log.info("best dev MAP %.4f @ step %d", hist["best_dev_map"],
+             hist["best_step"])
+    res = trainer.evaluate(hist["params"], hist["state"], splits["test"])
+    truth = os.path.join(args.out, "truth")
+    result = os.path.join(args.out, "result")
+    write_trec_files(truth, result, res["prob"][:, 1],
+                     splits["test"]["label"], splits["test"]["group"])
+    ev = trec_eval(truth, result)
+    print(format_trec_table(ev))
+    with open(os.path.join(args.out, "trec_eval.json"), "w") as f:
+        json.dump(dict(ev.items()), f, indent=1)
+    got_map, got_mrr = float(ev["map"]), float(ev["recip_rank"])
+    ok = (abs(got_map - args.expected_map) <= args.tolerance
+          and abs(got_mrr - args.expected_mrr) <= args.tolerance)
+    verdict = "PASS" if ok else "FAIL"
+    print(f"reproduce {verdict}: MAP {got_map:.4f} (expected "
+          f"{args.expected_map:.4f} +/- {args.tolerance}), MRR "
+          f"{got_mrr:.4f} (expected {args.expected_mrr:.4f} +/- "
+          f"{args.tolerance})")
+    if not ok:
+        sys.exit(1)
+
+
+def cmd_device_query(args):
+    """One JSON line per device: the JAX CLI's keys (id, platform, kind,
+    process) and, for a CUDA device, its properties."""
+    import torch
+
+    from .device import resolve_device
+
+    device = resolve_device(args.device)
+    if device.type == "cpu":
+        print(json.dumps({"id": 0, "platform": "cpu", "kind": "cpu",
+                          "process": 0}))
+        return
+    for i in range(torch.cuda.device_count()):
+        p = torch.cuda.get_device_properties(i)
+        free, total = torch.cuda.mem_get_info(i)
+        print(json.dumps({"id": i, "platform": "gpu", "kind": p.name,
+                          "process": 0,
+                          "capability": f"{p.major}.{p.minor}",
+                          "multiprocessors": p.multi_processor_count,
+                          "total_memory": p.total_memory,
+                          "free_memory": free,
+                          "torch": torch.__version__,
+                          "cuda": torch.version.cuda}))
 
 
 # --------------------------------------------------------------------- main
@@ -411,6 +596,74 @@ def main(argv=None):
                         "re-clustering), else build then save it there")
     _device_flag(p)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("extract",
+                       help="dump embeddings/probs for a split (npz)")
+    p.add_argument("--data", required=True)
+    p.add_argument("--exp", required=True)
+    p.add_argument("--ckpt")
+    p.add_argument("--config")
+    p.add_argument("--split", default="test")
+    p.add_argument("--out")
+    p.add_argument("--max-iter", type=int, default=40001)
+    _device_flag(p)
+    p.set_defaults(fn=cmd_extract)
+
+    p = sub.add_parser("saliency",
+                       help="per-token |dLoss/dEmbedding| heatmaps")
+    p.add_argument("--data", required=True)
+    p.add_argument("--exp", required=True)
+    p.add_argument("--ckpt")
+    p.add_argument("--config")
+    p.add_argument("--split", default="test")
+    p.add_argument("-n", type=int, default=8)
+    p.add_argument("--out")
+    p.add_argument("--max-iter", type=int, default=40001)
+    _device_flag(p)
+    p.set_defaults(fn=cmd_saliency)
+
+    p = sub.add_parser("summarize",
+                       help="model structure table + history CSV export")
+    p.add_argument("--config")
+    p.add_argument("--variant", default="v4",
+                   choices=["v3", "v4", "v4_2", "v5"])
+    p.add_argument("--history", help="history.json from a training run")
+    p.set_defaults(fn=cmd_summarize)
+
+    p = sub.add_parser(
+        "parse_log",
+        help="parse a caffe/solve training log into train/test CSVs")
+    p.add_argument("log", help="log file (glog or `solve` output)")
+    p.add_argument("--out-dir", help="directory for the CSVs "
+                                     "(default: beside the log)")
+    p.set_defaults(fn=cmd_parse_log)
+
+    p = sub.add_parser(
+        "reproduce",
+        help="real-data parity gate: run the published TREC-QA recipe and "
+             "assert the published MAP/MRR within tolerance")
+    p.add_argument("--train-xml", required=True,
+                   help="jacana train-all.xml")
+    p.add_argument("--dev-xml", required=True)
+    p.add_argument("--test-xml", required=True)
+    p.add_argument("--glove", required=True, help="glove.6B.50d.txt")
+    p.add_argument("--dim", type=int, default=50)
+    p.add_argument("--q-len", type=int, default=40)
+    p.add_argument("--a-len", type=int, default=40)
+    p.add_argument("--out", default="runs/reproduce")
+    p.add_argument("--max-iter", type=int, default=40001)
+    p.add_argument("--fused-steps", type=int, default=1)
+    p.add_argument("--expected-map", type=float, default=0.7793)
+    p.add_argument("--expected-mrr", type=float, default=0.8487)
+    p.add_argument("--tolerance", type=float, default=0.02,
+                   help="absolute band around the published numbers "
+                        "(covers seed and hardware noise on one run)")
+    _device_flag(p)
+    p.set_defaults(fn=cmd_reproduce)
+
+    p = sub.add_parser("device_query", help="list the torch devices")
+    _device_flag(p)
+    p.set_defaults(fn=cmd_device_query)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -14,3 +14,8 @@ from .trec_qa import (  # noqa: F401
 )
 from .loader import ArrayDataset, BatchIterator  # noqa: F401
 from .wikiqa import parse_wikiqa_tsv, prepare_wikiqa  # noqa: F401
+from .pair_image import (  # noqa: F401
+    PairImageDataset,
+    parse_pair_list,
+    synthetic_pair_corpus,
+)

@@ -163,18 +163,25 @@ def sim_map(params, q_emb, a_emb, cfg: MMSQAConfig):
 
 
 def mms_qa_apply(params, state, batch, cfg: MMSQAConfig, *, train: bool,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, q_emb=None,
+                 a_emb=None):
     """Forward pass.
 
     batch: {'question': int (N, W1), 'answer': int (N, W2),
             'overlap_feat': (N, F), optional 'label': int (N,)}
     Returns (out, new_state) with out = {'logits', 'prob'[, 'loss']}.
     ``generator`` drives dropout and is required when ``train``.
+
+    q_emb / a_emb: optional (N, W, D) embedding activations that replace
+    the table lookups, so a caller can differentiate the loss with respect
+    to them (``utils/saliency.py``).
     """
     if train and generator is None:
         raise ValueError("training forward needs a dropout generator")
-    q_emb = embed_lookup(params["embed"], batch["question"])
-    a_emb = embed_lookup(params["embed"], batch["answer"])
+    if q_emb is None:
+        q_emb = embed_lookup(params["embed"], batch["question"])
+    if a_emb is None:
+        a_emb = embed_lookup(params["embed"], batch["answer"])
     x = sim_map(params, q_emb, a_emb, cfg)
     if train and cfg.sim_dropout > 0:
         x = dropout(generator, x, cfg.sim_dropout)

@@ -11,6 +11,9 @@ kernel computes (its model calls the equivalent einsum, which ties with
 the kernel on the TPU), so here it goes through ``bilinear_pair_maps``:
 the hand-written forward and backward kernels on CUDA tensors, their plain
 einsum versions on CPU tensors.
+
+``sim_matrix`` (the SimMatrix layer) and ``fm_pool`` (the FM layer) are
+plain einsums and sums in the reference too, and stay plain here.
 """
 
 from __future__ import annotations
@@ -47,3 +50,26 @@ def sim_cross_bilinear(q, a, w, bias=None):
     if bias is not None:
         out = out + bias.permute(1, 2, 0)[None]
     return out
+
+
+def sim_matrix(x, y, w):
+    """Sentence-level bilinear similarity s_n = x_n^T W y_n.
+
+    x: (N, K1), y: (N, K2), w: (K1, K2) -> (N, 1)."""
+    return torch.einsum("ni,ij,nj->n", x, w, y)[:, None]
+
+
+def fm_pool(x, bias=None):
+    """Factorization-machine pooling over (N, C, D) inputs, position 0 of
+    the last axis the linear term:
+    out_n = sum_{j>=1} [(sum_k x[n,k,j])^2 - sum_k x[n,k,j]^2] / 2
+            + sum_k x[n,k,0] (+ bias).  Returns (N, 1)."""
+    linear = torch.sum(x[:, :, 0], dim=1)
+    rest = x[:, :, 1:]
+    s = torch.sum(rest, dim=1)
+    interactions = 0.5 * torch.sum(s * s - torch.sum(rest * rest, dim=1),
+                                   dim=-1)
+    out = interactions + linear
+    if bias is not None:
+        out = out + torch.reshape(bias, ())
+    return out[:, None]

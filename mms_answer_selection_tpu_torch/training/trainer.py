@@ -162,20 +162,31 @@ class _EvalPatience:
 
 class Trainer:
     """Couples a model config with a solver into train and eval steps on
-    one device (``None`` means CUDA; the CPU runs only when asked for)."""
+    one device (``None`` means CUDA; the CPU runs only when asked for).
+
+    ``apply_fn`` / ``init_fn``: the model, by default the QA model.
+    ``apply_fn(params, state, batch, model_cfg, train=, generator=)``
+    returns ({'loss', ...}, new_state); ``init_fn(model_cfg, generator=,
+    device=[, pretrained=])`` returns (params, state), ``pretrained``
+    passed only when given (the image-pair model takes none).  Evaluation
+    reads ``out['prob']``, so it stays the QA model's."""
 
     def __init__(self, model_cfg: MMSQAConfig, cfg: TrainerConfig, *,
-                 device=None):
+                 device=None, apply_fn: Callable = mms_qa_apply,
+                 init_fn: Callable = mms_qa_init):
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.apply_fn = apply_fn
+        self.init_fn = init_fn
         self.solver = None  # built in init() when the spec exists
 
     # ------------------------------------------------------------------ init
     def init(self, *, pretrained=None):
-        params, state = mms_qa_init(
+        extra = {} if pretrained is None else {"pretrained": pretrained}
+        params, state = self.init_fn(
             self.model_cfg, generator=torch.Generator().manual_seed(
-                self.cfg.seed), pretrained=pretrained, device=self.device)
+                self.cfg.seed), device=self.device, **extra)
         self.solver = make_solver(self.cfg.solver,
                                   param_spec(params, self.model_cfg))
         return params, state, self.solver.init(params)
@@ -189,8 +200,8 @@ class Trainer:
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         it = iter(leaves)
         p = tree_map(lambda _: next(it), params)
-        out, new_state = mms_qa_apply(p, state, batch, self.model_cfg,
-                                      train=True, generator=generator)
+        out, new_state = self.apply_fn(p, state, batch, self.model_cfg,
+                                       train=True, generator=generator)
         grads = torch.autograd.grad(out["loss"], leaves, allow_unused=True)
         it = iter(g if g is not None else torch.zeros_like(x)
                   for g, x in zip(grads, leaves))
@@ -220,8 +231,8 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_step(self, params, state, batch):
-        out, _ = mms_qa_apply(params, state, batch, self.model_cfg,
-                              train=False)
+        out, _ = self.apply_fn(params, state, batch, self.model_cfg,
+                               train=False)
         scores = out["prob"][:, 1]
         labels = batch["label"]
         res = {"prob": out["prob"], "loss": out.get("loss")}

@@ -29,7 +29,9 @@ pytestmark = pytest.mark.cuda
 # above a 32-row step, query batches past one block, and Dp = 128
 SHAPES = [(1, 300, 40, 40, 4, 50), (3, 37, 37, 5, 4, 50),
           (9, 1000, 40, 3, 4, 50), (33, 129, 16, 8, 4, 50),
-          (70, 200, 40, 40, 4, 50), (5, 64, 24, 6, 2, 100)]
+          (70, 200, 40, 40, 4, 50), (5, 64, 24, 6, 2, 100),
+          # the image pool of configs[4]: 25 patch tokens (W2P = 32), R = 24
+          (16, 8229, 25, 12, 2, 50)]
 
 
 def _cuda():
@@ -395,7 +397,10 @@ PAIR_SHAPES = [(50, 40, 40, 50, 4), (7, 40, 40, 50, 4), (1, 40, 40, 50, 4),
                (3, 100, 100, 300, 4), (2, 200, 64, 50, 4),
                (2, 40, 201, 33, 4), (2, 130, 9, 300, 3),
                (1024, 40, 40, 300, 4), (128, 65, 100, 300, 4),
-               (64, 200, 200, 300, 4)]
+               (64, 200, 200, 300, 4),
+               # caption-to-image training (configs[4]): 12 caption tokens
+               # against 25 image patches, M = 2 (a partial measure group)
+               (50, 12, 25, 50, 2), (1024, 12, 25, 50, 2), (7, 12, 25, 50, 2)]
 # dW must come out bit-identical across runs where its batch is split in
 # chunks: V4 at batch 50 and 1024, V4_WIDE, and W1 tiled
 DW_SHAPES = [(50, 40, 40, 50, 4), (1024, 40, 40, 50, 4), (50, 40, 40, 300, 4),
@@ -688,3 +693,106 @@ def test_fit_stream_on_cuda_matches_cpu(tmp_path):
                 == mean_average_precision(p_cpu[at], labels[at],
                                           groups[at]), (e, g, diff)
         assert held >= 9, (e, held, diff)
+
+
+def _caption_step_inputs():
+    from mms_answer_selection_tpu_torch.models import CaptionImageConfig
+
+    cfg = CaptionImageConfig()
+    g = torch.Generator().manual_seed(8)
+    first = torch.randint(0, 8, (50,), generator=g)
+    pos = 0.1 * torch.randn((50, 16, 16, 3), generator=g)
+    pos[torch.arange(50), first, :, 0] += 2.0
+    batch = {"caption": first[:, None].repeat(1, 12),
+             "image_pos": pos,
+             "image_neg": torch.randn((50, 16, 16, 3), generator=g)}
+    return cfg, batch
+
+
+def test_caption_train_step_on_cuda_matches_cpu():
+    """One caption-to-image AdaDelta step at CaptionImageConfig()'s
+    defaults (batch 50, pair maps at W1 = 12, W2 = 25, M = 2) on the card
+    and on the CPU from the same weights: the three pair-map kernels run
+    twice each (one score call for the positive image, one for the
+    negative); loss within 1e-5 relative, every param within rtol 1e-4 +
+    atol 1e-5, the conv biases (rounding noise under train-mode BN) within
+    AdaDelta's band."""
+    dev = _cuda()
+    from mms_answer_selection_tpu_torch.models import (
+        caption_image_apply, caption_image_init)
+    from mms_answer_selection_tpu_torch.training import (
+        SolverConfig, Trainer, TrainerConfig)
+    from mms_answer_selection_tpu_torch.utils.tree import tree_map
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, batch = _caption_step_inputs()
+    tcfg = TrainerConfig(solver=SolverConfig(weight_decay=0.0),
+                         batch_size=50)
+    out = {}
+    for where in ("cpu", "cuda"):
+        tr = Trainer(cfg, tcfg, device=where, apply_fn=caption_image_apply,
+                     init_fn=caption_image_init)
+        p, s, o = tr.init()
+        n0 = dict(T.LAUNCH_COUNTS)
+        res = tr._train_step(p, s, o, {k: v.to(where) for k, v in
+                                       batch.items()}, 0)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            for name in ("pair_maps_fwd", "pair_maps_bwd_qa",
+                         "pair_maps_bwd_w"):
+                assert T.LAUNCH_COUNTS[name] == n0[name] + 2, name
+        out[where] = tree_map(lambda t: t.cpu(), dict(zip(
+            ("p", "s", "o", "loss"), res)))
+    cpu, card = out["cpu"], out["cuda"]
+    assert abs(float(card["loss"]) / float(cpu["loss"]) - 1) <= 1e-5
+    band = 2 * 2 * (5e-7 / 0.05) ** 0.5
+    for name in cpu["p"]:
+        for k, want in cpu["p"][name].items():
+            got = card["p"][name][k]
+            if name.startswith("conv") and k == "b":
+                assert float((got - want).abs().max()) <= band
+            else:
+                assert torch.allclose(got, want, rtol=1e-4, atol=1e-5), \
+                    (name, k, float((got - want).abs().max()))
+
+
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8", "int4"])
+def test_image_pool_on_cuda_matches_cpu(pool_dtype):
+    """An image pool of CaptionImageConfig() patch tokens (25 a row, W2P =
+    32) served from the host by build_index_from_tokens, queried with
+    caption tokens (R = 24) in chunks: scores within the kernel's
+    tolerance of the CPU engine's, indices equal wherever no neighbour is
+    within twice it, chunked = unchunked bit for bit on the card."""
+    dev = _cuda()
+    from mms_answer_selection_tpu_torch.models import (
+        caption_image_init, encode_image)
+    from mms_answer_selection_tpu_torch.ops.embed import embed_lookup
+
+    cfg, _ = _caption_step_inputs()
+    params, state = caption_image_init(cfg, generator=torch.Generator()
+                                       .manual_seed(3))
+    state = {k: {"mean": v["mean"], "var": v["var"] + 1.0}
+             for k, v in state.items()}
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        tokens, _ = encode_image(params, state, torch.randn(
+            (3000, 16, 16, 3), generator=g), cfg, train=False)
+        q = embed_lookup(params["embed"], torch.randint(0, 100, (9, 12),
+                                                        generator=g))
+    qa = TM.MMSQAConfig(vocab_size=100, sim_measures=2)
+    out = {}
+    for where in ("cpu", "cuda"):
+        eng = QueryEngine(params, qa, pool_dtype=pool_dtype, chunk_size=1024,
+                          device=where).build_index_from_tokens(tokens)
+        out[where] = [t.cpu() for t in eng.query(q, k=10)]
+        if where == "cuda":
+            eng.chunk_size = eng.pool_size
+            flat = [t.cpu() for t in eng.query(q, k=10)]
+            assert all(torch.equal(a, b) for a, b in zip(flat, out[where]))
+    (cv, ci), (gv, gi) = out["cpu"], out["cuda"]
+    rtol = T.KERNEL_VS_PLAIN_RTOL["maxsim_" + pool_dtype]
+    _assert_close(gv, cv, rtol)
+    gaps = (cv[:, :-1] - cv[:, 1:]).abs()
+    sep = gaps > 2 * rtol * cv.abs().amax(dim=1, keepdim=True)
+    pinned = torch.cat([sep[:, :1], sep[:, 1:] & sep[:, :-1], sep[:, -1:]], 1)
+    assert torch.equal(gi[pinned], ci[pinned])

@@ -34,6 +34,16 @@ import mms_answer_selection_tpu_torch.data.wikiqa
 import mms_answer_selection_tpu_torch.native
 import mms_answer_selection_tpu_torch.serve.server
 import mms_answer_selection_tpu_torch.cli
+import mms_answer_selection_tpu_torch.models
+import mms_answer_selection_tpu_torch.models.pair_image
+import mms_answer_selection_tpu_torch.models.caption_image
+import mms_answer_selection_tpu_torch.data.pair_image
+import mms_answer_selection_tpu_torch.ops.losses
+import mms_answer_selection_tpu_torch.ops.similarity
+import mms_answer_selection_tpu_torch.utils.fillers
+import mms_answer_selection_tpu_torch.utils.saliency
+import mms_answer_selection_tpu_torch.utils.history
+import mms_answer_selection_tpu_torch.utils.parse_log
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "flax", "msgpack", "mms_answer_selection_tpu")]
 assert not bad, bad
