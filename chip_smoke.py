@@ -40,6 +40,21 @@ at the V4 recipe's widths, after building the hand-written kernels from
   eval launched the three pair-map kernels and the server's HTTP requests
   alone launched ``maxsim_int8`` and ``pair_maps_fwd``, and times the HTTP
   /query p50s, one snapshot and the stream's step against ``fit``'s;
+* the generic path, the reference's own workflow (``graph_phase``): the V4
+  recipe's train and eval nets as NetParameter text from
+  ``net_prototxt_from_config`` at V4's widths and the corpus's vocabulary,
+  an AdaDelta solver prototxt beside them, ``GraphSolver`` on the card
+  over the corpus through ``feeds=``: the generic train net's fc2 against
+  the typed model's logits on the same weights, one step card vs CPU
+  after an SGD warm start from a xavier W, a 300-step solve from the
+  recipe's W = 0 with dev tests through the eval net's MAP / MRR / AUC
+  layers (held to the in-process metrics) and BINARYPROTO snapshots,
+  which must launch the three pair-map kernels (the test net the
+  forward), a run restored at 200 from its ``.solverstate`` against the
+  uninterrupted one (xavier W), ``nettest`` on the last ``.caffemodel``
+  against the solver's last MAP and ``train --weights`` of it into the
+  typed ``Trainer``; the generic step's p50 at batch 50 and 1024 in turns
+  with the typed one, a snapshot's and ``nettest``'s times;
 * V4_WIDE (D = 300) and long sentences: each MaxSim kernel against its
   plain version at D = 300 (rows past 256 bytes, the K-sliced plan) and
   at R = 800 query rows (W1 = 200, D = 50 and 300), a 262,144-candidate
@@ -77,9 +92,9 @@ or any phase fails.  The last line of stdout is
 the line before it lists every kernel with its launches on the main path,
 its error against the plain version, its time, the plain version's, the
 bound and what sets it, and the one-call library time (null where no
-single PyTorch call computes the function); a line before it, the
-launches of the multimodal path.  About 150-190 s on an H100, build
-included, peaking near 27 GiB of device memory.
+single PyTorch call computes the function); lines before it, the
+launches of the generic and the multimodal paths.  About 180-220 s on an
+H100, build included, peaking near 27 GiB of device memory.
 """
 
 from __future__ import annotations
@@ -151,6 +166,13 @@ STREAM_STEP_REPS = 200
 # / 0.439 after it); the W = 0 runs are read, not held
 RESUME_MAP_ATOL, RESUME_PARAM_RTOL = 5e-3, 1e-3
 CLI_TRAIN_KERNELS = ("pair_maps_fwd", "pair_maps_bwd_w", "pair_maps_bwd_qa")
+# the generic path (GraphSolver over the recipe's own net prototxts): a
+# GRAPH_STEPS-step solve with dev tests and BINARYPROTO snapshots every
+# GRAPH_EVERY steps, a run restored at GRAPH_RESUME_AT against the
+# uninterrupted one, card vs CPU after GRAPH_WARM_STEPS SGD steps, the
+# step timed at GRAPH_TIMED batches
+GRAPH_STEPS, GRAPH_EVERY, GRAPH_RESUME_AT, GRAPH_WARM_STEPS = 300, 100, 200, 5
+GRAPH_TIMED = (BATCH, 1024)
 CLI_SERVE_KERNELS = ("maxsim_int8", "pair_maps_fwd")   # query, the rerank
 
 # the multimodal side (configs[4]) at CaptionImageConfig()'s and
@@ -478,7 +500,8 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
     one train step on the card against the CPU, ``fit`` on the recipe-sized
     synthetic corpus with the ``trec_eval`` cross-check, and the times.
     Fills ``max_err`` and ``timed`` for the pair-map kernels and returns
-    the launch counts of the ``fit`` run."""
+    the launch counts of the ``fit`` run, and the corpus (splits, vocab
+    info)."""
     import dataclasses
     import tempfile
 
@@ -587,7 +610,7 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
         f"{len(hist['steps'])} dev+test evals: {fit_s:.3f} s "
         f"({FIT_STEPS / fit_s:.2f} steps/s); host data prep {prep_s:.3f} s "
         f"[{card}]")
-    return launches
+    return launches, splits, info
 
 
 def wide_train_phase(dev, normal, card: str, max_err: dict) -> None:
@@ -1435,6 +1458,418 @@ def cli_phase(dev, card: str) -> dict:
     return {"train": trained, "serve": served}
 
 
+def graph_files(root: Path, vocab: int, *, xavier: bool, still: bool = False,
+                batch: int = BATCH, test: bool = True,
+                solver_type: str = "adadelta") -> str:
+    """The V4 recipe's own nets as NetParameter text from
+    ``net_prototxt_from_config`` at V4's widths and ``vocab`` (the train
+    net, and the eval net with the MAP / MRR / AUC layers) and its solver
+    prototxt from ``solver_prototxt_from_config`` (AdaDelta, snapshots and
+    dev tests every GRAPH_EVERY steps), written into ``root``; returns the
+    solver's path.  The eval net's data layer is named "dev", so one
+    ``feeds=`` dict feeds both nets.  ``xavier`` gives SimCross a xavier
+    weight filler in place of the recipe's constant 0; ``still`` leaves
+    out the dropout layers (the card's and the CPU's generators draw
+    different masks)."""
+    import dataclasses
+
+    from mms_answer_selection_tpu_torch.models.mms_qa import V4
+    from mms_answer_selection_tpu_torch.training import SolverConfig
+    from mms_answer_selection_tpu_torch.utils.prototxt import (
+        net_prototxt_from_config, solver_prototxt_from_config,
+        trainer_config_from_prototxt)
+
+    cfg = dataclasses.replace(V4, vocab_size=vocab)
+    if still:
+        cfg = dataclasses.replace(cfg, sim_dropout=0.0, fc1_dropout=0.0)
+    nets = {"train": net_prototxt_from_config(cfg, batch_size=batch),
+            "eval": net_prototxt_from_config(cfg, phase="eval").replace(
+                'name: "data"', 'name: "dev"', 1)}
+    for name, text in nets.items():
+        if xavier:
+            text = text.replace("sim_cross_param {", 'sim_cross_param { '
+                                'weight_filler { type: "xavier" }', 1)
+        (root / f"{name}.prototxt").write_text(text)
+    solver = recipe_trainer().solver if solver_type == "adadelta" else \
+        SolverConfig(solver_type=solver_type, base_lr=0.1, momentum=0.9,
+                     weight_decay=5e-4)
+    tcfg = dataclasses.replace(
+        recipe_trainer(), max_iter=GRAPH_STEPS, test_interval=GRAPH_EVERY,
+        snapshot_interval=GRAPH_EVERY, display=0,
+        snapshot_prefix=str(root / "v4"),
+        solver=dataclasses.replace(solver, max_iter=GRAPH_STEPS))
+    text = solver_prototxt_from_config(
+        tcfg, train_net="train.prototxt",
+        test_net="eval.prototxt" if test else None)
+    back = trainer_config_from_prototxt(text)
+    if back.solver != tcfg.solver or back.max_iter != GRAPH_STEPS:
+        raise AssertionError(f"the solver prototxt reads back as {back}")
+    (root / "solver.prototxt").write_text(text)
+    return str(root / "solver.prototxt")
+
+
+def graph_feeds(splits, batch: int = BATCH) -> dict:
+    """``feeds=`` for the recipe's nets: the train split in shuffled
+    batches for "data", the whole dev split as one test batch for "dev"."""
+    keys = ("question", "answer", "label", "overlap_feat")
+    dev = splits["dev"]
+    return {"data": {**{k: splits["train"][k] for k in keys},
+                     "batch_size": batch},
+            "dev": {**{k: dev[k] for k in keys + ("group",)},
+                    "batch_size": len(dev["label"]), "shuffle": False}}
+
+
+GRAPH_NAME_MAP = {"w2v_q": "embed", "sim_cross": "sim", "conv0": "conv0",
+                  "bn0": "bn0", "conv1": "conv1", "bn1": "bn1",
+                  "fc1": "fc1", "fc2": "fc2"}
+
+
+def graph_params_close(got, want, band=None) -> tuple[float, str]:
+    """Each param leaf of ``got`` against ``want`` (both on the CPU):
+    (worst max abs diff over the leaf's max |value|, its leaf).  The conv
+    biases are rounding noise under train-mode BN: held to ``band``
+    instead, or left out where ``band`` is None."""
+    worst, where = 0.0, ""
+    for name, sub in want.items():
+        for k, w in sub.items():
+            diff = float((got[name][k] - w).abs().max())
+            if name.startswith("conv") and k == "b":
+                if band is not None and diff > band:
+                    raise AssertionError(f"{name}.{k} moved {diff:.3e} apart,"
+                                         f" past the band {band:.3e}")
+                continue
+            rel = diff / max(float(w.abs().max()), 1e-30)
+            if rel > worst:
+                worst, where = rel, f"{name}.{k}"
+    return worst, where
+
+
+def graph_phase(dev, card: str, splits, info) -> dict:
+    """The reference's own workflow on the port: the V4 recipe's train and
+    eval nets as NetParameter text, an AdaDelta solver prototxt beside
+    them, ``GraphSolver`` on the card over the recipe-sized corpus
+    (``feeds=``, dev tests with the eval net's MAP / MRR / AUC layers,
+    BINARYPROTO snapshots), ``restore`` from a ``.solverstate``,
+    ``nettest`` and ``train --weights`` on the last ``.caffemodel``.  It
+    fails unless (1) the generic train net's fc2 equals the typed model's
+    logits on the same weights, (2) a generic step on the card equals the
+    same step on the CPU after an SGD warm start from a xavier W, (3) the
+    recipe's solve launches the three pair-map kernels and its test net
+    the forward, its dev loss falls and the MAP / MRR layers equal the
+    in-process metrics, (4) a run snapshotted and restored at
+    GRAPH_RESUME_AT equals the uninterrupted one from a xavier W, (5)
+    ``nettest`` prints the MAP of the solver's last test pass and ``train
+    --weights`` loads the .caffemodel into the typed ``Trainer``.  Times
+    the generic step against the typed one (batch 50 and 1024, in turns),
+    one snapshot and ``nettest``.  Returns the solve's launches."""
+    import dataclasses
+    import logging
+    import tempfile
+
+    import numpy as np
+    from torch.autograd import DeviceType
+
+    from mms_answer_selection_tpu_torch.data import hdf5_compat
+    from mms_answer_selection_tpu_torch.metrics import (
+        mean_average_precision, mean_reciprocal_rank)
+    from mms_answer_selection_tpu_torch.models.graph_net import GraphNet
+    from mms_answer_selection_tpu_torch.models.mms_qa import (
+        V4, mms_qa_apply, mms_qa_init)
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+    from mms_answer_selection_tpu_torch.training import Trainer
+    from mms_answer_selection_tpu_torch.training.graph_solver import (
+        GraphSolver)
+    from mms_answer_selection_tpu_torch.utils.prototxt import (
+        net_prototxt_from_config)
+    from mms_answer_selection_tpu_torch.utils.tree import tree_map
+
+    started = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    vocab = info["vocab_size"]
+    feeds = graph_feeds(splits)
+    cpu = torch.device("cpu")
+
+    def to(tree, where):
+        return tree_map(lambda t: t.to(where), tree)
+
+    # --------------------------- (1) generic forward = typed forward
+    still = dataclasses.replace(V4, vocab_size=vocab, sim_dropout=0.0,
+                                fc1_dropout=0.0, sim_weight_init="xavier")
+    tp, ts = mms_qa_init(still, generator=torch.Generator().manual_seed(SEED),
+                         device=dev)
+    net = GraphNet(net_prototxt_from_config(still), phase="train")
+    batch = {k: torch.as_tensor(v[:BATCH], device=dev)
+             for k, v in splits["train"].items() if k != "group"}
+    gp, gs0 = net.init(torch.Generator(), batch, device=dev)
+    shapes = {g: {k: tuple(v.shape) for k, v in gp[g].items()}
+              for g in gp}
+    gp = {g: tp[t] for g, t in GRAPH_NAME_MAP.items()}
+    if {g: {k: tuple(v.shape) for k, v in gp[g].items()} for g in gp} \
+            != shapes or set(gs0) != {"bn0", "bn1"}:
+        raise AssertionError("the generic V4 tree differs from the typed")
+    with torch.no_grad():
+        blobs, _ = net.apply(gp, {"bn0": ts["bn0"], "bn1": ts["bn1"]}, batch,
+                             train=True)
+        out, _ = mms_qa_apply(tp, ts, batch, still, train=True,
+                              generator=torch.Generator(device=dev))
+    err = float((blobs["fc2"] - out["logits"]).abs().max())
+    rel = err / float(out["logits"].abs().max())
+    log(f"check generic V4 train net vs typed mms_qa_apply (batch {BATCH}, "
+        f"the typed weights carried over, train-mode BN): fc2 max abs err "
+        f"{err:.3e}, {rel:.3e} of its max (tol 1e-5); loss "
+        f"{float(blobs['loss']):.6f} vs {float(out['loss']):.6f}")
+    if rel > 1e-5:
+        raise AssertionError("the generic V4 net's fc2 differs from the "
+                             "typed model's logits")
+    del tp, ts, gp, gs0, net
+
+    # ---------------------------------------- (2) card = CPU, one step
+    warm_dir, step_dir = root / "warm", root / "step"
+    warm_dir.mkdir()
+    step_dir.mkdir()
+    warm = GraphSolver(graph_files(warm_dir, vocab, xavier=True, still=True,
+                                   test=False, solver_type="sgd"),
+                       feeds=feeds, device=cpu)
+    warm.step(GRAPH_WARM_STEPS)
+    solver = graph_files(step_dir, vocab, xavier=True, still=True,
+                         test=False)
+    stepped = []
+    for where in (cpu, dev):
+        g = GraphSolver(solver, feeds=feeds, device=where)
+        g.params, g.state = to(warm.params, where), to(warm.state, where)
+        g.opt_state = g.solver.init(g.params)
+        loss, _ = g._train_step()
+        stepped.append((float(loss), to(g.params, cpu)))
+    (c_loss, c_p), (g_loss, g_p) = stepped
+    loss_rel = abs(g_loss / c_loss - 1)
+    worst, where = graph_params_close(g_p, c_p, 2 * 2 * ADADELTA_STEP)
+    log(f"check GraphSolver step card vs CPU (V4 recipe net without its "
+        f"dropout, batch {BATCH}, AdaDelta after {GRAPH_WARM_STEPS} SGD "
+        f"steps from a xavier W): "
+        f"loss {g_loss:.6f}, rel err {loss_rel:.3e} (tol 1e-5); params max "
+        f"diff {worst:.3e} of the leaf's max at {where} (tol 1e-4; conv "
+        f"biases within {2 * 2 * ADADELTA_STEP:.3e})")
+    if loss_rel > 1e-5 or worst > 1e-4:
+        raise AssertionError("a GraphSolver step differs between card and "
+                             "CPU")
+    del warm, stepped, g
+
+    # ------------------------- (3) the recipe's solve, its launches
+    main_dir = root / "recipe"
+    main_dir.mkdir()
+    gs = GraphSolver(graph_files(main_dir, vocab, xavier=False),
+                     feeds=feeds, device=dev)
+    losses = []
+    gs.callbacks.append((lambda: None, lambda: losses.append(
+        float(gs.last_outs["loss"]))))
+    for name in sk.LAUNCH_COUNTS:
+        sk.LAUNCH_COUNTS[name] = 0
+    t0 = time.perf_counter()
+    gs.solve()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = dict(sk.LAUNCH_COUNTS)
+    log(f"launches on the generic path (GraphSolver.solve, {GRAPH_STEPS} "
+        f"steps with {GRAPH_STEPS // GRAPH_EVERY + 1} dev tests): "
+        f"{launches}")
+    for name in CLI_TRAIN_KERNELS:
+        if launches[name] < GRAPH_STEPS:
+            raise AssertionError(f"the generic path launched {name} "
+                                 f"{launches[name]} times")
+    tests = [r for r in gs.history if r["phase"] == "Test#0"]
+    if [r["iter"] for r in tests] != list(range(0, GRAPH_STEPS + 1,
+                                                GRAPH_EVERY)):
+        raise AssertionError(f"dev tests at {[r['iter'] for r in tests]}")
+    window = max(1, GRAPH_STEPS // 15)
+    first, last = np.mean(losses[:window]), np.mean(losses[-window:])
+    if not np.isfinite(losses).all() or not last < first \
+            or not all(0 <= r["map"] <= 1 for r in tests):
+        raise AssertionError(f"the train loss did not fall ({first} -> "
+                             f"{last}) or a dev MAP is out of [0, 1]: "
+                             f"{tests}")
+    before = dict(sk.LAUNCH_COUNTS)
+    res = gs.test()
+    torch.cuda.synchronize()
+    test_launch = {k: sk.LAUNCH_COUNTS[k] - before[k] for k in before}
+    if test_launch["pair_maps_fwd"] < 1 or test_launch["pair_maps_bwd_w"] \
+            or test_launch["pair_maps_bwd_qa"]:
+        raise AssertionError(f"a test pass launched {test_launch}")
+    p, s = gs._shared_test_trees(0)
+    dev_split = splits["dev"]
+    with torch.no_grad():
+        b, _ = gs.test_nets[0].apply(p, s, {k: torch.as_tensor(
+            dev_split[k], device=dev) for k in feeds["dev"]
+            if k not in ("batch_size", "shuffle")})
+    scores = b["prob"][:, 1].double().cpu().numpy()
+    np_map = mean_average_precision(scores, dev_split["label"],
+                                    dev_split["group"])
+    np_mrr = mean_reciprocal_rank(scores, dev_split["label"],
+                                  dev_split["group"])
+    log(f"GraphSolver.solve (the recipe's W = 0, batch {BATCH}): "
+        f"{GRAPH_STEPS} steps in {solve_s:.3f} s, train loss {first:.4f} -> "
+        f"{last:.4f} (means of the first and last {window}), dev loss "
+        f"{[round(r['loss'], 4) for r in tests]}, dev MAP "
+        f"{[round(r['map'], 4) for r in tests]}, MRR "
+        f"{[round(r['mrr'], 4) for r in tests]} at "
+        f"{[r['iter'] for r in tests]}; a test pass launched {test_launch}; "
+        f"MAP layer {float(res['map']):.6f} vs in-process {np_map:.6f}, MRR "
+        f"layer {float(res['mrr']):.6f} vs {np_mrr:.6f} (tol 1e-6) [{card}]")
+    if abs(float(res["map"]) - np_map) > 1e-6 \
+            or abs(float(res["mrr"]) - np_mrr) > 1e-6:
+        raise AssertionError("the MAP / MRR layers disagree with the "
+                             "in-process metrics")
+
+    # ------------------------------- (5) nettest and train --weights
+    model_path = main_dir / f"v4_iter_{GRAPH_STEPS}.caffemodel"
+    if not model_path.exists() or not (
+            main_dir / f"v4_iter_{GRAPH_STEPS}.solverstate").exists():
+        raise AssertionError(f"no snapshot at {GRAPH_STEPS}")
+
+    # the card host has no h5py: the HDF5Data layer's list reader is
+    # stood in for by the dev split's arrays, the dtypes it would give
+    def dev_arrays(list_file):
+        return {k: (np.asarray(v, np.int32) if k != "overlap_feat"
+                    else np.asarray(v, np.float32))
+                for k, v in dev_split.items()}
+
+    eval_net = (main_dir / "eval.prototxt").read_text().replace(
+        'batch_size: 50', f'batch_size: {len(dev_split["label"])}', 1)
+    (main_dir / "nettest.prototxt").write_text(eval_net)
+    real = hdf5_compat.load_hdf5_list
+    hdf5_compat.load_hdf5_list = dev_arrays
+    try:
+        t0 = time.perf_counter()
+        nt = json.loads(run_cli(["nettest", "--model",
+                                 str(main_dir / "nettest.prototxt"),
+                                 "--weights", str(model_path),
+                                 "--iterations", "1", "--device",
+                                 "cuda"])[-1])
+        nettest_s = time.perf_counter() - t0
+    finally:
+        hdf5_compat.load_hdf5_list = real
+    log(f"cli nettest on v4_iter_{GRAPH_STEPS}.caffemodel (the dev split as "
+        f"one batch): MAP {nt['map']:.6f} MRR {nt['mrr']:.6f} AUC "
+        f"{nt['auc']:.6f}; the solver's last test pass MAP "
+        f"{tests[-1]['map']:.6f} (tol 1e-6); {nettest_s:.3f} s [{card}]")
+    if abs(nt["map"] - tests[-1]["map"]) > 1e-6:
+        raise AssertionError("nettest's MAP differs from the solver's")
+    tr = Trainer(dataclasses.replace(V4, vocab_size=vocab), recipe_trainer(),
+                 device=dev)
+    p0, s0, _ = tr.init()
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    logging.getLogger("mms_tpu_torch.trainer").addHandler(handler)
+    try:
+        tp, ts = tr._load_weights(p0, s0, str(model_path))
+    finally:
+        logging.getLogger("mms_tpu_torch.trainer").removeHandler(handler)
+    for g, t in GRAPH_NAME_MAP.items():
+        for k, v in gs.params[g].items():
+            if not torch.equal(tp[t][k], v):
+                raise AssertionError(f"train --weights: {t}.{k} differs "
+                                     f"from the .caffemodel's {g}")
+    for bn in ("bn0", "bn1"):
+        for k, v in gs.state[bn].items():
+            if not torch.equal(ts[bn][k], v):
+                raise AssertionError(f"train --weights: state {bn}.{k}")
+    log(f"train --weights v4_iter_{GRAPH_STEPS}.caffemodel: the typed "
+        f"Trainer's params and BN state equal the solver's, bit for bit "
+        f"({records[-1] if records else 'no log'})")
+    snap_ms = sync_ms(lambda: gs.snapshot(), 5)
+    size = model_path.stat().st_size + (
+        main_dir / f"v4_iter_{GRAPH_STEPS}.solverstate").stat().st_size
+    del tr, p0, s0, tp, ts
+
+    # ------------------- (4) restored at GRAPH_RESUME_AT = uninterrupted
+    runs = {}
+    for name in ("full", "part"):
+        (root / name).mkdir()
+        runs[name] = GraphSolver(graph_files(root / name, vocab, xavier=True),
+                                 feeds=feeds, device=dev)
+    runs["full"].solve()
+    runs["part"].restore(str(root / "full" /
+                             f"v4_iter_{GRAPH_RESUME_AT}.solverstate"))
+    runs["part"].solve()
+    maps = {n: [r["map"] for r in g.history if r["phase"] == "Test#0"]
+            for n, g in runs.items()}
+    map_diff = abs(maps["part"][-1] - maps["full"][-1])
+    worst, where = graph_params_close(to(runs["part"].params, cpu),
+                                      to(runs["full"].params, cpu))
+    log(f"check GraphSolver restored at {GRAPH_RESUME_AT} from "
+        f"v4_iter_{GRAPH_RESUME_AT}.solverstate + .caffemodel (xavier W) "
+        f"and solved to {GRAPH_STEPS} vs the uninterrupted run: dev MAP "
+        f"{maps['part'][-1]:.6f} vs {maps['full'][-1]:.6f} (abs diff "
+        f"{map_diff:.3e}, tol {RESUME_MAP_ATOL:g}; uninterrupted dev MAP "
+        f"{[round(x, 4) for x in maps['full']]}); step {GRAPH_STEPS} params "
+        f"max diff {worst:.3e} of the leaf's max at {where} (tol "
+        f"{RESUME_PARAM_RTOL:g}, conv biases apart) [{card}]")
+    if map_diff > RESUME_MAP_ATOL or worst > RESUME_PARAM_RTOL:
+        raise AssertionError("a restored GraphSolver run parts from the "
+                             "uninterrupted one")
+    del runs
+
+    # ------------------------------------------------ times, in turns
+    log(f"time GraphSolver.snapshot (BINARYPROTO .caffemodel + .solverstate"
+        f", {size / 2**20:.3f} MiB, card to files): p50 {snap_ms:.3f} ms "
+        f"[{card}]")
+    for bsz in GRAPH_TIMED:
+        (root / f"t{bsz}").mkdir()
+        g = GraphSolver(graph_files(root / f"t{bsz}", vocab, xavier=False,
+                                    batch=bsz, test=False),
+                        feeds=graph_feeds(splits, bsz), device=dev)
+        tr = Trainer(dataclasses.replace(V4, vocab_size=vocab),
+                     dataclasses.replace(recipe_trainer(), batch_size=bsz),
+                     device=dev)
+        p, s, o = tr.init(pretrained=info["pretrained"])
+        train = tr._full_batch({k: v for k, v in splits["train"].items()
+                                if k != "group"})
+        tb = next(tr._epoch_batches(train, 0))
+        reps = max(10, 1000 // bsz)
+        generic = lambda: g._train_step()                   # noqa: E731
+        typed = lambda: tr._train_step(p, s, o, tb, 0)      # noqa: E731
+        times = [sync_ms(generic, reps), sync_ms(typed, reps),
+                 sync_ms(typed, reps), sync_ms(generic, reps)]
+        before = dict(sk.LAUNCH_COUNTS)
+        generic()
+        torch.cuda.synchronize()
+        step_launch = {k: sk.LAUNCH_COUNTS[k] - before[k] for k in before
+                       if sk.LAUNCH_COUNTS[k] != before[k]}
+        prof = {}
+        for label, fn, wall in (("generic", generic, times[0]),
+                                ("typed", typed, times[1])):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as pr:
+                fn()
+                torch.cuda.synchronize()
+            rows = [e for e in pr.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in rows) / 1e3
+            prof[label] = (sum(e.count for e in rows), busy,
+                           max(0.0, 1 - busy / wall))
+        (g_ops, g_ms, g_idle), (t_ops, t_ms, t_idle) = (prof["generic"],
+                                                        prof["typed"])
+        log(f"time GraphSolver step (V4 recipe net, the feed's host batch "
+            f"copied in) vs the typed fit step, batch {bsz}: generic p50 "
+            f"{(times[0] + times[3]) / 2:.3f} ms, typed "
+            f"{(times[1] + times[2]) / 2:.3f} ms (means of each one's two "
+            f"turns: {[round(x, 3) for x in times]}, generic, typed, typed, "
+            f"generic); a generic step launched {step_launch}; profiler: "
+            f"generic {g_ops} device ops, {g_ms:.3f} ms device time, idle "
+            f"{g_idle:.1%}; typed {t_ops} device ops, {t_ms:.3f} ms, idle "
+            f"{t_idle:.1%} [{card}]")
+        if any(step_launch.get(k) != 1 for k in CLI_TRAIN_KERNELS):
+            raise AssertionError(f"a generic step launched {step_launch}")
+        del g, tr, p, s, o, train, tb
+    del gs
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    log(f"graph phase: {time.perf_counter() - started:.1f} s")
+    return launches
+
+
 def planted_batch(gen, dev, n: int, cfg):
     """A caption training batch of the planted-signal corpus, made on the
     device from ``gen``: caption token f everywhere, the positive image
@@ -1876,10 +2311,13 @@ def main() -> int:
     ivf_phase(params, cfg, gen, dev, card)
 
     # ------------------------------------------------------------- training
-    train_launches = train_phase(dev, normal, card, max_err, timed)
+    train_launches, splits, info = train_phase(dev, normal, card, max_err,
+                                               timed)
     launches.update({k: train_launches[k] for k in KERNELS
                      if k not in MAXSIM})
     cli_phase(dev, card)
+    graph = graph_phase(dev, card, splits, info)
+    del splits, info
 
     # ---------------------------------------------------------------- times
     for name, (kernel, plain) in scorers.items():
@@ -1925,6 +2363,7 @@ def main() -> int:
     wide_train_phase(dev, normal, card, max_err)
     torch.cuda.empty_cache()
     mm = multimodal_phase(sk, normal, dev, card, max_err)
+    log(f"launches on the generic path: {json.dumps(graph)}")
     log(f"launches on the multimodal path: {json.dumps(mm)}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
         f"GiB; run {time.perf_counter() - started:.1f} s, build included")

@@ -11,7 +11,13 @@ and the tools beside it: ``extract`` (embeddings and probabilities of a
 split), ``saliency`` (per-token |dLoss/dEmbedding|), ``summarize`` (the
 model's layer table, a history as CSV), ``parse_log`` (a training log as
 CSV), ``reproduce`` (the published recipe from the raw inputs, held to
-the published MAP/MRR) and ``device_query``.
+the published MAP/MRR), ``image_mean`` (a mean-file BlobProto) and
+``device_query``.  The reference's own workflow runs through ``solve``
+(``caffe train --solver=...``: any net prototxt through GraphSolver, with
+``.caffemodel`` / ``.solverstate`` snapshots) and ``nettest`` (``caffe
+test``); ``train`` also takes a reference ``--solver-prototxt`` /
+``--net-prototxt`` and ``.caffemodel`` / ``.solverstate`` files for
+``--weights`` / ``--resume``.
 
 The commands that run a model take ``--device`` (default ``cuda``, which
 raises where no card is present; ``cpu`` runs the plain PyTorch paths).
@@ -66,6 +72,12 @@ def cmd_prep(args):
                    "pad_idx": info["pad_idx"],
                    "dim": args.dim, "q_len": args.q_len,
                    "a_len": args.a_len}, f)
+    if args.hdf5:
+        from .data.hdf5_compat import save_hdf5_chunks
+        for name, split in splits.items():
+            save_hdf5_chunks(os.path.join(args.out, f"{name}_h5"), name,
+                             split)
+        log.info("wrote reference-compatible HDF5 chunks")
     if args.mmsp:
         from .native import write_mmsp
         write_mmsp(os.path.join(args.out, "train.mmsp"), splits["train"])
@@ -133,12 +145,22 @@ def cmd_train(args):
     from .metrics import format_trec_table, trec_eval, write_trec_files
     from .training import Trainer
     from .training.checkpoint import save_checkpoint
+    from .training.trainer import _SOLVERSTATES
     from .utils.config import experiment_to_json
 
     splits, meta, vocab = _load_prepped(args.data)
     model_cfg, trainer_cfg = _experiment_configs(args, meta)
+    if args.solver_prototxt:
+        # a reference solver.prototxt for the loop and the solver
+        from .utils.prototxt import trainer_config_from_prototxt
+        with open(args.solver_prototxt) as f:
+            trainer_cfg = trainer_config_from_prototxt(
+                f.read(), snapshot_dir=os.path.join(args.exp, "models"))
     if args.max_iter is not None:
         trainer_cfg = dataclasses.replace(trainer_cfg, max_iter=args.max_iter)
+    if args.net_prototxt:
+        model_cfg, trainer_cfg = _net_prototxt_configs(
+            args.net_prototxt, meta, trainer_cfg)
     os.makedirs(args.exp, exist_ok=True)
     with open(os.path.join(args.exp, "config.json"), "w") as f:
         f.write(experiment_to_json(model_cfg, trainer_cfg))
@@ -167,10 +189,11 @@ def cmd_train(args):
                 ArrayDataset({k: v for k, v in splits["train"].items()
                               if k != "group"}),
                 trainer_cfg.batch_size, seed=trainer_cfg.seed)
-        if resume_from:
+        if resume_from and not resume_from.endswith(_SOLVERSTATES):
             # a snapshot records no stream cursor: skip the batches the
             # snapshot's steps took, so the resumed run sees the batches
-            # the uninterrupted one would
+            # the uninterrupted one would (a reference .solverstate
+            # restarts the stream, as the JAX CLI does)
             ckpt = trainer._resolve_ckpt(resume_from)
             with open(os.path.join(ckpt, "meta.json")) as f:
                 done = int(json.load(f)["step"]) + 1
@@ -205,6 +228,36 @@ def cmd_train(args):
                          splits["test"]["group"])
         print(format_trec_table(trec_eval(truth, result)))
     _write_curves(args.exp, hist)
+
+
+def _net_prototxt_configs(path, meta, trainer_cfg):
+    """A reference train-net prototxt (the network_v3/v4/v4_2/v5 family)
+    -> the model config, token lengths from the prepped data; the file's
+    HDF5Data batch_size drives the training batch, and the data's
+    vocabulary wins over the file's."""
+    from .utils.prototxt import (model_config_from_net_prototxt,
+                                 parse_prototxt, upgrade_net_prototxt)
+
+    with open(path) as f:
+        net_text = f.read()
+    model_cfg = model_config_from_net_prototxt(
+        net_text, question_len=meta["q_len"], answer_len=meta["a_len"])
+    # upgrade first: a V1-era file declares `layers:` blocks, and its
+    # batch_size must drive the trainer exactly like a modern one
+    layers = upgrade_net_prototxt(parse_prototxt(net_text)).get("layer", [])
+    for la in (layers if isinstance(layers, list) else [layers]):
+        bs = la.get("hdf5_data_param", {}).get("batch_size")
+        if bs:
+            trainer_cfg = dataclasses.replace(
+                trainer_cfg, batch_size=bs[-1] if isinstance(bs, list)
+                else bs)
+            break
+    if model_cfg.vocab_size != meta["vocab_size"]:
+        log.warning("net prototxt vocab %d != prepped vocab %d; using the "
+                    "data's", model_cfg.vocab_size, meta["vocab_size"])
+        model_cfg = dataclasses.replace(model_cfg,
+                                        vocab_size=meta["vocab_size"])
+    return model_cfg, trainer_cfg
 
 
 def _write_curves(exp_dir, hist):
@@ -465,6 +518,124 @@ def cmd_reproduce(args):
         sys.exit(1)
 
 
+def cmd_image_mean(args):
+    """`compute_image_mean` (tools/compute_image_mean.cpp): the mean image
+    over a list (pair or `path label` rows) -> a legacy-dim BlobProto, with
+    the tool's per-channel lines."""
+    from .data.pair_image import compute_image_mean
+    from .utils.caffemodel import save_blob_binaryproto
+
+    mean = compute_image_mean(args.list, root=args.root,
+                              new_height=args.new_height,
+                              new_width=args.new_width)   # HWC
+    nchw = mean.transpose(2, 0, 1)[None]                  # (1, C, H, W)
+    if args.out:
+        save_blob_binaryproto(args.out, nchw)
+        print(f"wrote {args.out} shape {nchw.shape}")
+    for c in range(nchw.shape[1]):
+        print(f"mean_value channel [{c}]: {float(nchw[0, c].mean()):.6g}")
+
+
+def cmd_solve(args):
+    """The reference's `caffe train --solver=...`: any NetParameter
+    prototxt through GraphSolver (test passes, smoothed-loss display,
+    snapshots, resume).  Prints the last iteration, the smoothed loss and
+    each test net's last outputs as one JSON line."""
+    from .training.graph_solver import GraphSolver
+    from .training.signals import SignalHandler
+
+    gs = GraphSolver(args.solver, device=args.device)
+    if args.snapshot:
+        gs.restore(args.snapshot)
+    elif args.weights:
+        # a comma-separated list, applied in order (caffe.cpp:139-154)
+        for w in args.weights.split(","):
+            report = gs.copy_weights(w)
+            log.info("copied weights from %s: %s", w, report)
+    # SIGINT -> stop (snapshot and leave the loop), SIGHUP -> snapshot and
+    # carry on (caffe.cpp:44-49)
+    with SignalHandler() as h:
+        loss = gs.solve(action_fn=h.get_requested_action)
+    # the last test record of each test net
+    last_by_net: dict = {}
+    for rec in gs.history:
+        if rec["phase"].startswith("Test"):
+            last_by_net[rec["phase"]] = {
+                k: (v.tolist() if hasattr(v, "tolist") else v)
+                for k, v in rec.items() if k not in ("iter", "phase")}
+    tests = (last_by_net.get("Test#0", {}) if len(last_by_net) <= 1
+             else last_by_net)
+    print(json.dumps({"iter": gs.iter_, "loss": float(loss),
+                      "last_test": tests}))
+
+
+def cmd_nettest(args):
+    """The reference's `caffe test`: score any net prototxt in TEST phase
+    for N iterations with given weights, averaging every output-blob
+    element; loss is the mean weighted loss over the iterations."""
+    import torch
+
+    from .device import resolve_device
+    from .models.graph_net import DATA_TYPES, GraphNet
+    from .training.graph_solver import _build_feed
+
+    device = resolve_device(args.device)
+    with open(args.model) as f:
+        net = GraphNet(f.read(), phase="test")
+    base_dir = os.path.dirname(os.path.abspath(args.model))
+
+    def make_feeds():
+        return [f for f in
+                (_build_feed(n.cfg, "test", 0, base_dir, None)
+                 for n in net.layers if n.type in DATA_TYPES)
+                if f is not None]
+
+    feeds = make_feeds()
+
+    def next_batch():
+        batch = {}
+        for f in feeds:
+            batch.update(next(f))
+        return {k: torch.as_tensor(np.asarray(v), device=device)
+                for k, v in batch.items()}
+
+    example = next_batch() if feeds else {}
+    params, state = net.init(torch.Generator().manual_seed(0), example,
+                             device=device)
+    feeds = make_feeds()  # init only peeked for shapes; score batch 0
+    if args.weights:
+        from .utils.caffemodel import load_caffemodel_auto
+        params, state, report = load_caffemodel_auto(
+            args.weights, params, state,
+            specs=net.caffemodel_specs(params, state))
+        log.info("loaded weights: %s", report)
+    names = net.output_blob_names()
+    weights_map = net.blob_loss_weights()
+    total, loss = None, 0.0
+    with torch.no_grad():
+        for _ in range(args.iterations):
+            blobs, _ = net.apply(params, state,
+                                 next_batch() if feeds else {},
+                                 train=False)
+            out = {t: blobs[t].to(torch.float32) for t in names}
+            loss += sum(w * float(torch.sum(out[t]))
+                        for t, w in weights_map.items())
+            total = out if total is None else \
+                {k: total[k] + v for k, v in out.items()}
+    result = {}
+    for name in names:
+        mean = np.ravel(total[name].cpu().numpy()) / args.iterations
+        w = weights_map.get(name, 0.0)
+        for v in mean:
+            msg = f"{name} = {v}"
+            if w:
+                msg += f" (* {w} = {w * v} loss)"
+            log.info("%s", msg)
+        result[name] = mean.tolist() if mean.size > 1 else float(mean[0])
+    result["loss"] = loss / args.iterations
+    print(json.dumps(result))
+
+
 def cmd_device_query(args):
     """One JSON line per device: the JAX CLI's keys (id, platform, kind,
     process) and, for a CUDA device, its properties."""
@@ -515,6 +686,9 @@ def main(argv=None):
     p.add_argument("--q-len", type=int, default=40)
     p.add_argument("--a-len", type=int, default=40)
     p.add_argument("--out", required=True)
+    p.add_argument("--hdf5", action="store_true",
+                   help="also write reference-compatible HDF5 chunk files "
+                        "(needs h5py)")
     p.add_argument("--mmsp", action="store_true",
                    help="also write the packed train.mmsp store for "
                         "`train --stream`")
@@ -541,6 +715,13 @@ def main(argv=None):
     p.add_argument("--fused-steps", type=int, default=1,
                    help="up to K steps a chunk (scan_train_steps); chunks "
                         "end at eval and snapshot steps")
+    p.add_argument("--solver-prototxt",
+                   help="use a reference solver.prototxt for the "
+                        "optimization and loop settings (--max-iter "
+                        "overrides its max_iter)")
+    p.add_argument("--net-prototxt",
+                   help="use a reference train-net prototxt "
+                        "(network_v3/v4/v4_2/v5 family) for the model")
     _device_flag(p)
     p.set_defaults(fn=cmd_train)
 
@@ -660,6 +841,41 @@ def main(argv=None):
                         "(covers seed and hardware noise on one run)")
     _device_flag(p)
     p.set_defaults(fn=cmd_reproduce)
+
+    p = sub.add_parser(
+        "solve",
+        help="generic `caffe train`: run any net prototxt through its "
+             "solver prototxt (GraphNet + the reference solver loop)")
+    p.add_argument("--solver", required=True,
+                   help="solver.prototxt (net/train_net/test_net paths "
+                        "resolve relative to it)")
+    p.add_argument("--weights", help="init from .caffemodel[.h5] files, "
+                                     "comma-separated")
+    p.add_argument("--snapshot", help="resume from a .solverstate[.h5]")
+    _device_flag(p)
+    p.set_defaults(fn=cmd_solve)
+
+    p = sub.add_parser(
+        "nettest",
+        help="generic `caffe test`: score any net prototxt in TEST phase "
+             "for N iterations (averaged output blobs)")
+    p.add_argument("--model", required=True, help="net prototxt")
+    p.add_argument("--weights", help=".caffemodel[.h5] to load")
+    p.add_argument("--iterations", type=int, default=50)
+    _device_flag(p)
+    p.set_defaults(fn=cmd_nettest)
+
+    p = sub.add_parser(
+        "image_mean",
+        help="compute_image_mean: the mean image over a list -> "
+             "mean.binaryproto for transform_param mean_file")
+    p.add_argument("list", help="pair list or `path label` list file")
+    p.add_argument("--root", default="", help="image root folder")
+    p.add_argument("--new-height", type=int, default=0)
+    p.add_argument("--new-width", type=int, default=0)
+    p.add_argument("--out", help="output .binaryproto (omit to print the "
+                                 "channel means only)")
+    p.set_defaults(fn=cmd_image_mean)
 
     p = sub.add_parser("device_query", help="list the torch devices")
     _device_flag(p)

@@ -22,6 +22,8 @@ import os
 
 import numpy as np
 
+from ..utils.caffemodel import load_blob_binaryproto
+
 
 def parse_pair_list(path_or_text: str):
     """Returns list of (img1, img2, angle1, angle2, label).  Accepts a
@@ -275,69 +277,6 @@ def compute_image_mean(list_file: str, *, root: str = "", new_height=0,
                          new_height=new_height, new_width=new_width)
         total = arr if total is None else total + arr
     return total / len(paths)
-
-
-def _read_varint(buf, pos: int):
-    result = shift = 0
-    while True:
-        b = buf[pos]
-        pos += 1
-        result |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return result, pos
-        shift += 7
-
-
-def _iter_fields(buf):
-    """(field number, wire type, value) over one protobuf message's bytes:
-    an int for varint and fixed fields, bytes for length-delimited ones."""
-    pos, end = 0, len(buf)
-    while pos < end:
-        key, pos = _read_varint(buf, pos)
-        field, wt = key >> 3, key & 7
-        if wt == 0:
-            val, pos = _read_varint(buf, pos)
-        elif wt in (1, 5):
-            n = 8 if wt == 1 else 4
-            val, pos = buf[pos:pos + n], pos + n
-        elif wt == 2:
-            ln, pos = _read_varint(buf, pos)
-            val, pos = buf[pos:pos + ln], pos + ln
-        else:
-            raise ValueError(f"unsupported wire type {wt}")
-        yield field, wt, val
-
-
-def load_blob_binaryproto(path: str) -> np.ndarray:
-    """One BlobProto file (a BlobShape or the legacy num/channels/height/
-    width dims; float or double data) -> float32 array of its shape."""
-    with open(path, "rb") as f:
-        buf = f.read()
-    shape, legacy, data = None, [0, 0, 0, 0], []
-    for field, wt, val in _iter_fields(buf):
-        if field == 7 and wt == 2:         # shape: BlobShape { dim = 1 }
-            dims = []
-            for f2, w2, v2 in _iter_fields(val):
-                if f2 == 1 and w2 == 2:    # packed
-                    p = 0
-                    while p < len(v2):
-                        d, p = _read_varint(v2, p)
-                        dims.append(d)
-                elif f2 == 1 and w2 == 0:
-                    dims.append(v2)
-            shape = tuple(dims)
-        elif field == 5 and wt in (2, 5):  # float data, packed or not
-            data.append(np.frombuffer(bytes(val), "<f4"))
-        elif field == 8 and wt == 2:       # double data
-            data.append(np.frombuffer(bytes(val), "<f8").astype(np.float32))
-        elif field in (1, 2, 3, 4) and wt == 0:
-            legacy[field - 1] = val
-    arr = np.concatenate(data) if data else np.zeros(0, np.float32)
-    if shape is None:
-        shape = tuple(legacy)
-    if int(np.prod(shape)) != arr.size:
-        raise ValueError(f"blob shape {shape} != data size {arr.size}")
-    return arr.reshape(shape).astype(np.float32)
 
 
 def load_mean_hwc(path: str) -> np.ndarray:

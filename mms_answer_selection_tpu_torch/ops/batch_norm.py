@@ -23,16 +23,18 @@ def bn_init(channels: int, *, shift_value: float, device=None):
     return params, state
 
 
-def bn_apply(params, state, x: torch.Tensor, *, train: bool):
+def bn_apply(params, state, x: torch.Tensor, *, train: bool,
+             momentum: float = MOMENTUM):
     """BN over an NHWC (or N...C) tensor with per-trailing-channel stats.
-    Returns (y, new_state); in eval mode new_state is ``state``."""
+    Returns (y, new_state); in eval mode new_state is ``state``.
+    ``momentum`` is the EMA's memory (the BN layer's ``bn_memory``)."""
     dims = tuple(range(x.ndim - 1))
     if train:
         mu = torch.mean(x, dim=dims)
         var = torch.mean(x * x, dim=dims) - mu * mu
         new_state = {
-            "mean": (1.0 - MOMENTUM) * mu.detach() + MOMENTUM * state["mean"],
-            "var": (1.0 - MOMENTUM) * var.detach() + MOMENTUM * state["var"],
+            "mean": (1.0 - momentum) * mu.detach() + momentum * state["mean"],
+            "var": (1.0 - momentum) * var.detach() + momentum * state["var"],
         }
     else:
         mu, var = state["mean"], state["var"]

@@ -15,7 +15,9 @@ and of the QA script (do_trec_qa_clean.py:782-845):
 * the best-dev-MAP params and BN state are kept and returned
 * snapshots every ``snapshot_interval`` steps to <dir>/<prefix>_iter_<N>/
   (``training/checkpoint.py``, the JAX package's layout), ``resume_from``
-  and ``weights`` (`caffe train -snapshot` / `-weights`)
+  and ``weights`` (`caffe train -snapshot` / `-weights`), which also take
+  the reference's ``.solverstate`` and ``.caffemodel`` files
+  (``utils/caffemodel.py``)
 * a deterministic reshuffle of the training set each pass, the
   HDF5DataLayer shuffle equivalent (hdf5_data_layer.cpp:55-68)
 * ``fit_stream``: the same loop over a batch iterator (``data/loader.py``,
@@ -28,8 +30,7 @@ its seed and step, so a run resumed from a snapshot at step k repeats the
 uninterrupted run bit for bit on the CPU.  The draws differ from the JAX
 package's for the same seed.
 
-Not here yet: mesh data parallelism and the reference's .caffemodel /
-.solverstate files (ROADMAP Queue 1 items 6 and 7).
+Not here yet: mesh data parallelism (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -70,8 +71,7 @@ _SORTED_METRICS_THRESHOLD = 2048
 # seed-derivation tags, so dropout and shuffle streams never coincide
 _DROPOUT, _SHUFFLE = 1, 2
 
-_CAFFE_FILES = (".caffemodel", ".caffemodel.h5", ".solverstate",
-                ".solverstate.h5")
+_SOLVERSTATES = (".solverstate", ".solverstate.h5")
 
 log = logging.getLogger("mms_tpu_torch.trainer")
 
@@ -312,11 +312,6 @@ class Trainer:
     def _resolve_ckpt(self, path: str) -> str:
         """A concrete checkpoint dir, or a snapshot root (-> its latest
         checkpoint), like `caffe train -snapshot`."""
-        if path.endswith(_CAFFE_FILES):
-            raise NotImplementedError(
-                f"{path}: the reference's .caffemodel / .solverstate files "
-                f"need utils/caffemodel.py, which the port does not have yet "
-                f"(ROADMAP Queue 1 item 6); pass a checkpoint directory")
         if os.path.exists(os.path.join(path, "ckpt.msgpack")):
             return path
         latest = latest_checkpoint(path, prefix=self.cfg.snapshot_prefix)
@@ -328,7 +323,16 @@ class Trainer:
 
     def _load_weights(self, params, state, weights: str):
         """The `caffe train -weights` finetune load: a name+shape-checked
-        partial restore from a checkpoint directory."""
+        partial restore from a checkpoint directory, or, when the path is a
+        file, from a reference .caffemodel (binaryproto or HDF5 by the
+        file's magic, Net::CopyTrainedLayersFrom, net.cpp:741-844)."""
+        if os.path.isfile(weights):
+            from ..utils.caffemodel import load_caffemodel_auto
+            params, state, report = load_caffemodel_auto(weights, params,
+                                                         state)
+            log.info("finetune: %d tensors from caffemodel %s",
+                     sum(v == "loaded" for v in report.values()), weights)
+            return params, state
         params, state, report = load_weights_into(
             params, state, self._resolve_ckpt(weights))
         skipped = {k: v for k, v in report.items() if v != "loaded"}
@@ -337,10 +341,37 @@ class Trainer:
                  f", skipped {sorted(skipped)}" if skipped else "")
         return params, state
 
+    def _resume_solverstate(self, path, params, state, opt_state):
+        """Resume a reference run: the solver history and the iteration
+        from a .solverstate, the weights from its learned_net
+        (Solver::Restore, solver.cpp:470-481).  The file records no epoch
+        or early-stop counters; the caller re-derives the epoch and the
+        patience clock restarts."""
+        from ..utils.caffemodel import load_solverstate
+        opt_state, it, _cur, learned, report = load_solverstate(
+            path, params, state, opt_state)
+        if learned:
+            lp = learned if os.path.isabs(learned) else os.path.join(
+                os.path.dirname(path) or ".", learned)
+            if os.path.exists(lp):
+                params, state = self._load_weights(params, state, lp)
+            else:
+                log.warning("solverstate names learned_net %s which does "
+                            "not exist; weights stay at init", learned)
+        log.info("resumed from reference solverstate %s: iter %d, %d "
+                 "history tensors", path, it,
+                 sum(v == "loaded" for v in report.values()))
+        return params, state, opt_state, {"step": it - 1,
+                                          "solverstate": True}
+
     def _resume(self, resume_from, params, state, opt_state, history, best):
         """Restore params, BN state, solver history, the loop counters and
         the history from a snapshot, and the best params from their own
-        snapshot.  Returns (params, state, opt_state, meta)."""
+        snapshot; or from a reference .solverstate.  Returns (params,
+        state, opt_state, meta)."""
+        if resume_from.endswith(_SOLVERSTATES):
+            return self._resume_solverstate(resume_from, params, state,
+                                            opt_state)
         ckpt = self._resolve_ckpt(resume_from)
         template = {"params": params, "state": state, "opt_state": opt_state}
         bundle, meta = load_checkpoint(ckpt, template=template)
@@ -512,11 +543,15 @@ class Trainer:
         resume_from: a checkpoint dir, or a snapshot root (-> its latest),
         to restore params, BN state, solver history, step, epoch and the
         early-stop counters from; the resumed run repeats the
-        uninterrupted one (the same shuffles and dropout draws).
+        uninterrupted one (the same shuffles and dropout draws).  Or a
+        reference .solverstate[.h5]: solver history, iteration and its
+        learned_net's weights; the epoch follows from the iteration and
+        the patience clock restarts.
 
-        weights: a checkpoint dir to partial-load params and BN state from
-        by name and shape before training (`caffe train -weights`).
-        Mutually exclusive with resume_from.
+        weights: a checkpoint dir, or a reference .caffemodel[.h5] file, to
+        partial-load params and BN state from by name and shape before
+        training (`caffe train -weights`).  Mutually exclusive with
+        resume_from.
 
         steps_per_dispatch: chunks of up to K steps, ending at eval and
         snapshot steps, as the JAX package plans its fused dispatches; the
@@ -547,6 +582,8 @@ class Trainer:
                 resume_from, params, state, opt_state, history, best)
             it = int(meta.get("step", -1)) + 1
             epoch = int(meta.get("epoch", -1))
+            if meta.get("solverstate"):
+                epoch = (it * samples_per_step) // max(train_size, 1)
             wait_epoch = int(meta.get("wait_epoch", 0))
 
         def batch_stream(s_it):

@@ -24,6 +24,7 @@ from flax import serialization
 from mms_answer_selection_tpu.models import mms_qa as JQ
 from mms_answer_selection_tpu.training import (
     SolverConfig as JSolverConfig,
+    TrainerConfig as JTrainerConfig,
     make_solver as j_make_solver,
 )
 from mms_answer_selection_tpu.training import checkpoint as JC
@@ -351,8 +352,83 @@ def test_weights_finetune_from_a_jax_checkpoint(tmp_path):
 
 
 def test_reference_files_name_the_roadmap_item():
+    """The reference's .caffemodel / .solverstate paths are read now (the
+    roadmap item is done): a missing one raises FileNotFoundError naming
+    it, never a silent fallback."""
     cfg, tcfg, splits, info = _small_fit(max_iter=2)
     for path in ("run.caffemodel", "run_iter_5.solverstate"):
         for kw in ("resume_from", "weights"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            with pytest.raises(FileNotFoundError, match="run"):
                 _fit(cfg, tcfg, splits, info, **{kw: path})
+
+
+def _jax_trainer_trees(cfg, seed):
+    """A JAX Trainer's initial params and state (its own init), made
+    distinctive, as numpy."""
+    from mms_answer_selection_tpu.training import Trainer as JTrainer
+
+    jcfg = JQ.MMSQAConfig(**{**dataclasses.asdict(cfg), "blocks": tuple(
+        JQ.ConvBlock(**dataclasses.asdict(b)) for b in cfg.blocks)})
+    params, state, _ = JTrainer(jcfg, JTrainerConfig()).init()
+    rng = np.random.default_rng(seed)
+    params = jax.tree.map(lambda x: np.asarray(x) + 0.1 * rng.normal(
+        size=x.shape).astype(np.float32), jax.device_get(params))
+    state = jax.tree.map(lambda x: np.asarray(x) + rng.uniform(
+        0.1, 0.2, x.shape).astype(np.float32), jax.device_get(state))
+    return params, state
+
+
+@pytest.mark.parametrize("fmt", ["binaryproto", "h5"])
+def test_weights_finetune_from_a_jax_caffemodel(tmp_path, fmt):
+    """``weights=`` a .caffemodel the JAX package wrote from its Trainer's
+    model (binaryproto or HDF5): the run equals one whose init is those
+    params and BN state."""
+    from mms_answer_selection_tpu.utils import caffemodel as JCM
+
+    cfg, tcfg, splits, info = _small_fit(early_stop_patience=50,
+                                         max_iter=12)
+    params, state = _jax_trainer_trees(cfg, 5)
+    path = str(tmp_path / f"w.caffemodel{'.h5' if fmt == 'h5' else ''}")
+    getattr(JCM, f"save_caffemodel_{fmt}")(path, params, state)
+    tuned = _fit(cfg, tcfg, splits, info, weights=path)
+
+    class FromParams(Trainer):
+        def init(self, *, pretrained=None):
+            super().init(pretrained=pretrained)
+            p, s = params_from_numpy(params, state, self.device)
+            return p, s, self.solver.init(p)
+
+    want = FromParams(cfg, tcfg, device="cpu").fit(
+        splits["train"], splits["dev"], test_data=splits["test"],
+        pretrained=info["pretrained"])
+    _assert_same_run(tuned, want)
+
+
+def test_resume_from_a_jax_solverstate(tmp_path):
+    """``resume_from=`` a .solverstate the JAX package wrote: the solver
+    history and the iteration from it, the weights from its learned_net;
+    the run carries on from that iteration."""
+    from mms_answer_selection_tpu.utils import caffemodel as JCM
+
+    cfg, tcfg, splits, info = _small_fit(early_stop_patience=50,
+                                         max_iter=12, snapshot_interval=0)
+    params, state = _jax_trainer_trees(cfg, 6)
+    rng = np.random.default_rng(7)
+    opt = {a: jax.tree.map(lambda x: rng.uniform(
+        0.0, 1e-3, x.shape).astype(np.float32), params) for a in ("h", "h2")}
+    JCM.save_caffemodel_binaryproto(str(tmp_path / "r_iter_7.caffemodel"),
+                                    params, state)
+    path = str(tmp_path / "r_iter_7.solverstate")
+    JCM.save_solverstate_binaryproto(path, params, state, opt, 7,
+                                     learned_net="r_iter_7.caffemodel")
+    tr = Trainer(cfg, tcfg, device="cpu")
+    p0, s0, o0 = tr.init(pretrained=info["pretrained"])
+    p, s, o, meta = tr._resume(path, p0, s0, o0, {}, {})
+    assert meta["step"] == 6
+    for got, want in ((p, params), (s, state), (o, opt)):
+        got, want = _named(got), _named(want)
+        assert got.keys() == want.keys()
+        for name, t in got.items():
+            assert np.array_equal(t.numpy(), want[name]), name
+    hist = _fit(cfg, tcfg, splits, info, resume_from=path)
+    assert hist["steps"] == [10]      # evals at 10 only: it ran 7..11

@@ -796,3 +796,104 @@ def test_image_pool_on_cuda_matches_cpu(pool_dtype):
     sep = gaps > 2 * rtol * cv.abs().amax(dim=1, keepdim=True)
     pinned = torch.cat([sep[:, :1], sep[:, 1:] & sep[:, :-1], sep[:, -1:]], 1)
     assert torch.equal(gi[pinned], ci[pinned])
+
+
+def _generic_v4_net(vocab=500, phase="train"):
+    from mms_answer_selection_tpu_torch.utils.prototxt import \
+        net_prototxt_from_config
+
+    cfg = dataclasses.replace(TM.MMSQAConfig(), vocab_size=vocab,
+                              sim_dropout=0.0, fc1_dropout=0.0)
+    return net_prototxt_from_config(cfg, phase=phase)
+
+
+def _generic_v4_batch(n=50, vocab=500):
+    g = torch.Generator().manual_seed(6)
+    return {"question": torch.randint(0, vocab, (n, 40), generator=g),
+            "answer": torch.randint(0, vocab, (n, 40), generator=g),
+            "overlap_feat": torch.rand((n, 2), generator=g),
+            "label": (torch.rand((n,), generator=g) < 0.3).int(),
+            "group": torch.arange(n) // 10}
+
+
+def test_graph_net_v4_on_cuda_matches_cpu():
+    """The V4 recipe's train net through GraphNet at V4's widths, batch
+    50, from one set of params (a xavier W) on the card and on the CPU:
+    the loss within 1e-5 relative, fc2 within 1e-5 of its max |value|,
+    every gradient within 1e-4 of its leaf's max |value| but the conv
+    biases (rounding noise under train-mode BN: each within 5% of its
+    weight's largest gradient); the eval net's MAP / MRR / AUC to 1e-6."""
+    dev = _cuda()
+    from mms_answer_selection_tpu_torch.models.graph_net import GraphNet
+    from mms_answer_selection_tpu_torch.utils.tree import (tree_leaves,
+                                                           tree_map)
+
+    torch.backends.cudnn.allow_tf32 = False
+    batch = _generic_v4_batch()
+    net = GraphNet(_generic_v4_net(), phase="train")
+    params, state = net.init(torch.Generator().manual_seed(1), batch,
+                             device="cpu")
+    params["sim_cross"]["w"] = torch.empty_like(
+        params["sim_cross"]["w"]).uniform_(
+            -0.035, 0.035, generator=torch.Generator().manual_seed(2))
+    out = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda t: t.detach().to(where).requires_grad_(True),
+                     params)
+        s = tree_map(lambda t: t.to(where), state)
+        loss, (blobs, _) = net.loss(p, s, {k: v.to(where) for k, v in
+                                           batch.items()})
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        it = iter(grads)
+        out[str(where)] = (float(loss), blobs["fc2"].detach().cpu(),
+                           tree_map(lambda _: next(it).cpu(), p))
+    (cl, cf, cg), (gl, gf, gg) = out["cpu"], out[str(dev)]
+    assert abs(gl / cl - 1) <= 1e-5
+    assert float((gf - cf).abs().max()) <= 1e-5 * float(cf.abs().max())
+    for name, sub in cg.items():
+        for k, want in sub.items():
+            got = gg[name][k]
+            if name.startswith("conv") and k == "b":
+                scale = float(cg[name]["w"].abs().max())
+                assert float(got.abs().max()) <= 0.05 * scale
+            else:
+                err = float((got - want).abs().max())
+                assert err <= 1e-4 * float(want.abs().max()), (name, k, err)
+    ev = GraphNet(_generic_v4_net(phase="eval"), phase="test")
+    state = {k: {"mean": v["mean"] + 0.01, "var": v["var"] + 1e-3}
+             for k, v in state.items()}
+    res = {}
+    with torch.no_grad():
+        for where in ("cpu", dev):
+            b, _ = ev.apply(tree_map(lambda t: t.to(where), params),
+                            tree_map(lambda t: t.to(where), state),
+                            {k: v.to(where) for k, v in batch.items()})
+            res[str(where)] = [float(b[m]) for m in ("map", "mrr", "auc")]
+    assert max(abs(a - c) for a, c in zip(res["cpu"], res[str(dev)])) \
+        <= 1e-6
+
+
+def test_generic_step_launches_the_pair_map_kernels(tmp_path):
+    """One GraphSolver step on the V4 recipe's net launches the forward
+    once and each backward kernel once; a test pass launches only the
+    forward."""
+    dev = _cuda()
+    from mms_answer_selection_tpu_torch.training.graph_solver import \
+        GraphSolver
+
+    (tmp_path / "net.prototxt").write_text(_generic_v4_net())
+    (tmp_path / "solver.prototxt").write_text(
+        'net: "net.prototxt"\ntype: "AdaDelta"\nbase_lr: 1.0\n'
+        'momentum: 0.95\ndelta: 5e-7\nmax_iter: 2\ntest_interval: 0\n'
+        'test_iter: 1\nsnapshot_after_train: false\n')
+    batch = {k: v.numpy() for k, v in _generic_v4_batch().items()
+             if k != "group"}
+    gs = GraphSolver(str(tmp_path / "solver.prototxt"),
+                     feeds={"data": {**batch, "batch_size": 50}},
+                     device=dev)
+    n0 = dict(T.LAUNCH_COUNTS)
+    gs.step(1)
+    torch.cuda.synchronize()
+    for name in ("pair_maps_fwd", "pair_maps_bwd_qa", "pair_maps_bwd_w"):
+        assert T.LAUNCH_COUNTS[name] == n0[name] + 1, name
+    assert gs.params["sim_cross"]["w"].is_cuda

@@ -44,8 +44,17 @@ import mms_answer_selection_tpu_torch.utils.fillers
 import mms_answer_selection_tpu_torch.utils.saliency
 import mms_answer_selection_tpu_torch.utils.history
 import mms_answer_selection_tpu_torch.utils.parse_log
+import mms_answer_selection_tpu_torch.utils.prototxt
+import mms_answer_selection_tpu_torch.utils.caffemodel
+import mms_answer_selection_tpu_torch.ops.pooling
+import mms_answer_selection_tpu_torch.ops.zoo
+import mms_answer_selection_tpu_torch.ops.recurrent
+import mms_answer_selection_tpu_torch.data.hdf5_compat
+import mms_answer_selection_tpu_torch.models.graph_net
+import mms_answer_selection_tpu_torch.training.graph_solver
+# h5py is imported only inside the functions that read or write HDF5
 bad = [m for m in sys.modules if m.split(".")[0] in
-       ("jax", "flax", "msgpack", "mms_answer_selection_tpu")]
+       ("jax", "flax", "msgpack", "mms_answer_selection_tpu", "h5py")]
 assert not bad, bad
 print("clean")
 """
@@ -57,11 +66,20 @@ from mms_answer_selection_tpu_torch.serve import QueryEngine
 from mms_answer_selection_tpu_torch.models.mms_qa import MMSQAConfig, mms_qa_init
 from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
 from mms_answer_selection_tpu_torch.training import Trainer, TrainerConfig
+from mms_answer_selection_tpu_torch.models.graph_net import GraphNet
+from mms_answer_selection_tpu_torch.training.graph_solver import GraphSolver
 assert not torch.cuda.is_available()
+net = ('layer { name: "d" type: "Input" top: "x" } '
+       'layer { name: "ip" type: "InnerProduct" bottom: "x" top: "y" '
+       'inner_product_param { num_output: 2 } }')
+solver = f'net_param {{ {net} }} base_lr: 0.1 max_iter: 1'
+feeds = {"d": {"x": torch.ones(4, 3).numpy(), "batch_size": 2}}
 for call in (lambda: resolve_device("cuda"), lambda: resolve_device(None),
              lambda: QueryEngine(mms_qa_init(MMSQAConfig(), generator=torch.Generator())[0],
                                  MMSQAConfig()),
-             lambda: Trainer(MMSQAConfig(), TrainerConfig())):
+             lambda: Trainer(MMSQAConfig(), TrainerConfig()),
+             lambda: GraphNet(net).init(torch.Generator(), {"x": torch.ones(2, 3)}),
+             lambda: GraphSolver(solver, feeds=feeds)):
     try:
         call()
     except RuntimeError as e:
