@@ -55,6 +55,24 @@ at the V4 recipe's widths, after building the hand-written kernels from
   against the solver's last MAP and ``train --weights`` of it into the
   typed ``Trainer``; the generic step's p50 at batch 50 and 1024 in turns
   with the typed one, a snapshot's and ``nettest``'s times;
+* the pycaffe path, the reference QA script's own flow (``pycaffe_phase``,
+  through ``caffe_compat``): the V4 recipe's train and test nets written
+  with ``caffe.NetSpec`` (they parse as ``net_prototxt_from_config``'s, and
+  one ``.caffemodel`` gives one loss in both), one ``solver.step(1)``
+  under ``set_mode_gpu()`` against one under ``set_mode_cpu()``, a
+  300-step AdaDelta solve in ``solver.step(100)`` calls from the recipe's
+  W = 0 (the three pair-map kernels once a step, the train loss falls,
+  ``solver.test_nets[0]``'s MAP / MRR blobs = the in-process metrics,
+  ``caffe.Net(test, caffe.TEST, weights=snapshot)`` = the solver's test
+  net, the ``net.blobs[...].data[...] = x`` idiom = ``forward(**x)``);
+  4,096 synthetic 3 x 32 x 32 images through ``convert_imageset`` into an
+  LMDB and a LevelDB (their first Data-layer batches equal), a conv net
+  trained 200 steps on the LMDB through ``solve``, ``extract_features``
+  against ``caffe.Net``, a WindowData net for 20 steps, and ``classify``,
+  ``detect``, ``draw``, ``upgrade --binary`` and ``convert`` against
+  their in-process counterparts; the pycaffe step's p50 at batch 50 and
+  1024 in turns with GraphSolver's, the Data feeds' and ``classify``'s
+  images/s;
 * V4_WIDE (D = 300) and long sentences: each MaxSim kernel against its
   plain version at D = 300 (rows past 256 bytes, the K-sliced plan) and
   at R = 800 query rows (W1 = 200, D = 50 and 300), a 262,144-candidate
@@ -93,8 +111,9 @@ the line before it lists every kernel with its launches on the main path,
 its error against the plain version, its time, the plain version's, the
 bound and what sets it, and the one-call library time (null where no
 single PyTorch call computes the function); lines before it, the
-launches of the generic and the multimodal paths.  About 180-220 s on an
-H100, build included, peaking near 27 GiB of device memory.
+launches of the generic, the pycaffe and the multimodal paths.  About
+180-230 s on an H100, build included, peaking near 27 GiB of device
+memory.
 """
 
 from __future__ import annotations
@@ -173,6 +192,16 @@ CLI_TRAIN_KERNELS = ("pair_maps_fwd", "pair_maps_bwd_w", "pair_maps_bwd_qa")
 # step timed at GRAPH_TIMED batches
 GRAPH_STEPS, GRAPH_EVERY, GRAPH_RESUME_AT, GRAPH_WARM_STEPS = 300, 100, 200, 5
 GRAPH_TIMED = (BATCH, 1024)
+# the pycaffe path (caffe_compat: NetSpec nets, get_solver, caffe.Net): a
+# PYCAFFE_STEPS-step solve in solver.step(PYCAFFE_EVERY) calls, the step
+# timed at PYCAFFE_TIMED batches; the databases: DB_IMAGES synthetic
+# DB_HW x DB_HW x 3 images of DB_CLASSES classes through convert_imageset
+# into an LMDB and a LevelDB, a conv net trained DB_STEPS steps on the
+# LMDB at batch DB_BATCH, a WindowData net WINDOW_STEPS steps over
+# WINDOW_IMAGES of them, classify over CLASSIFY_IMAGES
+PYCAFFE_STEPS, PYCAFFE_EVERY, PYCAFFE_TIMED = 300, 100, (BATCH, 1024)
+DB_IMAGES, DB_HW, DB_CLASSES, DB_BATCH, DB_STEPS = 4096, 32, 10, 64, 200
+WINDOW_IMAGES, WINDOW_STEPS, CLASSIFY_IMAGES = 256, 20, 16
 CLI_SERVE_KERNELS = ("maxsim_int8", "pair_maps_fwd")   # query, the rerank
 
 # the multimodal side (configs[4]) at CaptionImageConfig()'s and
@@ -1870,6 +1899,669 @@ def graph_phase(dev, card: str, splits, info) -> dict:
     return launches
 
 
+def netspec_v4(caffe, cfg, *, batch: int = BATCH, phase: str = "train",
+               data: str = "data", xavier: bool = False) -> str:
+    """The V4 recipe's train or test net written with ``caffe.NetSpec``, as
+    the QA script's ``make_net`` writes it (do_trec_qa_clean.py:377-605): an
+    HDF5Data layer named ``data``, the shared Embed pair by ParamSpec name,
+    SimCross (``xavier`` gives it a xavier weight filler in place of the
+    recipe's constant 0), [Dropout], the conv / BN / pool / TanH blocks,
+    Flatten + Concat, the MLP, SoftmaxWithLoss, and in test Softmax, MRR,
+    MAP and AUC."""
+    L, P = caffe.layers, caffe.params
+    n = caffe.NetSpec()
+    test = phase != "train"
+    tops = ["question", "answer", "label"] + (["group"] if test else []) \
+        + ["overlap_feat"]
+    outs = L.HDF5Data(name=data, batch_size=batch, source="train.txt",
+                      shuffle=not test, ntop=len(tops))
+    for name, top in zip(tops, outs):
+        setattr(n, name, top)
+    embed = dict(num_output=cfg.embed_dim, input_dim=cfg.vocab_size,
+                 weight_filler=dict(type="uniform",
+                                    min=-cfg.embed_init_range,
+                                    max=cfg.embed_init_range))
+    shared = [dict(name="w2v-weights", lr_mult=1, decay_mult=0),
+              dict(name="w2v-bias", lr_mult=2, decay_mult=0)]
+    n.w2v_q = L.Embed(n.question, param=shared, embed_param=embed)
+    n.w2v_a = L.Embed(n.answer, param=shared, embed_param=embed)
+    sim = dict(dist_mode=cfg.sim_mode, mesure_count=cfg.sim_measures,
+               bias_term=cfg.sim_bias)
+    if xavier:
+        sim["weight_filler"] = dict(type="xavier")
+    n.sim_cross = L.SimCross(
+        n.w2v_q, n.w2v_a, sim_cross_param=sim,
+        param=[dict(name="embed-weights", decay_mult=1, lr_mult=1)])
+    prev = n.sim_cross
+    if cfg.sim_dropout > 0:
+        n.sim_drop = L.Dropout(prev, dropout_ratio=cfg.sim_dropout)
+        prev = n.sim_drop
+    for i, b in enumerate(cfg.blocks):
+        conv = L.Convolution(
+            prev, kernel_h=b.kh, kernel_w=b.kw, stride=1,
+            num_output=b.out_channels, weight_filler=dict(type="xavier"),
+            param=[dict(name=f"conv_{i}_w", lr_mult=1),
+                   dict(name=f"conv_{i}_b", lr_mult=2, decay_mult=0)])
+        bn = L.BN(conv, param=[
+            dict(name=f"bn_{i}_shape", lr_mult=1, decay_mult=0),
+            dict(name=f"bn_{i}_shift", lr_mult=1, decay_mult=0),
+            dict(name=f"bn_{i}_mean", lr_mult=0, decay_mult=0),
+            dict(name=f"bn_{i}_variance", lr_mult=0, decay_mult=0)],
+            scale_filler=dict(type="constant", value=1),
+            shift_filler=dict(type="constant", value=cfg.bn_shift_init))
+        pool = L.Pooling(bn, pool=P.Pooling.AVE if b.pool == "ave"
+                         else P.Pooling.MAX, kernel_h=b.pool_k,
+                         kernel_w=b.pool_k, stride_h=b.pool_stride,
+                         stride_w=b.pool_stride)
+        setattr(n, f"conv{i}", conv)
+        setattr(n, f"bn{i}", bn)
+        setattr(n, f"pool{i}", pool)
+        setattr(n, f"relu{i}", L.TanH(pool, in_place=True))
+        prev = pool
+    n.flt = L.Flatten(prev)
+    n.feat = L.Concat(n.flt, n.overlap_feat, concat_dim=1)
+    n.fc1 = L.InnerProduct(
+        n.feat, num_output=cfg.fc1_dim, weight_filler=dict(type="xavier"),
+        param=[dict(name="fc1-w", lr_mult=1, decay_mult=0),
+               dict(name="fc1-b", lr_mult=2, decay_mult=0)])
+    n.relu_fc1 = L.TanH(n.fc1, in_place=True)
+    if cfg.fc1_dropout > 0:
+        n.drop1 = L.Dropout(n.fc1, dropout_ratio=cfg.fc1_dropout,
+                            in_place=True)
+    n.fc2 = L.InnerProduct(
+        n.fc1, num_output=cfg.num_classes, weight_filler=dict(type="xavier"),
+        param=[dict(name="fc2-w", lr_mult=1, decay_mult=0),
+               dict(name="fc2-b", lr_mult=2, decay_mult=0)])
+    n.loss = L.SoftmaxWithLoss(n.fc2, n.label)
+    if test:
+        n.prob = L.Softmax(n.fc2)
+        n.mrr = L.MRR(n.prob, n.label, n.group)
+        n.map = L.MAP(n.prob, n.label, n.group)
+        n.auc = L.AUC(n.prob, n.label)
+    return str(n.to_proto())
+
+
+def pycaffe_files(caffe, root: Path, vocab: int, *, xavier: bool = False,
+                  still: bool = False, batch: int = BATCH, test: bool = True,
+                  solver_type: str = "adadelta") -> str:
+    """The NetSpec V4 train net (and test net, its data layer named "dev"
+    so one ``feeds=`` dict feeds both) written into ``root`` beside a
+    solver prototxt with no test interval (the caller tests through
+    ``solver.test_nets``) and no periodic snapshots; returns the solver's
+    path."""
+    import dataclasses
+
+    from mms_answer_selection_tpu_torch.models.mms_qa import V4
+    from mms_answer_selection_tpu_torch.training import SolverConfig
+    from mms_answer_selection_tpu_torch.utils.prototxt import (
+        solver_prototxt_from_config)
+
+    cfg = dataclasses.replace(V4, vocab_size=vocab)
+    if still:
+        cfg = dataclasses.replace(cfg, sim_dropout=0.0, fc1_dropout=0.0)
+    (root / "train.prototxt").write_text(
+        netspec_v4(caffe, cfg, batch=batch, xavier=xavier))
+    (root / "test.prototxt").write_text(
+        netspec_v4(caffe, cfg, phase="test", data="dev", xavier=xavier))
+    solver = recipe_trainer().solver if solver_type == "adadelta" else \
+        SolverConfig(solver_type=solver_type, base_lr=0.1, momentum=0.9,
+                     weight_decay=5e-4)
+    tcfg = dataclasses.replace(
+        recipe_trainer(), max_iter=PYCAFFE_STEPS, test_interval=0,
+        snapshot_interval=0, display=0, snapshot_prefix=str(root / "v4"),
+        solver=dataclasses.replace(solver, max_iter=PYCAFFE_STEPS))
+    (root / "solver.prototxt").write_text(solver_prototxt_from_config(
+        tcfg, train_net="train.prototxt",
+        test_net="test.prototxt" if test else None))
+    return str(root / "solver.prototxt")
+
+
+def db_images(root: Path) -> tuple[Path, np.ndarray]:
+    """DB_IMAGES synthetic 32 x 32 x 3 images as ``.npy`` files (HWC,
+    integers in [0, 255]: uint8 Datums hold them exactly) and their
+    ``path label`` list; a class is a colour and a stripe, under noise, so
+    a small conv net learns it.  Returns (list file, labels)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    labels = rng.integers(0, DB_CLASSES, DB_IMAGES)
+    colours = rng.uniform(40, 215, (DB_CLASSES, 3))
+    imgs = rng.normal(0, 30, (DB_IMAGES, DB_HW, DB_HW, 3)) \
+        + colours[labels][:, None, None, :]
+    for k in range(DB_CLASSES):
+        imgs[labels == k, 3 * k:3 * k + 3, :, :] += 60
+    imgs = np.clip(np.rint(imgs), 0, 255).astype(np.float32)
+    (root / "img").mkdir()
+    rows = []
+    for i, (img, lab) in enumerate(zip(imgs, labels)):
+        np.save(root / "img" / f"{i:05d}.npy", img)
+        rows.append(f"img/{i:05d}.npy {int(lab)}")
+    (root / "list.txt").write_text("\n".join(rows) + "\n")
+    return root / "list.txt", labels
+
+
+def db_net(caffe, source, *, batch: int, phase: str, head: str = "data",
+           deploy: bool = False) -> str:
+    """A small conv net over 3 x 32 x 32 images: a Data layer (``head`` =
+    "data") or an Input layer (``deploy``; Softmax "prob" on top) or a
+    WindowData layer (``head`` = "window", 24 x 24 crops), two conv /
+    ReLU / max-pool blocks, two InnerProducts, SoftmaxWithLoss (and
+    Accuracy in TEST)."""
+    L, P = caffe.layers, caffe.params
+    n = caffe.NetSpec()
+    if deploy:
+        n.data = L.Input(shape=dict(dim=[batch, 3, DB_HW, DB_HW]))
+    elif head == "window":
+        n.data, n.label = L.WindowData(
+            source=str(source), batch_size=batch, fg_threshold=0.5,
+            bg_threshold=0.5, fg_fraction=0.25, context_pad=0,
+            crop_mode="warp", scale=1 / 256,   # window_data_param's
+            transform_param=dict(crop_size=24, mirror=True), ntop=2)
+    else:
+        n.data, n.label = L.Data(
+            source=str(source), batch_size=batch,
+            backend=P.Data.LEVELDB if str(source).endswith("leveldb")
+            else P.Data.LMDB,
+            transform_param=dict(scale=1 / 256), ntop=2)
+    xavier = dict(type="xavier")
+    n.conv1 = L.Convolution(n.data, num_output=16, kernel_size=5, pad=2,
+                            weight_filler=xavier)
+    n.relu1 = L.ReLU(n.conv1, in_place=True)
+    n.pool1 = L.Pooling(n.conv1, pool=P.Pooling.MAX, kernel_size=2,
+                        stride=2)
+    n.conv2 = L.Convolution(n.pool1, num_output=32, kernel_size=5, pad=2,
+                            weight_filler=xavier)
+    n.relu2 = L.ReLU(n.conv2, in_place=True)
+    n.pool2 = L.Pooling(n.conv2, pool=P.Pooling.MAX, kernel_size=2,
+                        stride=2)
+    n.ip1 = L.InnerProduct(n.pool2, num_output=64, weight_filler=xavier)
+    n.relu3 = L.ReLU(n.ip1, in_place=True)
+    n.ip2 = L.InnerProduct(n.ip1, num_output=DB_CLASSES + (head == "window"),
+                           weight_filler=xavier)
+    if deploy:
+        n.prob = L.Softmax(n.ip2)
+        return str(n.to_proto())
+    n.loss = L.SoftmaxWithLoss(n.ip2, n.label)
+    if phase == "test":
+        n.acc = L.Accuracy(n.ip2, n.label)
+    return str(n.to_proto())
+
+
+def pycaffe_phase(dev, card: str, splits, info) -> dict:
+    """The reference QA script's own flow through the pycaffe surface
+    (``caffe_compat``) at V4's widths over the recipe-sized corpus, and the
+    reference's databases and tools on top of it.  It fails unless (1) the
+    NetSpec V4 train and test nets parse as ``net_prototxt_from_config``'s
+    and a ``.caffemodel`` loaded into each gives one loss to 1e-6, (2) one
+    ``solver.step(1)`` under ``set_mode_gpu()`` equals one under
+    ``set_mode_cpu()`` (dropout left out, AdaDelta after an SGD warm
+    start from a xavier W: graph_phase check 2's tolerances), (3) a
+    PYCAFFE_STEPS-step AdaDelta solve in ``solver.step(PYCAFFE_EVERY)``
+    calls from the recipe's W = 0 launches the three pair-map kernels
+    once a step, its train loss falls, the test net's MAP / MRR blobs
+    equal the in-process metrics, ``caffe.Net(test, TEST, weights=
+    snapshot)`` equals the solver's test net, and the ``.data[...] = x``
+    idiom equals ``forward(**x)``, (4) ``convert_imageset`` writes LMDB and
+    LevelDB databases whose first Data-layer batches are equal, a conv
+    net trains on the LMDB through ``solve`` (its loss falls),
+    ``extract_features`` equals ``caffe.Net``'s forward and a WindowData
+    net takes WINDOW_STEPS steps, (5) ``classify``, ``detect``, ``draw``,
+    ``upgrade --binary`` and ``convert`` give what their in-process
+    counterparts give.  Times the pycaffe step against GraphSolver's at
+    PYCAFFE_TIMED batches, the Data feeds and ``classify``.  Returns the
+    solve's launches."""
+    import dataclasses
+    import logging
+    import tempfile
+
+    import numpy as np
+    from torch.autograd import DeviceType
+
+    from mms_answer_selection_tpu_torch import caffe_compat as caffe
+    from mms_answer_selection_tpu_torch.metrics import (
+        mean_average_precision, mean_reciprocal_rank)
+    from mms_answer_selection_tpu_torch.models.graph_net import GraphNet
+    from mms_answer_selection_tpu_torch.models.mms_qa import V4, mms_qa_init
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+    from mms_answer_selection_tpu_torch.training.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from mms_answer_selection_tpu_torch.training.graph_solver import (
+        _build_feed)
+    from mms_answer_selection_tpu_torch.utils.caffemodel import (
+        load_caffemodel_auto, save_caffemodel_binaryproto)
+    from mms_answer_selection_tpu_torch.utils.prototxt import (
+        net_prototxt_from_config, parse_prototxt)
+    from mms_answer_selection_tpu_torch.utils.tree import tree_map
+
+    started = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    vocab = info["vocab_size"]
+    feeds = graph_feeds(splits)
+    cpu = torch.device("cpu")
+    dev_split = splits["dev"]
+    dev_keys = ("question", "answer", "label", "group", "overlap_feat")
+    dev_batch = {k: dev_split[k] for k in dev_keys}
+    caffe.set_mode_gpu()
+
+    def to(tree, where):
+        return tree_map(lambda t: t.to(where), tree)
+
+    # --------------------- (1) NetSpec writes what make_net writes
+    cfg = dataclasses.replace(V4, vocab_size=vocab)
+    for ph, ph2 in (("train", "train"), ("test", "eval")):
+        if parse_prototxt(netspec_v4(caffe, cfg, phase=ph)) != \
+                parse_prototxt(net_prototxt_from_config(cfg, phase=ph2)):
+            raise AssertionError(f"the NetSpec V4 {ph} net differs from "
+                                 f"net_prototxt_from_config's")
+    still = dataclasses.replace(cfg, sim_dropout=0.0, fc1_dropout=0.0,
+                                sim_weight_init="xavier")
+    tp, ts = mms_qa_init(still, generator=torch.Generator().manual_seed(SEED),
+                         device=dev)
+    model = root / "typed.caffemodel"
+    save_caffemodel_binaryproto(str(model), tp, ts)
+    one = {k: v[:BATCH] for k, v in dev_batch.items()}
+    losses1 = []
+    for text in (netspec_v4(caffe, still, phase="test", data="dev"),
+                 net_prototxt_from_config(still, phase="eval")):
+        (root / "n1.prototxt").write_text(text)
+        net = caffe.Net(str(root / "n1.prototxt"), caffe.TEST,
+                        weights=str(model))
+        losses1.append(float(net.forward(**one)["loss"]))
+    log(f"check NetSpec V4 nets: train and test parse as "
+        f"net_prototxt_from_config's; one .caffemodel in both test nets "
+        f"(batch {BATCH}): loss {losses1[0]:.7f} vs {losses1[1]:.7f} (tol "
+        f"1e-6)")
+    if abs(losses1[0] - losses1[1]) > 1e-6:
+        raise AssertionError("the NetSpec net's loss differs")
+    del tp, ts, net
+
+    # ------------------------------ (2) a pycaffe step, card = CPU
+    (root / "warm").mkdir()
+    (root / "step").mkdir()
+    caffe.set_mode_cpu()
+    warm = caffe.SGDSolver(pycaffe_files(
+        caffe, root / "warm", vocab, xavier=True, still=True, test=False,
+        solver_type="sgd"), feeds=feeds)
+    warm.step(GRAPH_WARM_STEPS)
+    path = pycaffe_files(caffe, root / "step", vocab, xavier=True,
+                         still=True, test=False)
+    stepped = []
+    for mode in (caffe.set_mode_cpu, caffe.set_mode_gpu):
+        mode()
+        s = caffe.get_solver(path, feeds=feeds)
+        s.net.params = warm.net.params
+        s._gs.state = to(warm._gs.state, s._gs.device)
+        s.step(1)
+        stepped.append((float(s.net.blobs["loss"].data), s._gs.device,
+                        to(s.net.params, cpu)))
+    (c_loss, c_dev, c_p), (g_loss, g_dev, g_p) = stepped
+    loss_rel = abs(g_loss / c_loss - 1)
+    worst, where = graph_params_close(g_p, c_p, 2 * 2 * ADADELTA_STEP)
+    log(f"check pycaffe solver.step(1) under set_mode_gpu ({g_dev}) vs "
+        f"set_mode_cpu ({c_dev}) (NetSpec V4 net without its dropout, "
+        f"batch {BATCH}, AdaDelta after {GRAPH_WARM_STEPS} SGD steps from a "
+        f"xavier W): loss {g_loss:.6f}, rel err {loss_rel:.3e} (tol 1e-5); "
+        f"params max diff {worst:.3e} of the leaf's max at {where} (tol "
+        f"1e-4; conv biases within {2 * 2 * ADADELTA_STEP:.3e})")
+    if c_dev.type != "cpu" or g_dev.type != dev.type or loss_rel > 1e-5 \
+            or worst > 1e-4:
+        raise AssertionError("a pycaffe step differs between card and CPU")
+    del warm, stepped, s
+
+    # ------------------------- (3) the recipe's solve through pycaffe
+    (root / "recipe").mkdir()
+    path = pycaffe_files(caffe, root / "recipe", vocab)
+    solver = caffe.get_solver(path, feeds=feeds)
+    if solver._gs.device.type != dev.type:
+        raise AssertionError("get_solver did not run on the card")
+    losses = []
+    solver.add_callback(lambda: None, lambda: losses.append(
+        solver._gs.last_outs["loss"]))
+    launches = dict.fromkeys(sk.LAUNCH_COUNTS, 0)
+    reads, tests = [], []
+    t_solve = 0.0
+    for _ in range(PYCAFFE_STEPS // PYCAFFE_EVERY):
+        for name in sk.LAUNCH_COUNTS:
+            sk.LAUNCH_COUNTS[name] = 0
+        t0 = time.perf_counter()
+        solver.step(PYCAFFE_EVERY)
+        torch.cuda.synchronize()
+        t_solve += time.perf_counter() - t0
+        window = dict(sk.LAUNCH_COUNTS)
+        for name, n in window.items():
+            launches[name] += n
+        if any(window[k] != PYCAFFE_EVERY for k in CLI_TRAIN_KERNELS):
+            raise AssertionError(f"{PYCAFFE_EVERY} pycaffe steps launched "
+                                 f"{window}")
+        reads.append(float(solver.net.blobs["loss"].data))
+        out = solver.test_nets[0].forward()
+        tests.append({k: float(out[k]) for k in ("loss", "map", "mrr")})
+    losses = [float(x) for x in losses]
+    win = max(1, PYCAFFE_STEPS // 15)
+    first, last = np.mean(losses[:win]), np.mean(losses[-win:])
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"the pycaffe train loss did not fall: "
+                             f"{first} -> {last}")
+    before = dict(sk.LAUNCH_COUNTS)
+    tv = solver.test_nets[0]
+    out = tv.forward()
+    torch.cuda.synchronize()
+    test_launch = {k: sk.LAUNCH_COUNTS[k] - before[k] for k in before}
+    if test_launch["pair_maps_fwd"] < 1 or test_launch["pair_maps_bwd_w"] \
+            or test_launch["pair_maps_bwd_qa"]:
+        raise AssertionError(f"a test-net forward launched {test_launch}")
+    scores = tv.blobs["prob"].data[:, 1].astype(np.float64)
+    np_map = mean_average_precision(scores, dev_split["label"],
+                                    dev_split["group"])
+    np_mrr = mean_reciprocal_rank(scores, dev_split["label"],
+                                  dev_split["group"])
+    model_path, state_path = solver.snapshot()
+    log(f"pycaffe solve (NetSpec V4 nets, the recipe's W = 0, batch "
+        f"{BATCH}, solver.step({PYCAFFE_EVERY}) x "
+        f"{PYCAFFE_STEPS // PYCAFFE_EVERY}): {t_solve:.3f} s, train loss "
+        f"{first:.4f} -> {last:.4f} (means of the first and last {win}), "
+        f"net.blobs['loss'].data after each call "
+        f"{[round(x, 4) for x in reads]}, test_nets[0] {tests}; a test-net "
+        f"forward launched {test_launch}; MAP blob {float(out['map']):.6f} "
+        f"vs in-process {np_map:.6f}, MRR blob {float(out['mrr']):.6f} vs "
+        f"{np_mrr:.6f} (tol 1e-6); snapshot {Path(model_path).name} [{card}]")
+    if abs(float(out["map"]) - np_map) > 1e-6 \
+            or abs(float(out["mrr"]) - np_mrr) > 1e-6:
+        raise AssertionError("the test net's MAP / MRR disagree with the "
+                             "in-process metrics")
+    net = caffe.Net(str(root / "recipe" / "test.prototxt"), caffe.TEST,
+                    weights=model_path)
+    # a forward returns its output blobs, which the next forward refreshes
+    # (pycaffe's views): read them now
+    got = {k: float(v) for k, v in net.forward(**dev_batch).items()}
+    want = {k: float(v) for k, v in solver.test_nets[0].forward().items()}
+    diffs = {k: abs(got[k] - want[k]) for k in ("loss", "map", "mrr", "auc")}
+    diffs["prob"] = float(np.abs(net.blobs["prob"].data
+                                 - tv.blobs["prob"].data).max())
+    shuffled = dict(dev_batch, answer=np.roll(dev_batch["answer"], 1, 0))
+    for k, v in shuffled.items():
+        net.blobs[k].data[...] = v
+    idiom = {k: float(v) for k, v in net.forward().items()}
+    direct = {k: float(v) for k, v in net.forward(**shuffled).items()}
+    log(f"check caffe.Net(test.prototxt, caffe.TEST, weights="
+        f"{Path(model_path).name}).forward(dev) vs solver.test_nets[0]: max "
+        f"abs diff {diffs} (tol 1e-6); net.blobs[...].data[...] = x; "
+        f"forward(): {idiom} vs forward(**x): {direct} (answers rolled; "
+        f"before {got})")
+    if max(diffs.values()) > 1e-6 or idiom != direct \
+            or idiom["loss"] == got["loss"]:
+        raise AssertionError("caffe.Net on the snapshot differs from the "
+                             "solver's test net, or the .data idiom")
+    del net, solver, tv
+
+    # ------------------------------------------------ (4) the databases
+    (root / "db").mkdir()
+    listfile, labels = db_images(root / "db")
+    convert_s = {}
+    for backend in ("lmdb", "leveldb"):
+        t0 = time.perf_counter()
+        run_cli(["convert_imageset", str(root / "db"), str(listfile),
+                 str(root / "db" / backend), "--backend", backend])
+        convert_s[backend] = time.perf_counter() - t0
+    first_batch = {}
+    for backend in ("lmdb", "leveldb"):
+        (root / "db" / f"{backend}.prototxt").write_text(db_net(
+            caffe, root / "db" / backend, batch=DB_BATCH, phase="test"))
+        net = caffe.Net(str(root / "db" / f"{backend}.prototxt"), caffe.TEST)
+        net.forward()
+        first_batch[backend] = (net.blobs["data"].data.copy(),
+                                net.blobs["label"].data.copy())
+    (ld, ll), (vd, vl) = first_batch["lmdb"], first_batch["leveldb"]
+    if not (np.array_equal(ld, vd) and np.array_equal(ll, vl)
+            and np.array_equal(ll, labels[:DB_BATCH])):
+        raise AssertionError("the LMDB and LevelDB first batches differ")
+    feed_rate = {}
+    for backend in ("lmdb", "leveldb"):
+        cfg_ = parse_prototxt(db_net(caffe, root / "db" / backend,
+                                     batch=DB_BATCH, phase="train"))
+        feed = _build_feed(cfg_["layer"][0], "train", SEED, str(root), None)
+        n_b = DB_IMAGES // DB_BATCH
+        t0 = time.perf_counter()
+        for _ in range(n_b):
+            next(feed)
+        feed_rate[backend] = n_b * DB_BATCH / (time.perf_counter() - t0)
+    (root / "db" / "train.prototxt").write_text(db_net(
+        caffe, root / "db" / "lmdb", batch=DB_BATCH, phase="train"))
+    (root / "db" / "solver.prototxt").write_text(
+        'net: "train.prototxt"\nbase_lr: 0.01\nmomentum: 0.9\n'
+        'lr_policy: "fixed"\ntype: "SGD"\n'
+        f'max_iter: {DB_STEPS}\ndisplay: 20\naverage_loss: 20\n'
+        f'snapshot_prefix: "db"\nrandom_seed: {SEED}\n')
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    glog = logging.getLogger("mms_tpu_torch.graph_solver")
+    glog.addHandler(handler)
+    glog.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        res = json.loads(run_cli(["solve", "--solver",
+                                  str(root / "db" / "solver.prototxt"),
+                                  "--device", "cuda"])[-1])
+        db_solve_s = time.perf_counter() - t0
+    finally:
+        glog.removeHandler(handler)
+    shown = [float(m.rsplit("=", 1)[1]) for m in records
+             if m.startswith("Iteration") and "loss =" in m]
+    snap = root / "db" / f"db_iter_{DB_STEPS}.caffemodel"
+    log(f"databases: {DB_IMAGES} images of 3 x {DB_HW} x {DB_HW} through "
+        f"cli convert_imageset in {convert_s['lmdb']:.3f} s (lmdb) / "
+        f"{convert_s['leveldb']:.3f} s (leveldb); the Data layer's first "
+        f"batch of {DB_BATCH} equal in both, bit for bit; cli solve of a "
+        f"conv net on the LMDB: {DB_STEPS} steps in {db_solve_s:.3f} s, "
+        f"smoothed loss {[round(x, 4) for x in shown]} -> {res['loss']:.4f} "
+        f"[{card}]")
+    if not snap.exists() or not np.isfinite(res["loss"]) \
+            or not res["loss"] < shown[0]:
+        raise AssertionError("the Data-layer net did not train")
+    (root / "db" / "test.prototxt").write_text(db_net(
+        caffe, root / "db" / "lmdb", batch=DB_BATCH, phase="test"))
+    run_cli(["extract_features", "--model", str(root / "db" / "test.prototxt"),
+             "--weights", str(snap), "--blobs", "ip2", "--iterations",
+             "2", "--out", str(root / "feat"), "--device", "cuda"])
+    net = caffe.Net(str(root / "db" / "test.prototxt"), caffe.TEST,
+                    weights=str(snap))
+    ref = []
+    for _ in range(2):
+        net.forward()
+        ref.append(net.blobs["ip2"].data.copy())
+    got = np.load(root / "feat" / "ip2.npy")
+    feat_err = float(np.abs(got - np.concatenate(ref)).max())
+    acc = float((got.argmax(1) == labels[:2 * DB_BATCH]).mean())
+    log(f"check cli extract_features ip2 over 2 batches vs caffe.Net("
+        f"weights=db_iter_{DB_STEPS}.caffemodel).forward() x 2: max abs diff "
+        f"{feat_err:.3e} (tol 1e-6); test accuracy {acc:.4f}")
+    if got.shape != (2 * DB_BATCH, DB_CLASSES) or feat_err > 1e-6:
+        raise AssertionError("extract_features differs from caffe.Net")
+    rows = []
+    for i in range(WINDOW_IMAGES):
+        lab = int(labels[i]) + 1
+        rows += [f"# {i}", str(root / "db" / "img" / f"{i:05d}.npy"), "3",
+                 str(DB_HW), str(DB_HW), "3",
+                 f"{lab} 1.0 0 0 {DB_HW - 1} {DB_HW - 1}",
+                 f"{lab} 0.8 2 2 {DB_HW - 3} {DB_HW - 3}",
+                 f"{lab} 0.1 0 0 8 8"]
+    (root / "db" / "windows.txt").write_text("\n".join(rows) + "\n")
+    (root / "db" / "window.prototxt").write_text(db_net(
+        caffe, root / "db" / "windows.txt", batch=32, phase="train",
+        head="window"))
+    (root / "db" / "window_solver.prototxt").write_text(
+        'net: "window.prototxt"\nbase_lr: 0.01\nmomentum: 0.9\n'
+        f'lr_policy: "fixed"\ntype: "SGD"\nmax_iter: {WINDOW_STEPS}\n'
+        f'snapshot_prefix: "win"\nrandom_seed: {SEED}\n')
+    ws = caffe.get_solver(str(root / "db" / "window_solver.prototxt"))
+    t0 = time.perf_counter()
+    ws.step(WINDOW_STEPS)
+    torch.cuda.synchronize()
+    win_s = time.perf_counter() - t0
+    win_loss = float(ws.net.blobs["loss"])
+    log(f"WindowData net over {WINDOW_IMAGES} images x 3 windows: "
+        f"{WINDOW_STEPS} steps in {win_s:.3f} s, loss {win_loss:.4f} "
+        f"[{card}]")
+    if ws.iter != WINDOW_STEPS or not np.isfinite(win_loss):
+        raise AssertionError("the WindowData net did not step")
+    del ws, net
+
+    # ------------------------------------------------------ (5) the tools
+    tools = root / "tools"
+    tools.mkdir()
+    run_cli(["image_mean", str(listfile), "--root", str(root / "db"),
+             "--out", str(tools / "mean.binaryproto")])
+    (tools / "deploy.prototxt").write_text(db_net(
+        caffe, None, batch=10, phase="test", deploy=True))
+    imgs = np.stack([np.load(root / "db" / "img" / f"{i:05d}.npy")
+                     for i in range(CLASSIFY_IMAGES)])
+    np.save(tools / "imgs.npy", imgs)
+    run_cli(["classify", str(tools / "imgs.npy"), str(tools / "pred.npy"),
+             "--model-def", str(tools / "deploy.prototxt"),
+             "--pretrained-model", str(snap), "--images-dim", "36,36",
+             "--mean-file", str(tools / "mean.binaryproto"),
+             "--raw-scale", "1", "--device", "cuda"])
+    from mms_answer_selection_tpu_torch.cli import _load_mean
+
+    clf = caffe.Classifier(str(tools / "deploy.prototxt"), str(snap),
+                           image_dims=(36, 36),
+                           mean=_load_mean(str(tools / "mean.binaryproto")),
+                           raw_scale=1.0, channel_swap=(2, 1, 0))
+    pred = clf.predict(list(imgs), oversample=True)
+    cls_err = float(np.abs(np.load(tools / "pred.npy") - pred).max())
+    cls_ms = sync_ms(lambda: clf.predict(list(imgs), oversample=True), 5)
+    rows = ["filename,ymin,xmin,ymax,xmax"]
+    for i in range(4):
+        f = root / "db" / "img" / f"{i:05d}.npy"
+        rows += [f"{f},0,0,31,31", f"{f},4,2,27,30"]
+    (tools / "windows.csv").write_text("\n".join(rows) + "\n")
+    run_cli(["detect", str(tools / "windows.csv"), str(tools / "det.npz"),
+             "--model-def", str(tools / "deploy.prototxt"),
+             "--pretrained-model", str(snap), "--crop-mode", "list",
+             "--context-pad", "4", "--raw-scale", "1", "--device", "cuda"])
+    det = caffe.Detector(str(tools / "deploy.prototxt"), str(snap),
+                         raw_scale=1.0, channel_swap=(2, 1, 0),
+                         context_pad=4)
+    by_file = {}
+    for r in rows[1:]:
+        f, *box = r.split(",")
+        by_file.setdefault(f, []).append(np.array([int(x) for x in box]))
+    dets = det.detect_windows(sorted(by_file.items()))
+    got = np.load(tools / "det.npz")
+    det_err = float(np.abs(got["predictions"] - np.stack(
+        [d["prediction"] for d in dets])).max())
+    dot = run_cli(["draw", "--net", str(root / "recipe" / "train.prototxt")])
+    names = [la["name"] for la in parse_prototxt(
+        (root / "recipe" / "train.prototxt").read_text())["layer"]]
+    missing = [n for n in names if n not in "\n".join(dot)]
+    run_cli(["upgrade", "--binary", model_path, str(tools / "up.caffemodel")])
+    rt = GraphNet((root / "recipe" / "test.prototxt").read_text(),
+                  phase="test")
+    p0, s0 = rt.init(torch.Generator(), {k: torch.as_tensor(v[:BATCH])
+                                         for k, v in dev_batch.items()},
+                     device=cpu)
+    specs = rt.caffemodel_specs(p0, s0)
+    a = load_caffemodel_auto(model_path, p0, s0, specs=specs)
+    b = load_caffemodel_auto(str(tools / "up.caffemodel"), p0, s0,
+                             specs=specs)
+    up_same = all(torch.equal(x, y) for x, y in zip(
+        *(list(_leaves(t[:2])) for t in (a, b))))
+    tp, ts = mms_qa_init(cfg, generator=torch.Generator().manual_seed(SEED),
+                         device=cpu)
+    ck = save_checkpoint(str(tools / "ckpt"), 7,
+                         {"params": tp, "state": ts})
+    (tools / "data").mkdir()
+    (tools / "data" / "meta.json").write_text(json.dumps(
+        {"vocab_size": vocab, "unknown_idx": 0, "pad_idx": vocab - 1,
+         "dim": cfg.embed_dim, "q_len": cfg.question_len,
+         "a_len": cfg.answer_len}))
+    np.savez(tools / "data" / "vocab.npz", pretrained=np.zeros((1, D)),
+             words=np.asarray(["x"]))
+    run_cli(["convert", "--ckpt", ck, "--out", str(tools / "v4.caffemodel")])
+    run_cli(["convert", "--caffemodel", str(tools / "v4.caffemodel"),
+             "--data", str(tools / "data"), "--out", str(tools / "back")])
+    back, _ = load_checkpoint(str(tools / "back" / "imported_iter_0"))
+    conv_same = all(np.array_equal(x, y.numpy()) for x, y in zip(
+        _leaves((back["params"], back["state"])), _leaves((tp, ts))))
+    log(f"check tools: classify {CLASSIFY_IMAGES} .npy images (10-crop "
+        f"oversample, mean.binaryproto from image_mean) vs Classifier."
+        f"predict: max abs diff {cls_err:.3e} (tol 1e-6); detect "
+        f"--crop-mode list over {len(rows) - 1} windows vs detect_windows: {det_err:.3e} (tol 1e-6); draw names "
+        f"every layer: {not missing}; upgrade --binary of "
+        f"{Path(model_path).name} reads back as the same weights: {up_same};"
+        f" convert of a typed V4 checkpoint to .caffemodel and back, bit for "
+        f"bit: {conv_same}")
+    if cls_err > 1e-6 or det_err > 1e-6 or missing or not up_same \
+            or not conv_same:
+        raise AssertionError("a tool differs from its in-process "
+                             "counterpart")
+    del clf, det
+
+    # ------------------------------------------------ (6) times, in turns
+    for bsz in PYCAFFE_TIMED:
+        (root / f"t{bsz}").mkdir()
+        s = caffe.get_solver(pycaffe_files(caffe, root / f"t{bsz}", vocab,
+                                           batch=bsz, test=False),
+                             feeds=graph_feeds(splits, bsz))
+        gs = s._gs
+        reps = max(10, 1000 // bsz)
+        pyc = lambda: s.step(1)                          # noqa: E731
+        gstep = lambda: gs._train_step()                 # noqa: E731
+        times = [sync_ms(pyc, reps), sync_ms(gstep, reps),
+                 sync_ms(gstep, reps), sync_ms(pyc, reps)]
+        before = dict(sk.LAUNCH_COUNTS)
+        pyc()
+        torch.cuda.synchronize()
+        step_launch = {k: sk.LAUNCH_COUNTS[k] - before[k] for k in before
+                       if sk.LAUNCH_COUNTS[k] != before[k]}
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as pr:
+            pyc()
+            torch.cuda.synchronize()
+        rows_ = [e for e in pr.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in rows_) / 1e3
+        p_ms = (times[0] + times[3]) / 2
+        log(f"time pycaffe solver.step(1) (NetSpec V4 net) vs GraphSolver "
+            f"step (_train_step) on the same solver, batch {bsz}: pycaffe "
+            f"p50 {p_ms:.3f} ms, GraphSolver {(times[1] + times[2]) / 2:.3f} "
+            f"ms (means of each one's two turns: "
+            f"{[round(x, 3) for x in times]}, pycaffe, GraphSolver, "
+            f"GraphSolver, pycaffe); a pycaffe step launched {step_launch}; "
+            f"profiler: {sum(e.count for e in rows_)} device ops, "
+            f"{busy:.3f} ms device time, idle {max(0.0, 1 - busy / p_ms):.1%}"
+            f" [{card}]")
+        if any(step_launch.get(k) != 1 for k in CLI_TRAIN_KERNELS):
+            raise AssertionError(f"a pycaffe step launched {step_launch}")
+        del s, gs
+    log(f"time Data feeds on the host ({DB_IMAGES} images in batches of "
+        f"{DB_BATCH}, decode + transform): LMDB {feed_rate['lmdb']:.1f} "
+        f"images/s, LevelDB {feed_rate['leveldb']:.1f} images/s; classify "
+        f"(Classifier.predict, 10-crop oversample, 3 x 32 x 32 crops): "
+        f"{CLASSIFY_IMAGES} images p50 {cls_ms:.3f} ms, "
+        f"{CLASSIFY_IMAGES / cls_ms * 1e3:.1f} images/s [{card}]")
+    caffe.set_mode_gpu()
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    log(f"pycaffe phase: {time.perf_counter() - started:.1f} s")
+    return launches
+
+
+def _leaves(tree):
+    """A tree's leaves (dicts, tuples), in key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            yield from _leaves(x)
+    else:
+        yield tree
+
+
 def planted_batch(gen, dev, n: int, cfg):
     """A caption training batch of the planted-signal corpus, made on the
     device from ``gen``: caption token f everywhere, the positive image
@@ -2317,6 +3009,7 @@ def main() -> int:
                      if k not in MAXSIM})
     cli_phase(dev, card)
     graph = graph_phase(dev, card, splits, info)
+    pycaffe = pycaffe_phase(dev, card, splits, info)
     del splits, info
 
     # ---------------------------------------------------------------- times
@@ -2364,6 +3057,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mm = multimodal_phase(sk, normal, dev, card, max_err)
     log(f"launches on the generic path: {json.dumps(graph)}")
+    log(f"launches on the pycaffe path: {json.dumps(pycaffe)}")
     log(f"launches on the multimodal path: {json.dumps(mm)}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
         f"GiB; run {time.perf_counter() - started:.1f} s, build included")

@@ -17,7 +17,11 @@ the published MAP/MRR), ``image_mean`` (a mean-file BlobProto) and
 ``.caffemodel`` / ``.solverstate`` snapshots) and ``nettest`` (``caffe
 test``); ``train`` also takes a reference ``--solver-prototxt`` /
 ``--net-prototxt`` and ``.caffemodel`` / ``.solverstate`` files for
-``--weights`` / ``--resume``.
+``--weights`` / ``--resume``.  The reference's tools around its
+databases and pycaffe: ``convert`` (checkpoints <-> ``.caffemodel``),
+``upgrade`` (legacy prototxts and binary nets), ``convert_imageset`` (an
+image list -> LMDB / LevelDB / HDF5), ``extract_features``, ``classify``,
+``detect`` and ``draw``.
 
 The commands that run a model take ``--device`` (default ``cuda``, which
 raises where no card is present; ``cpu`` runs the plain PyTorch paths).
@@ -569,6 +573,29 @@ def cmd_solve(args):
                       "last_test": tests}))
 
 
+def _test_feeds(net, model_path: str, seed: int) -> list:
+    """Fresh TEST-phase feeds of ``net``'s data layers, their sources
+    resolved beside the prototxt at ``model_path``."""
+    from .models.graph_net import DATA_TYPES
+    from .training.graph_solver import _build_feed
+
+    base_dir = os.path.dirname(os.path.abspath(model_path))
+    return [f for f in (_build_feed(n.cfg, "test", seed, base_dir, None)
+                        for n in net.layers if n.type in DATA_TYPES)
+            if f is not None]
+
+
+def _next_batch(feeds, device) -> dict:
+    """Every feed's next batch, merged, as tensors on ``device``."""
+    import torch
+
+    batch = {}
+    for f in feeds:
+        batch.update(next(f))
+    return {k: torch.as_tensor(np.asarray(v), device=device)
+            for k, v in batch.items()}
+
+
 def cmd_nettest(args):
     """The reference's `caffe test`: score any net prototxt in TEST phase
     for N iterations with given weights, averaging every output-blob
@@ -576,33 +603,16 @@ def cmd_nettest(args):
     import torch
 
     from .device import resolve_device
-    from .models.graph_net import DATA_TYPES, GraphNet
-    from .training.graph_solver import _build_feed
+    from .models.graph_net import GraphNet
 
     device = resolve_device(args.device)
     with open(args.model) as f:
         net = GraphNet(f.read(), phase="test")
-    base_dir = os.path.dirname(os.path.abspath(args.model))
-
-    def make_feeds():
-        return [f for f in
-                (_build_feed(n.cfg, "test", 0, base_dir, None)
-                 for n in net.layers if n.type in DATA_TYPES)
-                if f is not None]
-
-    feeds = make_feeds()
-
-    def next_batch():
-        batch = {}
-        for f in feeds:
-            batch.update(next(f))
-        return {k: torch.as_tensor(np.asarray(v), device=device)
-                for k, v in batch.items()}
-
-    example = next_batch() if feeds else {}
+    feeds = _test_feeds(net, args.model, 0)
+    example = _next_batch(feeds, device)
     params, state = net.init(torch.Generator().manual_seed(0), example,
                              device=device)
-    feeds = make_feeds()  # init only peeked for shapes; score batch 0
+    feeds = _test_feeds(net, args.model, 0)  # init only peeked for shapes
     if args.weights:
         from .utils.caffemodel import load_caffemodel_auto
         params, state, report = load_caffemodel_auto(
@@ -615,7 +625,7 @@ def cmd_nettest(args):
     with torch.no_grad():
         for _ in range(args.iterations):
             blobs, _ = net.apply(params, state,
-                                 next_batch() if feeds else {},
+                                 _next_batch(feeds, device),
                                  train=False)
             out = {t: blobs[t].to(torch.float32) for t in names}
             loss += sum(w * float(torch.sum(out[t]))
@@ -634,6 +644,393 @@ def cmd_nettest(args):
         result[name] = mean.tolist() if mean.size > 1 else float(mean[0])
     result["loss"] = loss / args.iterations
     print(json.dumps(result))
+
+
+# -------------------------------------------------- the reference's tools
+def cmd_convert(args):
+    """Weight-format conversion, both directions:
+
+    export: convert --ckpt DIR --out model.caffemodel[.h5]
+    import: convert --caffemodel model.caffemodel[.h5] --data DIR --out CKPT_DIR
+
+    The reference's Net::ToProto / ToHDF5 and CopyTrainedLayersFrom layouts
+    (net.cpp:797-913); ``--out x.prototxt`` writes the config as the
+    reference's train / eval / solver prototxts, and ``--out
+    x.solverstate[.h5]`` a resumable pair.  HDF5 files need h5py;
+    binaryproto files do not."""
+    import torch
+
+    from .training.checkpoint import load_checkpoint, save_checkpoint
+    from .utils.caffemodel import (load_caffemodel_auto,
+                                   save_caffemodel_binaryproto,
+                                   save_caffemodel_h5)
+
+    if args.caffemodel:  # import
+        from .models.mms_qa import mms_qa_init
+
+        splits, meta, vocab = _load_prepped(args.data)
+        args.exp = args.exp or args.out  # default snapshot root
+        model_cfg, trainer_cfg = _experiment_configs(args, meta)
+        params, state = mms_qa_init(
+            model_cfg, generator=torch.Generator().manual_seed(
+                trainer_cfg.seed), device="cpu")
+        # dispatch on the HDF5 magic: files get renamed, content beats names
+        params, state, report = load_caffemodel_auto(args.caffemodel,
+                                                     params, state)
+        loaded = sum(1 for v in report.values() if v == "loaded")
+        save_checkpoint(args.out, 0, {"params": params, "state": state},
+                        prefix="imported",
+                        meta={"source": args.caffemodel})
+        print(json.dumps({"imported": loaded,
+                          "report": report, "out": args.out}))
+    elif args.out.endswith(".prototxt"):
+        # our typed config -> the reference prototxt trio (train net, eval
+        # net with metric heads, solver): do_trec_qa_clean.py:350-615
+        from .utils.config import experiment_from_json
+        from .utils.prototxt import (net_prototxt_from_config,
+                                     solver_prototxt_from_config)
+
+        cfg_path = args.config or (
+            os.path.join(args.exp, "config.json") if args.exp else None)
+        if not cfg_path or not os.path.exists(cfg_path):
+            sys.exit("prototxt export needs --config (or --exp with a "
+                     "saved config.json)")
+        with open(cfg_path) as f:
+            model_cfg, trainer_cfg = experiment_from_json(f.read())
+        base = args.out[: -len(".prototxt")]
+        with open(args.out, "w") as f:
+            f.write(net_prototxt_from_config(
+                model_cfg, batch_size=trainer_cfg.batch_size))
+        with open(base + "_eval.prototxt", "w") as f:
+            f.write(net_prototxt_from_config(model_cfg, phase="eval"))
+        with open(base + "_solver.prototxt", "w") as f:
+            f.write(solver_prototxt_from_config(
+                trainer_cfg, train_net=os.path.basename(args.out)))
+        print(json.dumps({"exported": [args.out,
+                                       base + "_eval.prototxt",
+                                       base + "_solver.prototxt"]}))
+    else:  # export
+        if not args.ckpt:
+            sys.exit("convert needs --ckpt (export) or --caffemodel "
+                     "(import)")
+        bundle, meta = load_checkpoint(args.ckpt)
+        if args.out.endswith((".solverstate", ".solverstate.h5")):
+            # OUT.solverstate[.h5] + a sibling .caffemodel[.h5] (what
+            # `caffe train -snapshot` reads), format by suffix
+            from .utils.caffemodel import (save_solverstate_binaryproto,
+                                           save_solverstate_h5)
+            if "opt_state" not in bundle:
+                sys.exit("checkpoint has no opt_state (training snapshot "
+                         "required for a .solverstate export)")
+            h5 = args.out.endswith(".h5")
+            stem = args.out[: -len(".solverstate.h5" if h5
+                                   else ".solverstate")]
+            weights = stem + (".caffemodel.h5" if h5 else ".caffemodel")
+            (save_caffemodel_h5 if h5 else save_caffemodel_binaryproto)(
+                weights, bundle["params"], bundle.get("state") or {})
+            (save_solverstate_h5 if h5 else save_solverstate_binaryproto)(
+                args.out, bundle["params"], bundle.get("state") or {},
+                bundle["opt_state"], int(meta.get("step", 0)) + 1,
+                learned_net=os.path.basename(weights))
+            print(json.dumps({"exported": args.out, "weights": weights}))
+        else:
+            saver = save_caffemodel_h5 if args.out.endswith(".h5") \
+                else save_caffemodel_binaryproto
+            saver(args.out, bundle["params"], bundle.get("state") or {})
+            print(json.dumps({"exported": args.out}))
+
+
+def cmd_draw(args):
+    """`draw_net.py`: net prototxt -> Graphviz DOT text
+    (python/caffe/draw.py get_pydot_graph; render with any dot tool)."""
+    from .utils.draw import net_to_dot
+
+    with open(args.net) as f:
+        text = f.read()
+    dot = net_to_dot(text, phase=args.phase, rankdir=args.rankdir)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(dot)
+        print(f"wrote {args.out}")
+    else:
+        print(dot, end="")
+
+
+def cmd_convert_imageset(args):
+    """tools/convert_imageset.cpp: a `path label` list -> a dataset the
+    data layers read: uint8 Datums in an LMDB or LevelDB (the reference's
+    artifact, read by Data layers), or chunked HDF5 + a list file for
+    HDF5Data layers.  Only the hdf5 backend needs h5py."""
+    from .data.pair_image import load_image
+
+    with open(args.listfile) as f:
+        rows = [(ln.rsplit(None, 1)[0], float(ln.rsplit(None, 1)[1]))
+                for ln in (s.strip() for s in f) if ln]
+    if not rows:
+        raise SystemExit(f"empty image list {args.listfile}")
+    if args.shuffle:
+        # convert_imageset.cpp:58-62 shuffles the LINES once up front
+        np.random.default_rng(args.seed).shuffle(rows)
+
+    imgs, labels = [], []
+    shape = None
+    for path, label in rows:
+        arr = load_image(os.path.join(args.root, path),
+                         new_height=args.resize_height,
+                         new_width=args.resize_width,
+                         is_color=not args.gray)
+        if shape is None:
+            shape = arr.shape
+        elif arr.shape != shape and args.backend == "hdf5":
+            # HDF5 rows must stack (Datums may differ row by row)
+            raise SystemExit(
+                f"{path}: shape {arr.shape} != first image {shape} "
+                "(use --resize-height/--resize-width)")
+        imgs.append(arr)
+        labels.append(label)
+
+    if args.backend in ("lmdb", "leveldb"):
+        # uint8 (C, H, W) Datums keyed "%08d_%path"
+        # (convert_imageset.cpp:140-156), in either DB
+        from .utils.io import array_to_datum
+
+        entries = []
+        for i, ((path, label), arr) in enumerate(zip(rows, imgs)):
+            chw = np.transpose(np.clip(arr, 0, 255).astype(np.uint8),
+                               (2, 0, 1))
+            entries.append((f"{i:08d}_{path}".encode(),
+                            array_to_datum(chw, int(label))))
+        if args.backend == "lmdb":
+            from .utils.lmdb_io import write_lmdb
+            out = write_lmdb(args.out, entries)
+        else:
+            from .utils.leveldb_io import write_leveldb
+            out = write_leveldb(args.out, entries, sst=True)
+        print(f"Processed {len(rows)} files.")
+        print(f"wrote {out}")
+        return
+
+    import h5py
+
+    os.makedirs(args.out, exist_ok=True)
+    data = np.stack(imgs).astype(np.float32)
+    lab = np.asarray(labels, np.float64)
+    list_path = os.path.join(args.out, f"{args.name}.txt")
+    with open(list_path, "w") as lf:
+        for i in range(0, len(rows), args.chunk_rows):
+            path = os.path.join(args.out,
+                                f"data{i // args.chunk_rows}.h5")
+            with h5py.File(path, "w") as h5:
+                h5["data"] = data[i:i + args.chunk_rows]
+                h5["label"] = lab[i:i + args.chunk_rows]
+            lf.write(path + "\n")
+    print(f"Processed {len(rows)} files.")
+    print(f"wrote {list_path}")
+
+
+def cmd_extract_features(args):
+    """tools/extract_features.cpp: run a net in TEST phase for N
+    mini-batches with trained weights, saving each named blob's values
+    (one .npy per blob, concatenated over batches; the reference writes
+    one LMDB per blob instead)."""
+    import torch
+
+    from .device import resolve_device
+    from .models.graph_net import GraphNet
+    from .training.trainer import derive_seed
+
+    device = resolve_device(args.device)
+    with open(args.model) as f:
+        net = GraphNet(f.read(), phase="test")
+    blob_names = [b for b in args.blobs.split(",") if b]
+    known = set(net.input_names)
+    for node in net.layers:
+        known.update(node.tops)
+    for b in blob_names:
+        if b not in known:  # extract_features.cpp:93's has_blob CHECK
+            raise SystemExit(f"Unknown feature blob name {b} in the "
+                             f"network {args.model}")
+
+    feeds = _test_feeds(net, args.model, args.seed)
+    params, state = net.init(torch.Generator().manual_seed(args.seed),
+                             _next_batch(feeds, device), device=device)
+    if args.weights:
+        from .utils.caffemodel import load_caffemodel_auto
+
+        params, state, _ = load_caffemodel_auto(
+            args.weights, params, state,
+            specs=net.caffemodel_specs(params, state))
+    # init only peeked for shapes: restart at batch 0
+    feeds = _test_feeds(net, args.model, args.seed)
+    gen = torch.Generator(device=device)
+    acc: dict = {b: [] for b in blob_names}
+    with torch.no_grad():
+        for i in range(args.iterations):
+            gen.manual_seed(derive_seed(args.seed, 0xFEA7, i))
+            blobs, _ = net.apply(params, state, _next_batch(feeds, device),
+                                 train=False, generator=gen)
+            for b in blob_names:
+                acc[b].append(blobs[b].cpu().numpy())
+    os.makedirs(args.out, exist_ok=True)
+    for b in blob_names:
+        stacked = np.concatenate(acc[b], axis=0)
+        dest = os.path.join(args.out, f"{b}.npy")
+        np.save(dest, stacked)
+        print(f"wrote {dest} {stacked.shape}")
+    print(f"Successfully extracted {len(blob_names)} features for "
+          f"{args.iterations} batches")
+
+
+def cmd_upgrade(args):
+    """tools/upgrade_net_proto_text.cpp + upgrade_solver_proto_text.cpp
+    (and, with --binary, upgrade_net_proto_binary.cpp): read a (possibly
+    V0/V1-era) prototxt or binary NetParameter, upgrade it to the modern
+    schema, write it back."""
+    from .utils.prototxt import (emit_prototxt, parse_prototxt,
+                                 upgrade_net_prototxt,
+                                 upgrade_solver_prototxt)
+
+    if args.binary:
+        from .utils.proto_wire import (collect_dropped_unknowns,
+                                       decode_net_binary,
+                                       encode_net_binary, strip_blobs)
+
+        if not args.out:
+            raise SystemExit("--binary needs an explicit output path")
+        with open(args.input, "rb") as f:
+            d = decode_net_binary(f.read())
+        for path, num in collect_dropped_unknowns(d):
+            print(f"warning: dropping unknown field {num} at {path}")
+        up = upgrade_net_prototxt(d)
+        if args.out.endswith((".prototxt", ".txt")):
+            # structure only: blob payloads are not text
+            with open(args.out, "w") as f:
+                f.write(emit_prototxt(strip_blobs(up)) + "\n")
+        else:
+            with open(args.out, "wb") as f:
+                f.write(encode_net_binary(up))
+        print(f"wrote {args.out} (net, from binary)")
+        return
+    with open(args.input) as f:
+        d = parse_prototxt(f.read())
+    kind = args.kind
+    if kind == "auto":
+        kind = ("net" if any(k in d for k in ("layer", "layers", "input"))
+                else "solver")
+    up = (upgrade_net_prototxt(d) if kind == "net"
+          else upgrade_solver_prototxt(d))
+    text = emit_prototxt(up) + "\n"
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+        print(f"wrote {args.out} ({kind})")
+    else:
+        print(text, end="")
+
+
+def _load_mean(path, *, per_channel=False):
+    """A mean file (.npy, CHW or per-channel, or mean.binaryproto) in
+    caffe CHW; ``per_channel`` collapses a full mean to its channel means
+    (detect.py:104-106)."""
+    if path.endswith(".npy"):
+        mean = np.load(path)
+    else:
+        from .utils.caffemodel import load_blob_binaryproto
+
+        mean = np.asarray(load_blob_binaryproto(path), np.float32)
+        mean = mean[0] if mean.ndim == 4 else mean
+    if per_channel and mean.ndim == 3 and mean.shape[1:] != (1, 1):
+        mean = mean.mean(1).mean(1)
+    return mean
+
+
+def cmd_classify(args):
+    """python/classify.py: images (file / dir glob / .npy stack) -> (N, C)
+    class-probability .npy through ``Classifier``."""
+    import glob as globmod
+    import time
+
+    from .models.classifier import Classifier
+    from .utils import io as caffe_io
+
+    image_dims = [int(s) for s in args.images_dim.split(",")]
+    mean = _load_mean(args.mean_file) if args.mean_file else None
+    channel_swap = ([int(s) for s in args.channel_swap.split(",")]
+                    if args.channel_swap else None)
+    clf = Classifier(args.model_def, args.pretrained_model,
+                     image_dims=image_dims, mean=mean,
+                     input_scale=args.input_scale,
+                     raw_scale=args.raw_scale, channel_swap=channel_swap,
+                     device=args.device)
+
+    src = os.path.expanduser(args.input_file)
+    if src.endswith(".npy"):
+        arr = np.load(src)
+        # an (N, H, W, K) stack or a single (H, W, K) image
+        inputs = list(arr) if arr.ndim == 4 else [arr]
+    elif os.path.isdir(src):
+        inputs = [caffe_io.load_image(f) for f in
+                  sorted(globmod.glob(os.path.join(src, "*." + args.ext)))]
+    else:
+        inputs = [caffe_io.load_image(src)]
+    print(f"Classifying {len(inputs)} inputs.")
+
+    start = time.time()
+    predictions = clf.predict(inputs, not args.center_only)
+    print(f"Done in {time.time() - start:.2f} s.")
+    np.save(args.output_file, predictions)
+    print(f"Saving results into {args.output_file}")
+
+
+def cmd_detect(args):
+    """python/detect.py: a window CSV (filename,ymin,xmin,ymax,xmax) ->
+    per-window class scores (CSV or .npz) through ``Detector``."""
+    import csv
+    import time
+
+    from .models.detector import Detector
+
+    mean = (_load_mean(args.mean_file, per_channel=True)
+            if args.mean_file else None)
+    channel_swap = ([int(s) for s in args.channel_swap.split(",")]
+                    if args.channel_swap else None)
+    det = Detector(args.model_def, args.pretrained_model, mean=mean,
+                   input_scale=args.input_scale, raw_scale=args.raw_scale,
+                   channel_swap=channel_swap,
+                   context_pad=args.context_pad, device=args.device)
+
+    if not args.input_file.lower().endswith(".csv"):
+        raise SystemExit("input must be a CSV with header "
+                         "filename,ymin,xmin,ymax,xmax (the selective-"
+                         "search txt mode needs the external MATLAB "
+                         "package, same as the reference)")
+    by_file: dict = {}
+    with open(args.input_file, newline="") as f:
+        for row in csv.DictReader(f):
+            by_file.setdefault(row["filename"], []).append(np.array(
+                [int(float(row[k]))
+                 for k in ("ymin", "xmin", "ymax", "xmax")]))
+    t = time.time()
+    detections = det.detect_windows(sorted(by_file.items()))
+    print(f"Processed {len(detections)} windows in "
+          f"{time.time() - t:.3f} s.")
+
+    if args.output_file.lower().endswith(".csv"):
+        n_cls = len(detections[0]["prediction"])
+        with open(args.output_file, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["filename", "ymin", "xmin", "ymax", "xmax"]
+                       + [f"class{i}" for i in range(n_cls)])
+            for d in detections:
+                w.writerow([d["filename"], *map(int, d["window"]),
+                            *map(float, d["prediction"])])
+    else:
+        np.savez(args.output_file,
+                 filenames=np.array([d["filename"] for d in detections]),
+                 windows=np.stack([d["window"] for d in detections]),
+                 predictions=np.stack([d["prediction"]
+                                       for d in detections]))
+    print(f"Saved to {args.output_file}")
 
 
 def cmd_device_query(args):
@@ -876,6 +1273,139 @@ def main(argv=None):
     p.add_argument("--out", help="output .binaryproto (omit to print the "
                                  "channel means only)")
     p.set_defaults(fn=cmd_image_mean)
+
+    p = sub.add_parser("convert",
+                       help="weights <-> reference .caffemodel[.h5]")
+    p.add_argument("--ckpt", help="our checkpoint dir (export source)")
+    p.add_argument("--caffemodel",
+                   help="reference-layout .caffemodel[.h5] (import source)")
+    p.add_argument("--data", help="prepped data dir (import: model shapes)")
+    p.add_argument("--config", help="experiment config json (import)")
+    p.add_argument("--exp", help="experiment dir (import: saved config)")
+    p.add_argument("--max-iter", type=int, default=40001)
+    p.add_argument("--out", required=True,
+                   help="output .caffemodel[.h5] (export) or checkpoint "
+                        "dir (import)")
+    p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser(
+        "draw",
+        help="draw_net.py: net prototxt -> Graphviz DOT structure graph")
+    p.add_argument("--net", required=True, help="net prototxt")
+    p.add_argument("--phase", choices=["train", "test"],
+                   help="filter include/exclude rules (default: all)")
+    p.add_argument("--rankdir", default="LR",
+                   choices=["LR", "TB", "RL", "BT"])
+    p.add_argument("--out", help="output .dot path (default: stdout)")
+    p.set_defaults(fn=cmd_draw)
+
+    p = sub.add_parser(
+        "convert_imageset",
+        help="convert_imageset tool: `path label` list -> an LMDB / "
+             "LevelDB of Datums for Data layers, or chunked HDF5 + list "
+             "file for HDF5Data layers")
+    p.add_argument("root", help="image root folder (prefixed to paths)")
+    p.add_argument("listfile", help="`path label` rows")
+    p.add_argument("out", help="output directory")
+    p.add_argument("--shuffle", action="store_true",
+                   help="randomly shuffle the order of images")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--gray", action="store_true",
+                   help="treat images as grayscale")
+    p.add_argument("--resize-height", type=int, default=0)
+    p.add_argument("--resize-width", type=int, default=0)
+    p.add_argument("--name", default="data",
+                   help="list file basename (data -> data.txt)")
+    p.add_argument("--chunk-rows", type=int, default=100000)
+    p.add_argument("--backend", default="hdf5",
+                   choices=["hdf5", "lmdb", "leveldb"],
+                   help="hdf5 (chunked HDF5 + list; needs h5py), lmdb or "
+                        "leveldb (uint8 Datums in the reference's "
+                        "convert_imageset DB formats)")
+    p.set_defaults(fn=cmd_convert_imageset)
+
+    p = sub.add_parser(
+        "extract_features",
+        help="extract_features tool: save named blobs over N TEST "
+             "batches (one .npy per blob)")
+    p.add_argument("--model", required=True,
+                   help="net prototxt with data layers (TEST phase)")
+    p.add_argument("--weights", help=".caffemodel[.h5] trained weights")
+    p.add_argument("--blobs", required=True,
+                   help="comma-separated blob names to extract")
+    p.add_argument("--iterations", type=int, default=10,
+                   help="num_mini_batches")
+    p.add_argument("--out", required=True, help="output directory")
+    p.add_argument("--seed", type=int, default=0)
+    _device_flag(p)
+    p.set_defaults(fn=cmd_extract_features)
+
+    p = sub.add_parser(
+        "upgrade",
+        help="upgrade_net/solver_proto_text tools: legacy prototxt -> "
+             "modern schema text")
+    p.add_argument("input", help="net or solver prototxt (any era), or "
+                                 "with --binary a binary NetParameter "
+                                 "(.caffemodel)")
+    p.add_argument("out", nargs="?", help="output path (stdout if "
+                                          "omitted; required with "
+                                          "--binary)")
+    p.add_argument("--kind", default="auto",
+                   choices=["auto", "net", "solver"])
+    p.add_argument("--binary", action="store_true",
+                   help="upgrade_net_proto_binary: input is a binary "
+                        "NetParameter; writes binary, or structure-only "
+                        "text when out ends in .prototxt")
+    p.set_defaults(fn=cmd_upgrade)
+
+    p = sub.add_parser(
+        "classify",
+        help="classify.py tool: images -> class-probability .npy via "
+             "the Classifier wrapper")
+    p.add_argument("input_file", help="image file, directory, or .npy "
+                                      "stack of (H, W, K) images")
+    p.add_argument("output_file", help="output .npy of predictions")
+    p.add_argument("--model-def", required=True, help="deploy prototxt")
+    p.add_argument("--pretrained-model",
+                   help=".caffemodel[.h5] weights (random init if "
+                        "omitted; for smoke tests only)")
+    p.add_argument("--center-only", action="store_true",
+                   help="center crop alone instead of 10-crop "
+                        "oversampling")
+    p.add_argument("--images-dim", default="256,256",
+                   help="resize canvas H,W before cropping")
+    p.add_argument("--mean-file",
+                   help=".npy (CHW or per-channel) or mean.binaryproto")
+    p.add_argument("--input-scale", type=float)
+    p.add_argument("--raw-scale", type=float, default=255.0)
+    p.add_argument("--channel-swap", default="2,1,0",
+                   help="e.g. 2,1,0 maps RGB -> BGR")
+    p.add_argument("--ext", default="jpg",
+                   help="extension glob when input is a directory")
+    _device_flag(p)
+    p.set_defaults(fn=cmd_classify)
+
+    p = sub.add_parser(
+        "detect",
+        help="detect.py tool: window CSV -> per-window class scores "
+             "via the Detector wrapper")
+    p.add_argument("input_file",
+                   help="CSV with header filename,ymin,xmin,ymax,xmax")
+    p.add_argument("output_file", help=".csv or .npz of detections")
+    p.add_argument("--model-def", required=True, help="deploy prototxt")
+    p.add_argument("--pretrained-model", help=".caffemodel[.h5] weights")
+    p.add_argument("--crop-mode", default="list", choices=["list"],
+                   help="selective_search needs the external MATLAB "
+                        "package (same constraint as the reference)")
+    p.add_argument("--context-pad", type=int, default=16)
+    p.add_argument("--mean-file",
+                   help=".npy or mean.binaryproto (collapsed to "
+                        "per-channel like detect.py)")
+    p.add_argument("--input-scale", type=float)
+    p.add_argument("--raw-scale", type=float, default=255.0)
+    p.add_argument("--channel-swap", default="2,1,0")
+    _device_flag(p)
+    p.set_defaults(fn=cmd_detect)
 
     p = sub.add_parser("device_query", help="list the torch devices")
     _device_flag(p)

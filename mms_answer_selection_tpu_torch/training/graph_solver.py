@@ -17,7 +17,9 @@ weights and the solver history in the reference's files
 * Data layers declare inputs; the host-side feed of each is built from its
   prototxt message: ``feeds=`` arrays, HDF5Data through
   ``data/hdf5_compat.py`` (h5py), ImageData / PairImageData through
-  ``data/pair_image.py``; DummyData fills in the graph.
+  ``data/pair_image.py``, Data (LMDB / LevelDB) through
+  ``data/lmdb_data.py``, WindowData through ``data/window_data.py``;
+  DummyData fills in the graph.
 * Test nets share trained layers by layer name (a dict merge); their
   test-only layers keep their own params.
 * ``restore`` fast-forwards every feed by the batches the snapshotted run
@@ -128,8 +130,8 @@ def _build_feed(node_cfg: dict, phase: str, seed: int, base_dir: str,
     bool]}}`` feeds any data layer.  Otherwise HDF5Data maps each top to
     the equally named dataset across the source list's chunk files
     (hdf5_data_layer.cpp:30-83), ImageData / PairImageData read their image
-    lists; Data (LMDB / LevelDB) and WindowData need modules the port does
-    not have yet and raise."""
+    lists, Data reads an LMDB or LevelDB of Datums (``data/lmdb_data.py``)
+    and WindowData an R-CNN window file (``data/window_data.py``)."""
     from ..data.loader import ArrayDataset, BatchIterator
 
     t = str(node_cfg.get("type", ""))
@@ -207,20 +209,76 @@ def _build_feed(node_cfg: dict, phase: str, seed: int, base_dir: str,
                            tops[1]: b["label"]}
         return _Feed(gen(), tops)
     if t == "WindowData":
-        raise NotImplementedError(
-            f"WindowData layer {name!r}: the port does not have "
-            f"data/window_data.py yet; pass its tops through feeds=")
+        from ..data.window_data import WindowListDataset
+
+        p = _one(node_cfg.get("window_data_param"), {}) or {}
+        tf = _one(node_cfg.get("transform_param"), {}) or {}
+        source = _one(p.get("source"))
+        if source is None:
+            raise ValueError(f"WindowData layer {name!r} has no source")
+        ds = WindowListDataset(
+            _resolve(str(source), base_dir),
+            int(_one(p.get("batch_size"), 1)),
+            crop_size=int(_one(tf.get("crop_size"), 0)),
+            root=str(_one(p.get("root_folder"), "")),
+            fg_threshold=float(_one(p.get("fg_threshold"), 0.5)),
+            bg_threshold=float(_one(p.get("bg_threshold"), 0.5)),
+            fg_fraction=float(_one(p.get("fg_fraction"), 0.25)),
+            context_pad=int(_one(p.get("context_pad"), 0)),
+            crop_mode=str(_one(p.get("crop_mode"), "warp")),
+            mirror=_pbool(tf.get("mirror")),
+            mean=_mean_from(tf, t, name, base_dir),
+            scale=float(_one(p.get("scale"), 1.0)),
+            cache_images=_pbool(p.get("cache_images")),
+            seed=seed)
+
+        def gen(ds=ds, tops=tops):
+            for b in ds:
+                yield {tops[0]: b["data"], tops[1]: b["label"]}
+        return _Feed(gen(), tops)
     if t == "Data":
-        raise NotImplementedError(
-            f"Data layer {name!r}: LMDB / LevelDB sources need "
-            f"data/lmdb_data.py, utils/lmdb_io.py and utils/leveldb_io.py, "
-            f"which the port does not have yet; pass its tops through "
-            f"feeds=")
+        from ..data.lmdb_data import open_datum_dataset
+
+        p = _one(node_cfg.get("data_param"), {}) or {}
+        tf = _one(node_cfg.get("transform_param"), {}) or {}
+        source = _one(p.get("source"))
+        if source is None:
+            raise ValueError(f"Data layer {name!r} has no source")
+        source = _resolve(str(source), base_dir)
+        # the backend is read from the directory (data.mdb vs CURRENT),
+        # as db.cpp:41 GetDB would pick it; `backend:` is not consulted
+        has_mdb = os.path.exists(
+            source if source.endswith(".mdb")
+            else os.path.join(source, "data.mdb"))
+        has_current = os.path.exists(os.path.join(source, "CURRENT"))
+        if not has_mdb and not has_current:
+            raise ValueError(
+                f"Data layer {name!r}: {source!r} is neither an LMDB "
+                f"environment (data.mdb) nor a LevelDB directory "
+                f"(CURRENT)")
+        # the deprecated data_param mean_file still counts
+        # (data_transformer.cpp reads transform_param's first)
+        if "mean_file" not in tf and _one(p.get("mean_file")) is not None:
+            tf = {**tf, "mean_file": p.get("mean_file")}
+        ds = open_datum_dataset(
+            source, int(_one(p.get("batch_size"), 1)),
+            scale=float(_one(tf.get("scale"), _one(p.get("scale"), 1.0))),
+            mean=_mean_from(tf, t, name, base_dir),
+            crop_size=int(_one(tf.get("crop_size"),
+                               _one(p.get("crop_size"), 0))),
+            mirror=_pbool(tf.get("mirror"), _pbool(p.get("mirror"))),
+            rand_skip=int(_one(p.get("rand_skip"), 0)),
+            train=phase == "train", seed=seed)
+
+        def gen(ds=ds, tops=tops):
+            for b in ds:
+                yield {tops[0]: b["data"], tops[1]: b["label"]}
+        return _Feed(gen(), tops)
     raise ValueError(
         f"data layer {name!r} (type {t}) needs a feeds= entry: "
         f"feeds={{{name!r}: {{top: array, ..., 'batch_size': n}}}} — only "
-        f"HDF5Data, ImageData, PairImageData and DummyData sources are read "
-        f"from the prototxt")
+        f"Data (LMDB / LevelDB), HDF5Data, ImageData, PairImageData, "
+        f"WindowData and DummyData sources are read from the prototxt")
 
 
 class GraphSolver:

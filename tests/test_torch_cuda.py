@@ -897,3 +897,112 @@ def test_generic_step_launches_the_pair_map_kernels(tmp_path):
     for name in ("pair_maps_fwd", "pair_maps_bwd_qa", "pair_maps_bwd_w"):
         assert T.LAUNCH_COUNTS[name] == n0[name] + 1, name
     assert gs.params["sim_cross"]["w"].is_cuda
+
+
+def _pycaffe_files(tmp_path):
+    """The V4 recipe's train and eval nets (no dropout) and an AdaDelta
+    solver whose test net's data layer is named "dev"."""
+    (tmp_path / "train.prototxt").write_text(_generic_v4_net())
+    (tmp_path / "test.prototxt").write_text(_generic_v4_net(
+        phase="eval").replace('name: "data"', 'name: "dev"', 1))
+    (tmp_path / "solver.prototxt").write_text(
+        'train_net: "train.prototxt"\ntest_net: "test.prototxt"\n'
+        'type: "AdaDelta"\nbase_lr: 1.0\nmomentum: 0.95\ndelta: 5e-7\n'
+        'max_iter: 2\ntest_interval: 0\ntest_iter: 1\n'
+        'snapshot_after_train: false\n')
+    batch = {k: v.numpy() for k, v in _generic_v4_batch().items()}
+    feeds = {"data": {k: v for k, v in batch.items() if k != "group"},
+             "dev": {**batch, "shuffle": False}}
+    feeds["data"]["batch_size"] = feeds["dev"]["batch_size"] = 50
+    return str(tmp_path / "solver.prototxt"), feeds, batch
+
+
+@pytest.fixture
+def gpu_mode():
+    from mms_answer_selection_tpu_torch import caffe_compat as caffe
+
+    caffe.set_mode_gpu()
+    yield caffe
+    caffe.set_mode_gpu()
+
+
+def test_pycaffe_step_launches_the_pair_map_kernels(tmp_path, gpu_mode):
+    """One ``solver.step(1)`` through ``caffe.get_solver`` under
+    ``set_mode_gpu()`` launches the forward once and each backward kernel
+    once; a forward of ``solver.test_nets[0]`` launches only the
+    forward."""
+    dev = _cuda()
+    caffe = gpu_mode
+    path, feeds, _ = _pycaffe_files(tmp_path)
+    solver = caffe.get_solver(path, feeds=feeds)
+    assert solver._gs.device.type == dev.type
+    n0 = dict(T.LAUNCH_COUNTS)
+    solver.step(1)
+    torch.cuda.synchronize()
+    for name in ("pair_maps_fwd", "pair_maps_bwd_qa", "pair_maps_bwd_w"):
+        assert T.LAUNCH_COUNTS[name] == n0[name] + 1, name
+    n1 = dict(T.LAUNCH_COUNTS)
+    out = solver.test_nets[0].forward()
+    torch.cuda.synchronize()
+    assert T.LAUNCH_COUNTS["pair_maps_fwd"] == n1["pair_maps_fwd"] + 1
+    assert T.LAUNCH_COUNTS["pair_maps_bwd_w"] == n1["pair_maps_bwd_w"]
+    assert T.LAUNCH_COUNTS["pair_maps_bwd_qa"] == n1["pair_maps_bwd_qa"]
+    assert 0 <= float(out["map"]) <= 1
+    assert float(solver.net.blobs["loss"].data) > 0
+
+
+def test_caffe_net_forward_on_cuda_matches_cpu(tmp_path, gpu_mode):
+    """``caffe.Net`` on the V4 eval net with one ``.caffemodel`` (a xavier
+    W, positive running variances) on the card and on the CPU: prob
+    within 1e-5 of its max, loss within 1e-5 relative, MAP / MRR / AUC to
+    1e-6; the card's backward gives the CPU's input diff within 1e-4 of
+    its max."""
+    dev = _cuda()
+    caffe = gpu_mode
+    _, _, batch = _pycaffe_files(tmp_path)
+    text = str(tmp_path / "test.prototxt")
+    cpu = caffe.Net(text, caffe.TEST, device="cpu")
+    cpu.forward(**batch)
+    cpu.params = {**cpu.params, "sim_cross": {
+        **cpu.params["sim_cross"], "w": torch.empty_like(
+            cpu.params["sim_cross"]["w"]).uniform_(
+                -0.035, 0.035, generator=torch.Generator().manual_seed(2))}}
+    cpu.state = {k: {"mean": v["mean"] + 0.01, "var": v["var"] + 1.0}
+                 for k, v in cpu.state.items()}
+    cpu.save(str(tmp_path / "w.caffemodel"))
+    card = caffe.Net(text, caffe.TEST, weights=str(tmp_path / "w.caffemodel"))
+    assert card.device.type == dev.type
+    got = {k: float(v) for k, v in card.forward(**batch).items()}
+    want = {k: float(v) for k, v in cpu.forward(**batch).items()}
+    prob_c, prob_g = cpu.blobs["prob"].data, card.blobs["prob"].data
+    assert abs(prob_g - prob_c).max() <= 1e-5 * abs(prob_c).max()
+    assert abs(got["loss"] / want["loss"] - 1) <= 1e-5
+    for k in ("map", "mrr", "auc"):
+        assert abs(got[k] - want[k]) <= 1e-6, k
+    dc = cpu.backward(loss=1.0)["overlap_feat"]
+    dg = card.backward(loss=1.0)["overlap_feat"]
+    assert abs(dg - dc).max() <= 1e-4 * abs(dc).max()
+
+
+def test_set_mode_routes_nets_and_solvers(tmp_path, gpu_mode):
+    """``set_mode_gpu`` (the default) and ``set_device`` put ``Net``, the
+    solvers and ``Classifier`` on the card, ``set_mode_cpu`` on the CPU;
+    an explicit ``device=`` wins over the mode."""
+    _cuda()
+    caffe = gpu_mode
+    path, feeds, batch = _pycaffe_files(tmp_path)
+    text = str(tmp_path / "test.prototxt")
+    assert caffe.Net(text, caffe.TEST).device.type == "cuda"
+    assert caffe.get_solver(path, feeds=feeds)._gs.device.type == "cuda"
+    caffe.set_device(0)
+    net = caffe.Net(text, caffe.TEST)
+    assert net.device == torch.device("cuda:0")
+    net.forward(**batch)
+    assert net.params["sim_cross"]["w"].is_cuda
+    caffe.set_mode_cpu()
+    assert caffe.Net(text, caffe.TEST).device.type == "cpu"
+    assert caffe.SGDSolver(path, feeds=feeds)._gs.device.type == "cpu"
+    assert caffe.Net(text, caffe.TEST, device="cuda").device.type == "cuda"
+    caffe.set_mode_gpu()
+    assert caffe.AdaDeltaSolver(path, feeds=feeds,
+                                device="cpu")._gs.device.type == "cpu"

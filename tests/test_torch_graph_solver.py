@@ -39,6 +39,7 @@ from mms_answer_selection_tpu.training.graph_solver import \
     GraphSolver as JGS
 from mms_answer_selection_tpu.utils.caffemodel import save_caffemodel_h5
 from mms_answer_selection_tpu.utils.prototxt import net_prototxt_from_config
+from mms_answer_selection_tpu_torch.utils.prototxt import parse_prototxt
 from mms_answer_selection_tpu_torch import cli as tcli
 from mms_answer_selection_tpu_torch.convert import params_from_numpy
 from mms_answer_selection_tpu_torch.training.graph_solver import \
@@ -329,12 +330,31 @@ def test_signal_actions(tmp_path):
 
 
 def test_sources_the_port_lacks_raise(tmp_path):
-    for t, names in (("Data", "lmdb_data"), ("WindowData", "window_data")):
+    """Data and WindowData layers are read from the prototxt now
+    (``tests/test_torch_db.py``, ``tests/test_torch_io.py``); a layer
+    whose source is missing or no database raises naming the layer, as
+    the JAX package's does."""
+    from mms_answer_selection_tpu.training.graph_solver import \
+        _build_feed as j_feed
+    from mms_answer_selection_tpu_torch.training.graph_solver import \
+        _build_feed as t_feed
+
+    (tmp_path / "empty").mkdir()
+    for t, param, msg in (("Data", f'data_param {{ source: "{tmp_path}/empty"'
+                           f' batch_size: 2 }}', "neither"),
+                          ("Data", "data_param { batch_size: 2 }",
+                           "no source"),
+                          ("WindowData", "window_data_param { batch_size: 2 }",
+                           "no source")):
         net = (f'layer {{ name: "d" type: "{t}" top: "data" top: "label" '
-               f'}}\n' + MLP.split("\n", 3)[3])
+               f'{param} }}\n' + MLP.split("\n", 3)[3])
         sp = _write(tmp_path, net)
-        with pytest.raises(NotImplementedError, match=names):
+        with pytest.raises(ValueError, match=msg):
             TGS(sp, device="cpu")
+        cfg = parse_prototxt(net)["layer"][0]
+        for feed in (j_feed, t_feed):
+            with pytest.raises(ValueError, match="'d'"):
+                feed(cfg, "train", 0, str(tmp_path), None)
 
 
 # ---------------------------------------------------------------------- CLI

@@ -52,9 +52,25 @@ import mms_answer_selection_tpu_torch.ops.recurrent
 import mms_answer_selection_tpu_torch.data.hdf5_compat
 import mms_answer_selection_tpu_torch.models.graph_net
 import mms_answer_selection_tpu_torch.training.graph_solver
-# h5py is imported only inside the functions that read or write HDF5
+import mms_answer_selection_tpu_torch.utils.proto_wire
+import mms_answer_selection_tpu_torch.utils.caffe_pb2_shim
+import mms_answer_selection_tpu_torch.utils.io
+import mms_answer_selection_tpu_torch.utils.lmdb_io
+import mms_answer_selection_tpu_torch.utils.leveldb_io
+import mms_answer_selection_tpu_torch.data.lmdb_data
+import mms_answer_selection_tpu_torch.data.window_data
+import mms_answer_selection_tpu_torch.utils.netspec
+import mms_answer_selection_tpu_torch.models.pynet
+import mms_answer_selection_tpu_torch.models.pysolver
+import mms_answer_selection_tpu_torch.caffe_compat
+import mms_answer_selection_tpu_torch.models.classifier
+import mms_answer_selection_tpu_torch.models.detector
+import mms_answer_selection_tpu_torch.utils.draw
+# h5py and PIL are imported only inside the functions that read or write
+# HDF5 files or decode image files
 bad = [m for m in sys.modules if m.split(".")[0] in
-       ("jax", "flax", "msgpack", "mms_answer_selection_tpu", "h5py")]
+       ("jax", "flax", "msgpack", "mms_answer_selection_tpu", "h5py",
+        "PIL")]
 assert not bad, bad
 print("clean")
 """
@@ -68,18 +84,25 @@ from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
 from mms_answer_selection_tpu_torch.training import Trainer, TrainerConfig
 from mms_answer_selection_tpu_torch.models.graph_net import GraphNet
 from mms_answer_selection_tpu_torch.training.graph_solver import GraphSolver
+from mms_answer_selection_tpu_torch import caffe_compat as caffe
 assert not torch.cuda.is_available()
 net = ('layer { name: "d" type: "Input" top: "x" } '
        'layer { name: "ip" type: "InnerProduct" bottom: "x" top: "y" '
        'inner_product_param { num_output: 2 } }')
 solver = f'net_param {{ {net} }} base_lr: 0.1 max_iter: 1'
 feeds = {"d": {"x": torch.ones(4, 3).numpy(), "batch_size": 2}}
+deploy = ('input: "data" input_shape { dim: 1 dim: 3 dim: 4 dim: 4 } '
+          'layer { name: "f" type: "Flatten" bottom: "data" top: "f" }')
 for call in (lambda: resolve_device("cuda"), lambda: resolve_device(None),
              lambda: QueryEngine(mms_qa_init(MMSQAConfig(), generator=torch.Generator())[0],
                                  MMSQAConfig()),
              lambda: Trainer(MMSQAConfig(), TrainerConfig()),
              lambda: GraphNet(net).init(torch.Generator(), {"x": torch.ones(2, 3)}),
-             lambda: GraphSolver(solver, feeds=feeds)):
+             lambda: GraphSolver(solver, feeds=feeds),
+             # pycaffe with no mode set: the card
+             lambda: caffe.Net(net, caffe.TEST),
+             lambda: caffe.get_solver(solver, feeds=feeds),
+             lambda: caffe.Classifier(deploy)):
     try:
         call()
     except RuntimeError as e:
