@@ -91,6 +91,22 @@ at the V4 recipe's widths, after building the hand-written kernels from
   host) queried with 1 and 256 captions (top-10 = brute force, p50s,
   overlap with the float32 scorer), and 100 image-pair steps from
   ``PairImageDataset`` (the loss falls, card = CPU after one);
+* the rest of the package (``tail_phase``, V4 at full width): ``time`` at
+  batch 50 and 1,024 (the per-stage table; the three pair-map kernels
+  must launch), on the recipe's train net as a deploy-style prototxt and
+  over a 262,144-candidate int8 pool (``maxsim_int8`` must launch); a
+  scorer exported on the card and loaded, called at batch 1, 50 and
+  1,024 (within 1e-5 of the live model's max |logit|, one
+  ``pair_maps_fwd`` launch a call); the bf16 forward at batch 1,024
+  against float32 (P moved by 1e-5 to 7.5e-5); 20 recipe steps through
+  ``Trainer(mesh=make_mesh(1))`` over one NCCL rank (the plain Trainer bit
+  for bit) and over two gloo ranks sharing the card (rtol = atol = 1e-4),
+  one tp = 2 step against the unsharded one, a 262,144-candidate int8 and
+  bf16 pool split over the two ranks (the one-process top-10 bit for
+  bit, each rank launching the pair-map kernels in its dp and tp steps
+  and its pool's MaxSim kernel); ``cli matbridge`` in its own process
+  driven over its socket and held to in-process pycaffe; ``plot`` (or its refusal without
+  matplotlib);
 
 and times the kernels, the engine and the train step.  The pair-map
 kernels are timed at batch 50 and 1024 at D = 50 and at V4_WIDE's D = 300
@@ -111,8 +127,8 @@ the line before it lists every kernel with its launches on the main path,
 its error against the plain version, its time, the plain version's, the
 bound and what sets it, and the one-call library time (null where no
 single PyTorch call computes the function); lines before it, the
-launches of the generic, the pycaffe and the multimodal paths.  About
-180-230 s on an H100, build included, peaking near 27 GiB of device
+launches of the generic, the pycaffe, the multimodal and the tail paths.
+About 260-330 s on an H100, build included, peaking near 27 GiB of device
 memory.
 """
 
@@ -2892,6 +2908,620 @@ def multimodal_phase(sk, normal, dev, card: str, max_err: dict) -> dict:
     return {"caption training": trained, "image pool": served}
 
 
+# ----------------------------------------------------------------- the tail
+# the rest of the JAX package's surface (tail_phase): `time` at TAIL_TIMED
+# batches and over a POOL-candidate int8 pool; an exported scorer called at
+# TAIL_EXPORT_BATCHES; the bf16 forward at batch 1024 against float32 (P
+# moved within TAIL_BF16_P_BAND); TAIL_STEPS steps of Trainer(mesh=) on one
+# NCCL rank and on two gloo ranks sharing the card, held to the plain
+# Trainer (bit for bit at one rank, STEP_RTOL / STEP_ATOL at two: the
+# tests' STEP_TOL); one tp = 2 sharded step against the unsharded one; a
+# POOL-candidate engine over two ranks against one process, exactly; the
+# matcaffe bridge over a socket
+TAIL_TIMED = (BATCH, 1024)
+TAIL_EXPORT_BATCHES = (1, BATCH, 1024)
+# bf16 moved P by 2.986e-5 at batch 1024 here (NVIDIA H100 80GB HBM3,
+# 700 W); a cast in another place, or none, falls outside a third to two
+# and a half times that
+TAIL_BF16_P_BAND = (1e-5, 7.5e-5)
+TAIL_STEPS, TAIL_TIMED_STEPS = 20, 10
+STEP_RTOL, STEP_ATOL = 1e-4, 1e-4
+TAIL_ENGINES = ("int8", "bf16")
+TAIL_NOISE = ("conv0.b", "conv1.b")   # rounding-noise gradients (train BN)
+
+
+def _tail_numpy(tree):
+    return {k: _tail_numpy(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+def _tail_named(tree, prefix=""):
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += _tail_named(v, f"{prefix}{k}.")
+        else:
+            out.append((f"{prefix}{k}", v.detach().cpu()))
+    return out
+
+
+def _tail_close(got, want, band: float, what: str) -> float:
+    """Leaf by leaf within STEP_RTOL / STEP_ATOL, the conv biases within
+    ``band``; returns the largest difference over the leaf's max."""
+    worst = 0.0
+    for (name, g), (name2, w) in zip(_tail_named(got), _tail_named(want)):
+        assert name == name2, (name, name2)
+        diff = float((g - w).abs().max())
+        if name in TAIL_NOISE:
+            if diff > band:
+                raise AssertionError(f"{what}: {name} moved {diff} > {band}")
+            continue
+        if not torch.allclose(g, w, rtol=STEP_RTOL, atol=STEP_ATOL):
+            raise AssertionError(f"{what}: {name} off by {diff}")
+        worst = max(worst, diff / max(float(w.abs().max()), 1e-30))
+    return worst
+
+
+def _tail_step_ms(trainer, params, state, opt, batches, step0: int):
+    """Each step's wall time in ms (ended by a device sync) and the state
+    after them."""
+    times = []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        params, state, opt, _ = trainer._train_step(params, state, opt, b,
+                                                    step0 + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _tail_trainer(cfg, mesh=None):
+    """The recipe's Trainer on this process's card, its solver built."""
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    trainer = Trainer(cfg, recipe_trainer(), device="cuda", mesh=mesh)
+    trainer.init()
+    return trainer
+
+
+def _tail_dp_run(trainer, params, state, batches, n_timed: int) -> dict:
+    """TAIL_STEPS steps of ``trainer`` from ``params`` / ``state`` (numpy)
+    over ``batches`` (numpy): the losses and the state after them, then
+    ``n_timed`` more steps' times."""
+    from mms_answer_selection_tpu_torch.convert import params_from_numpy
+
+    p, s = params_from_numpy(params, state, trainer.device)
+    o = trainer.solver.init(p)
+    bs = [{k: torch.as_tensor(v, device=trainer.device) for k, v in
+           b.items()} for b in batches]
+    losses = []
+    for i, b in enumerate(bs):
+        p, s, o, loss = trainer._train_step(p, s, o, b, i)
+        losses.append(float(loss))
+    times = _tail_step_ms(trainer, p, s, o, bs[:n_timed], len(bs))
+    return {"losses": losses, "params": p, "step_ms": times}
+
+
+def _tail_sharded_step(params, state, batch, n_timed, mesh) -> dict:
+    """One step of ``build_sharded_train_step`` on ``mesh`` from ``params``
+    (numpy; this rank keeps its slices): the loss, this rank's slices and
+    tp rank after it, then ``n_timed`` more steps' times."""
+    from mms_answer_selection_tpu_torch.convert import params_from_numpy
+    from mms_answer_selection_tpu_torch.models.mms_qa import (MMSQAConfig,
+                                                              param_spec)
+    from mms_answer_selection_tpu_torch.parallel import (
+        build_sharded_train_step, params_pspec, shard_pytree)
+    from mms_answer_selection_tpu_torch.training.optim import make_solver
+
+    cfg = MMSQAConfig(vocab_size=VOCAB)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    p, s = params_from_numpy(params, state, dev)
+    p = shard_pytree(p, mesh, params_pspec(p, mesh))
+    solver = make_solver(recipe_trainer().solver, param_spec(p, cfg))
+    o = solver.init(p)
+    step = build_sharded_train_step(cfg, solver, mesh)(p, s, o)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def gen(i):
+        return torch.Generator(device=dev).manual_seed(SEED + i)
+
+    p, s, o, loss = step(p, s, o, b, 0, gen(0))
+    times = []
+    for i in range(n_timed):
+        t0 = time.perf_counter()
+        step(p, s, o, b, 1 + i, gen(1 + i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"loss": float(loss), "params": p, "step_ms": times,
+            "tp_rank": mesh.get_local_rank("tp")}
+
+
+def tail_rank(params, state, batches, serve_params, queries) -> dict:
+    """What each of the ranks sharing the card runs (``parallel.launch``,
+    gloo): TAIL_STEPS steps of Trainer(mesh=) over every rank, one tp step
+    over a (1, ranks) mesh, and a POOL-candidate engine of each
+    TAIL_ENGINES dtype split over every rank.  ``launches``: this rank's
+    kernel launches in each of those parts, each counted from 0."""
+    from mms_answer_selection_tpu_torch.convert import params_from_numpy
+    from mms_answer_selection_tpu_torch.models.mms_qa import MMSQAConfig
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+    from mms_answer_selection_tpu_torch.parallel import make_mesh
+    from mms_answer_selection_tpu_torch.serve import QueryEngine
+
+    def counted(part, fn):
+        for name in sk.LAUNCH_COUNTS:
+            sk.LAUNCH_COUNTS[name] = 0
+        out[part] = fn()
+        launches[part] = {k: v for k, v in sk.LAUNCH_COUNTS.items() if v}
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = MMSQAConfig(vocab_size=VOCAB)
+    world = torch.distributed.get_world_size()
+    out, launches = {}, {}
+    counted("dp", lambda: _tail_dp_run(_tail_trainer(cfg, make_mesh(
+        devices="cuda")), params, state, batches, TAIL_TIMED_STEPS))
+    counted("tp", lambda: _tail_sharded_step(
+        params, state, batches[0], TAIL_TIMED_STEPS,
+        make_mesh(1, world, devices="cuda")))
+    mesh = make_mesh(devices="cuda")
+    p, _ = params_from_numpy(serve_params, {}, "cuda")
+    q = torch.as_tensor(queries, device="cuda")
+
+    def serve(pd):
+        eng = QueryEngine(p, cfg, pool_dtype=pd, chunk_size=CHUNK,
+                          mesh=mesh).build_index(_tail_pool(cfg))
+        vals, idx = eng.query(q, k=K)
+        ms = sync_ms(lambda: eng.query(q, k=K), 10)
+        del eng
+        torch.cuda.empty_cache()
+        return vals, idx, ms
+
+    for pd in TAIL_ENGINES:
+        counted(pd, lambda: serve(pd))
+    out["launches"] = launches
+    return out
+
+
+def _tail_pool(cfg):
+    """The serving pool's candidate ids, made alike in every process."""
+    g = torch.Generator().manual_seed(SEED + 7)
+    return torch.randint(0, cfg.vocab_size, (POOL, W2), generator=g)
+
+
+def _tail_time(sk, card: str, tmp: Path) -> None:
+    """`time` on the card: the per-stage table at TAIL_TIMED batches, the
+    V4 recipe's net through --model, the serving lifecycle at POOL."""
+    import dataclasses
+
+    from mms_answer_selection_tpu_torch.models.mms_qa import V4
+    from mms_answer_selection_tpu_torch.utils.prototxt import \
+        net_prototxt_from_config
+
+    for b in TAIL_TIMED:
+        before = dict(sk.LAUNCH_COUNTS)
+        out = json.loads(run_cli(["time", "--batch", str(b), "--iters",
+                                  "10", "--fused-steps", "4"])[-1])
+        for name in CLI_TRAIN_KERNELS:
+            if sk.LAUNCH_COUNTS[name] <= before[name]:
+                raise AssertionError(f"time --batch {b} never launched "
+                                     f"{name}")
+        log(f"time --batch {b}: {json.dumps(out['p50_ms_per_stage'])}; "
+            f"full_forward {out['full_forward_ms']} ms, full_train_step "
+            f"{out['full_train_step_ms']} ms, fused_train_step "
+            f"{out['fused_train_step_ms']} ms [{card}]")
+    # the recipe's train net, its data layer as deploy-style inputs
+    text = net_prototxt_from_config(dataclasses.replace(V4, vocab_size=VOCAB),
+                                    batch_size=BATCH)
+    lines = text.split("\n", 2)      # the data layer takes two lines
+    if 'type: "HDF5Data"' not in lines[0]:
+        raise AssertionError(f"unexpected data layer {lines[0]}")
+    inputs = ('layer { name: "data" type: "Input" top: "question" top: '
+              '"answer" top: "label" top: "overlap_feat" input_param { '
+              f'shape {{ dim: {BATCH} dim: {W1} }} shape {{ dim: {BATCH} '
+              f'dim: {W2} }} shape {{ dim: {BATCH} }} shape {{ dim: {BATCH} '
+              'dim: 2 } } }\n')
+    (tmp / "v4_deploy.prototxt").write_text(inputs + lines[2])
+    before = dict(sk.LAUNCH_COUNTS)
+    out = json.loads(run_cli(["time", "--model",
+                              str(tmp / "v4_deploy.prototxt"), "--iters",
+                              "10"])[-1])
+    if "full_forward_backward_ms" not in out or \
+            sk.LAUNCH_COUNTS["pair_maps_bwd_w"] <= before["pair_maps_bwd_w"]:
+        raise AssertionError(f"time --model timed no backward: {out}")
+    log(f"time --model (V4 recipe net, batch {BATCH}): {json.dumps(out)} "
+        f"[{card}]")
+    before = dict(sk.LAUNCH_COUNTS)
+    out = json.loads(run_cli(["time", "--serve-pool", str(POOL),
+                              "--pool-dtype", "int8", "--iters", "10"])[-1])
+    if sk.LAUNCH_COUNTS["maxsim_int8"] <= before["maxsim_int8"]:
+        raise AssertionError("time --serve-pool never launched maxsim_int8")
+    log(f"time --serve-pool {POOL} int8: {json.dumps(out)} [{card}]")
+
+
+def _tail_export(sk, params, state, cfg, card: str, tmp: Path) -> None:
+    """A scorer exported on the card, loaded, called at
+    TAIL_EXPORT_BATCHES: within 1e-5 of the live model's max |logit|, one
+    pair_maps_fwd launch a call."""
+    from mms_answer_selection_tpu_torch import deploy
+    from mms_answer_selection_tpu_torch.models.mms_qa import mms_qa_apply
+
+    path = str(tmp / "v4.mmst")
+    t0 = time.perf_counter()
+    header = deploy.save_scorer(path, params, state, cfg)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scorer = deploy.load_scorer(path)
+    load_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    for n in TAIL_EXPORT_BATCHES:
+        batch = {"question": torch.randint(0, VOCAB, (n, W1), generator=g,
+                                           device="cuda"),
+                 "answer": torch.randint(0, VOCAB, (n, W2), generator=g,
+                                         device="cuda"),
+                 "overlap_feat": torch.rand((n, 2), generator=g,
+                                            device="cuda")}
+        before = sk.LAUNCH_COUNTS["pair_maps_fwd"]
+        logits, _ = scorer(batch["question"], batch["answer"],
+                           batch["overlap_feat"])
+        if sk.LAUNCH_COUNTS["pair_maps_fwd"] != before + 1:
+            raise AssertionError("the loaded scorer did not launch "
+                                 "pair_maps_fwd once")
+        with torch.no_grad():
+            want = mms_qa_apply(params, state, batch, cfg,
+                                train=False)[0]["logits"].cpu()
+        err = float((torch.as_tensor(logits) - want).abs().max())
+        if err > 1e-5 * float(want.abs().max()):
+            raise AssertionError(f"exported scorer at batch {n}: {err}")
+        log(f"export: batch {n} logits within {err:.3g} of the live model "
+            f"(max |logit| {float(want.abs().max()):.4g})")
+    log(f"export: {header['bytes']} program bytes, saved in {save_s:.3f} s, "
+        f"loaded in {load_s:.3f} s, torch {header['torch']} [{card}]")
+
+
+def _tail_bf16(params, state, cfg, card: str) -> None:
+    from mms_answer_selection_tpu_torch.models.mms_qa import mms_qa_apply
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    batch = {"question": torch.randint(0, VOCAB, (1024, W1), generator=g,
+                                       device="cuda"),
+             "answer": torch.randint(0, VOCAB, (1024, W2), generator=g,
+                                     device="cuda"),
+             "overlap_feat": torch.rand((1024, 2), generator=g,
+                                        device="cuda")}
+    with torch.no_grad():
+        f32 = mms_qa_apply(params, state, batch, cfg, train=False)[0]
+        b16 = mms_qa_apply(params, state, batch, cfg, train=False,
+                           compute_dtype=torch.bfloat16)[0]
+    diff = float((f32["prob"] - b16["prob"]).abs().max())
+    moved = float((f32["logits"] - b16["logits"]).abs().max())
+    lo, hi = TAIL_BF16_P_BAND
+    if not lo <= diff <= hi:
+        raise AssertionError(f"bf16 compute moved P by {diff}, outside "
+                             f"{TAIL_BF16_P_BAND}")
+    log(f"compute_dtype bf16 at batch 1024: max |P - P_f32| {diff!r}, max "
+        f"|logits - logits_f32| {moved!r} (band {TAIL_BF16_P_BAND}) "
+        f"[{card}]")
+
+
+def _tail_parallel(cfg, splits, serve_params, card: str) -> list:
+    """TAIL_STEPS steps of the recipe on the corpus through the plain
+    Trainer and through Trainer(mesh=) over one NCCL rank (bit for bit);
+    then two gloo ranks sharing the card (``tail_rank``): the same steps
+    over dp = 2 (STEP_TOL), one tp = 2 step against the unsharded one,
+    and a split POOL-candidate pool against one process (bit for bit).
+    Step p50s in turns with the plain step's."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from mms_answer_selection_tpu_torch.models.mms_qa import mms_qa_init
+    from mms_answer_selection_tpu_torch.parallel import make_mesh
+    from mms_answer_selection_tpu_torch.parallel.launch import spawn
+    from mms_answer_selection_tpu_torch.serve import QueryEngine
+
+    train = splits["train"]
+    keys = ("question", "answer", "label", "overlap_feat")
+    batches = [{k: np.asarray(train[k][i * BATCH:(i + 1) * BATCH])
+                for k in keys} for i in range(TAIL_STEPS)]
+    # a random W: from the recipe's W = 0 the first step's scores are
+    # near-ties that rounding orders, and runs summing in another order
+    # part at once
+    params, state = mms_qa_init(cfg, generator=torch.Generator().manual_seed(
+        SEED), device="cuda")
+    params["sim"]["w"] = torch.randn(
+        params["sim"]["w"].shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(SEED)) * 0.05
+    p_np, s_np = _tail_numpy(params), _tail_numpy(state)
+
+    # bit for bit needs the card's deterministic algorithms in both runs
+    # (the embedding gradient's scatter otherwise sums in the order its
+    # atomics land)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True,
+                                        allow_tf32=False):
+            plain = _tail_dp_run(_tail_trainer(cfg), p_np, s_np, batches, 0)
+            again = _tail_dp_run(_tail_trainer(cfg), p_np, s_np, batches, 0)
+            mesh = make_mesh(1, devices="cuda")      # one NCCL rank
+            world1 = _tail_dp_run(_tail_trainer(cfg, mesh), p_np, s_np,
+                                  batches, 0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError("the one-rank mesh is not one NCCL rank")
+        for name, run in (("plain again", again), ("world 1", world1)):
+            if plain["losses"] != run["losses"] or not all(
+                    torch.equal(a, b) for (_, a), (_, b) in
+                    zip(_tail_named(plain["params"]),
+                        _tail_named(run["params"]))):
+                raise AssertionError(f"{name} is not the plain Trainer's "
+                                     f"run bit for bit")
+        one_tp = _tail_sharded_step(p_np, s_np, batches[0], TAIL_TIMED_STEPS,
+                                    mesh)
+    finally:
+        dist.destroy_process_group()
+    log(f"dp: Trainer(mesh=make_mesh(1)) over one NCCL rank = the plain "
+        f"Trainer bit for bit over {TAIL_STEPS} steps (losses "
+        f"{plain['losses'][0]:.6f} -> {plain['losses'][-1]:.6f})")
+
+    plain_trainer = _tail_trainer(cfg)
+    before = statistics.median(_tail_dp_run(
+        plain_trainer, p_np, s_np, batches, TAIL_TIMED_STEPS)["step_ms"])
+    g = torch.Generator().manual_seed(SEED + 13)
+    queries = torch.randint(0, VOCAB, (N_QUERIES, W1), generator=g)
+    ranks = spawn("chip_smoke:tail_rank", 2, backend="gloo",
+                  pythonpath=[str(ROOT)], timeout=600, share_device=True,
+                  kwargs={"params": p_np, "state": s_np, "batches": batches,
+                          "serve_params": _tail_numpy(serve_params),
+                          "queries": queries.numpy()})
+    after = statistics.median(_tail_dp_run(
+        plain_trainer, p_np, s_np, batches, TAIL_TIMED_STEPS)["step_ms"])
+    want = {"dp": CLI_TRAIN_KERNELS, "tp": CLI_TRAIN_KERNELS,
+            "int8": ("maxsim_int8",), "bf16": ("maxsim_bf16",)}
+    for r, rank in enumerate(ranks):
+        for part, names in want.items():
+            for name in names:
+                if rank["launches"][part].get(name, 0) < 1:
+                    raise AssertionError(f"rank {r} never launched {name} "
+                                         f"in its {part} part")
+
+    band = 2 * TAIL_STEPS * 2 * ADADELTA_STEP
+    for r, rank in enumerate(ranks):
+        for a, b in zip(rank["dp"]["losses"], plain["losses"]):
+            if abs(a - b) > STEP_ATOL + STEP_RTOL * abs(b):
+                raise AssertionError(f"dp=2 rank {r} loss {a} vs {b}")
+        worst = _tail_close(rank["dp"]["params"], plain["params"], band,
+                            f"dp=2 rank {r}")
+    log(f"dp: 2 gloo ranks on one card, global batch {BATCH}: {TAIL_STEPS} "
+        f"steps within rtol {STEP_RTOL} / atol {STEP_ATOL} of the one-rank "
+        f"run (params {worst:.3g} of their max apart, conv biases within "
+        f"AdaDelta's band); step p50 "
+        f"{statistics.median(ranks[0]['dp']['step_ms']):.3f} ms against "
+        f"the plain step's {before:.3f} / {after:.3f} ms before / after "
+        f"[{card}]")
+
+    tp = sorted((r["tp"] for r in ranks), key=lambda r: r["tp_rank"])
+    if tp[0]["params"]["embed"]["w"].shape[0] * 2 != VOCAB:
+        raise AssertionError("tp = 2 did not split the embedding rows")
+    joined = {k: {kk: (torch.cat([r["params"][k][kk] for r in tp])
+                       if tp[0]["params"][k][kk].shape != vv.shape
+                       else tp[0]["params"][k][kk]) for kk, vv in v.items()}
+              for k, v in one_tp["params"].items()}
+    for r in tp:
+        if abs(r["loss"] - one_tp["loss"]) > STEP_ATOL + STEP_RTOL * abs(
+                one_tp["loss"]):
+            raise AssertionError(f"tp=2 loss {r['loss']} vs "
+                                 f"{one_tp['loss']}")
+    worst = _tail_close(joined, one_tp["params"], 2 * 2 * ADADELTA_STEP,
+                        "tp=2")
+    log(f"tp: one sharded step, tp = 2 over 2 gloo ranks on one card, "
+        f"equals the unsharded step (loss {one_tp['loss']:.6f}; params "
+        f"{worst:.3g} of their max apart); step p50 "
+        f"{statistics.median(tp[0]['step_ms']):.3f} ms against the "
+        f"unsharded {statistics.median(one_tp['step_ms']):.3f} ms [{card}]")
+
+    for pd in TAIL_ENGINES:
+        eng = QueryEngine(serve_params, cfg, pool_dtype=pd, chunk_size=CHUNK,
+                          device="cuda").build_index(_tail_pool(cfg))
+        q = queries.to("cuda")
+        vals, idx = eng.query(q, k=K)
+        one_ms = sync_ms(lambda: eng.query(q, k=K), 10)
+        vals, idx = vals.cpu(), idx.cpu()
+        for r, rank in enumerate(ranks):
+            v, i, _ = rank[pd]
+            if not (torch.equal(i, idx) and torch.equal(
+                    v.view(torch.int32), vals.view(torch.int32))):
+                raise AssertionError(f"{pd}: rank {r}'s merged top-{K} is "
+                                     f"not the one-process engine's")
+        log(f"serve {pd} at {POOL} over 2 gloo ranks: top-{K} of "
+            f"{N_QUERIES} queries = one process, ids and values bit for "
+            f"bit; query p50 {ranks[0][pd][2]:.3f} ms against one "
+            f"process's {one_ms:.3f} ms [{card}]")
+        del eng
+        torch.cuda.empty_cache()
+    return [r["launches"] for r in ranks]
+
+
+TAIL_DEPLOY = """
+name: "deploy" force_backward: true
+input: "data" input_shape { dim: 8 dim: 3 dim: 16 dim: 16 }
+layer { type: "Convolution" name: "conv" bottom: "data" top: "conv"
+  convolution_param { num_output: 16 kernel_size: 3 pad: 1
+    weight_filler { type: "xavier" } } }
+layer { type: "ReLU" name: "relu" bottom: "conv" top: "relu" }
+layer { type: "Pooling" name: "pool" bottom: "relu" top: "pool"
+  pooling_param { pool: MAX kernel_size: 2 stride: 2 } }
+layer { type: "InnerProduct" name: "ip" bottom: "pool" top: "ip"
+  inner_product_param { num_output: 10 weight_filler { type: "xavier" } } }
+layer { type: "Softmax" name: "prob" bottom: "ip" top: "prob" }
+"""
+TAIL_TRAIN = """
+name: "train"
+layer { type: "DummyData" name: "data" top: "data" top: "label"
+  dummy_data_param { num: 16 channels: 3 height: 16 width: 16
+    num: 16 channels: 1 height: 1 width: 1
+    data_filler { type: "constant" value: 0.5 }
+    data_filler { type: "constant" value: 3 } } }
+layer { type: "Convolution" name: "conv" bottom: "data" top: "conv"
+  convolution_param { num_output: 8 kernel_size: 3
+    weight_filler { type: "xavier" } } }
+layer { type: "InnerProduct" name: "ip" bottom: "conv" top: "ip"
+  inner_product_param { num_output: 10 weight_filler { type: "xavier" } } }
+layer { type: "SoftmaxWithLoss" name: "loss" bottom: "ip" bottom: "label"
+  top: "loss" }
+"""
+
+
+def _tail_matbridge(card: str, tmp: Path) -> None:
+    """`cli matbridge` in its own process on localhost, driven by the
+    wire protocol's client, its replies held to the same calls on
+    in-process pycaffe objects."""
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch import caffe_compat as caffe
+    from mms_answer_selection_tpu_torch.matcaffe import MatClient, from_mat
+
+    (tmp / "deploy.prototxt").write_text(TAIL_DEPLOY)
+    (tmp / "train.prototxt").write_text(TAIL_TRAIN)
+    (tmp / "solver.prototxt").write_text(
+        f'net: "{tmp / "train.prototxt"}" base_lr: 0.05 momentum: 0.9 '
+        'lr_policy: "fixed" display: 0 max_iter: 100 random_seed: 5 '
+        'snapshot_after_train: false')
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mms_answer_selection_tpu_torch.cli",
+         "matbridge", "--port", "0"], cwd=str(ROOT), stdout=subprocess.PIPE,
+        text=True)
+    try:
+        first = json.loads(proc.stdout.readline())
+        client = MatClient("127.0.0.1", first["matbridge"]["port"])
+        rng = np.random.default_rng(SEED)
+        x = rng.normal(size=(16, 16, 3, 8)).astype(np.float32)  # W H C N
+        h = client("get_net", str(tmp / "deploy.prototxt"), "test")
+        attr = client("net_get_attr", h)
+        names = attr["blob_names"]
+        client("blob_set_data", attr["hBlob_blobs"][names.index("data")], x)
+        client("net_forward", h)
+        prob = client("blob_get_data",
+                      attr["hBlob_blobs"][names.index("prob")])
+        client("net_save", h, str(tmp / "bridge.caffemodel"))
+        hs = client("get_solver", str(tmp / "solver.prototxt"))
+        client("solver_step", hs, 10)
+        it = client("solver_get_iter", hs)
+        snet = client("solver_get_attr", hs)["hNet_net"]
+        sattr = client("net_get_attr", snet)
+        client("net_forward", snet)
+        loss = client("blob_get_data", sattr["hBlob_blobs"][
+            sattr["blob_names"].index("loss")])
+        client("shutdown")
+        client.close()
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    caffe.set_mode_gpu()
+    net = caffe.Net(str(tmp / "deploy.prototxt"), caffe.TEST)
+    net.forward(data=np.ascontiguousarray(from_mat(x).transpose(0, 2, 3, 1)))
+    want = np.asarray(net.blobs["prob"].data)
+    err = float(np.abs(from_mat(prob) - want).max())
+    net.save(str(tmp / "inproc.caffemodel"))
+    if err > 1e-6 or (tmp / "bridge.caffemodel").read_bytes() != \
+            (tmp / "inproc.caffemodel").read_bytes():
+        raise AssertionError(f"matbridge forward / save differ ({err})")
+    solver = caffe.get_solver(str(tmp / "solver.prototxt"))
+    solver.step(10)
+    solver.net.forward()
+    want_loss = float(solver.net.blobs["loss"].data)
+    if it != 10 or abs(float(from_mat(loss).ravel()[0]) - want_loss) > \
+            1e-5 * max(abs(want_loss), 1.0):
+        raise AssertionError(f"matbridge solver: iter {it}, loss "
+                             f"{from_mat(loss)} vs {want_loss}")
+    log(f"matbridge: cli matbridge on localhost answered get_net, "
+        f"blob_set_data, net_forward, blob_get_data (P within {err:.3g}), "
+        f"net_save (the same bytes), get_solver, solver_step 10 (loss "
+        f"{want_loss:.6f}) as the in-process pycaffe objects do, in "
+        f"{time.perf_counter() - t0:.3f} s [{card}]")
+
+
+def _tail_plot(tmp: Path, losses) -> None:
+    """`plot` charts 0 and 6 from a log in the reference's format, or, on a
+    host without matplotlib, its refusal."""
+    import importlib.util
+
+    lines = ["I0101 00:00:00.000000  1 solver.cpp:1] Solving net"]
+    for i, loss in enumerate(losses):
+        stamp = f"I0101 00:00:{i:02d}.000000  1"
+        if i % 5 == 0:
+            lines += [f"{stamp} solver.cpp:2] Iteration {i}, Testing net "
+                      f"(#0)", f"{stamp} solver.cpp:3]     Test net output "
+                      f"#0: accuracy = {1.0 - loss / 2:.6f}"]
+        lines += [f"{stamp} solver.cpp:4] Iteration {i}, loss = {loss}",
+                  f"{stamp} sgd_solver.cpp:6] Iteration {i}, lr = 1"]
+    (tmp / "train.log").write_text("\n".join(lines) + "\n")
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            run_cli(["plot", "6", str(tmp / "loss.png"),
+                     str(tmp / "train.log")])
+        except SystemExit as e:
+            if "matplotlib" not in str(e) or (tmp / "loss.png").exists():
+                raise
+        else:
+            raise AssertionError("plot without matplotlib returned")
+        log("plot: skipped, this host has no matplotlib (the command exits "
+            "with its message and draws nothing)")
+        return
+    for chart in (0, 6):
+        run_cli(["plot", str(chart), str(tmp / f"c{chart}.png"),
+                 str(tmp / "train.log")])
+        if not (tmp / f"c{chart}.png").stat().st_size:
+            raise AssertionError(f"plot {chart} drew nothing")
+    log("plot: charts 0 and 6 drawn")
+
+
+def tail_phase(dev, card: str, splits) -> dict:
+    """The rest of the JAX package's surface on the card at V4's full width
+    (D = 50, W1 = W2 = 40, M = 4, vocab VOCAB): `time`, `export`, the bf16
+    forward, dp and tp training over torch.distributed, the split serving
+    pool, the matcaffe bridge and `plot`.  Returns the launches of the
+    path, counted from 0, this process's and under "ranks" each spawned
+    rank's, part by part."""
+    import tempfile
+
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch.models.mms_qa import MMSQAConfig
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+
+    t0 = time.perf_counter()
+    cfg = MMSQAConfig(vocab_size=VOCAB)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    params, state = random_model(
+        cfg, lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev)
+        * scale, gen, dev)
+    for name in sk.LAUNCH_COUNTS:
+        sk.LAUNCH_COUNTS[name] = 0
+    with tempfile.TemporaryDirectory() as td:
+        tmp = Path(td)
+        _tail_time(sk, card, tmp)
+        _tail_export(sk, params, state, cfg, card, tmp)
+        _tail_bf16(params, state, cfg, card)
+        ranks = _tail_parallel(cfg, splits, params, card)
+        _tail_matbridge(card, tmp)
+        _tail_plot(tmp, np.linspace(0.7, 0.4, TAIL_STEPS))
+    launches = dict(sk.LAUNCH_COUNTS)
+    for name in (*CLI_TRAIN_KERNELS, "maxsim_int8", "maxsim_bf16"):
+        if launches[name] < 1:
+            raise AssertionError(f"the tail path never launched {name}")
+    launches["ranks"] = ranks
+    log(f"tail phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3010,6 +3640,7 @@ def main() -> int:
     cli_phase(dev, card)
     graph = graph_phase(dev, card, splits, info)
     pycaffe = pycaffe_phase(dev, card, splits, info)
+    tail = tail_phase(dev, card, splits)
     del splits, info
 
     # ---------------------------------------------------------------- times
@@ -3059,6 +3690,7 @@ def main() -> int:
     log(f"launches on the generic path: {json.dumps(graph)}")
     log(f"launches on the pycaffe path: {json.dumps(pycaffe)}")
     log(f"launches on the multimodal path: {json.dumps(mm)}")
+    log(f"launches on the tail path: {json.dumps(tail)}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
         f"GiB; run {time.perf_counter() - started:.1f} s, build included")
 

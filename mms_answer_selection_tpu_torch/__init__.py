@@ -13,3 +13,5 @@ same entry points run their plain PyTorch versions.
 """
 
 from .device import resolve_device  # noqa: F401
+
+__version__ = "0.1.0"  # the JAX package's version, which this port tracks

@@ -21,7 +21,15 @@ test``); ``train`` also takes a reference ``--solver-prototxt`` /
 databases and pycaffe: ``convert`` (checkpoints <-> ``.caffemodel``),
 ``upgrade`` (legacy prototxts and binary nets), ``convert_imageset`` (an
 image list -> LMDB / LevelDB / HDF5), ``extract_features``, ``classify``,
-``detect`` and ``draw``.
+``detect`` and ``draw``.  ``time`` is ``caffe time`` on the card
+(per-stage forward and backward, whole steps, any net prototxt, or the
+serving lifecycle), ``plot`` draws learning curves from training logs,
+``export`` freezes the eval forward and the weights into one
+``torch.export`` artifact (``deploy.py``), and ``matbridge`` serves the
+matcaffe command surface to the MATLAB client.  ``train`` and ``solve``
+take ``--mesh-dp N``: data parallelism over N processes (one device each),
+launched by ``torchrun`` or any launcher that sets ``MASTER_ADDR`` /
+``WORLD_SIZE`` / ``RANK``.
 
 The commands that run a model take ``--device`` (default ``cuda``, which
 raises where no card is present; ``cpu`` runs the plain PyTorch paths).
@@ -35,6 +43,7 @@ the prepped data dir is the same set of ``.npz`` files and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -134,6 +143,32 @@ def _load_model(path, device):
     return params_from_numpy(bundle["params"], bundle["state"], device)
 
 
+def _mesh_from_args(args):
+    """`caffe train -gpu 0,1,..` (tools/caffe.cpp:75-113): --mesh-dp N
+    trains data-parallel over N ranks, one device each; 0 / absent = one
+    device, -1 = every rank.  The ranks join through
+    ``parallel.multihost.initialize`` (a launcher's environment); a mesh
+    spans every rank."""
+    n = getattr(args, "mesh_dp", 0) or 0
+    if not n:
+        return None
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh
+    from .parallel.multihost import initialize
+
+    initialize()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n == -1:
+        n = world
+    if n > world:
+        raise SystemExit(f"--mesh-dp {n}: only {world} devices")
+    if n < world:
+        raise SystemExit(f"--mesh-dp {n}: {world} ranks run, and a mesh "
+                         f"spans every rank")
+    return make_mesh(n, 1, devices=args.device)
+
+
 def _best_checkpoint(args):
     """--ckpt, else the experiment's best snapshot."""
     from .training.checkpoint import latest_checkpoint
@@ -175,7 +210,8 @@ def cmd_train(args):
         # (`caffe train -snapshot`, tools/caffe.cpp:208-210)
         resume_from = (os.path.join(args.exp, "models")
                        if args.resume == "auto" else args.resume)
-    trainer = Trainer(model_cfg, trainer_cfg, device=args.device)
+    mesh = _mesh_from_args(args)
+    trainer = Trainer(model_cfg, trainer_cfg, device=args.device, mesh=mesh)
     if args.stream:
         # out-of-core batches from the MMSP packed store (C++ prefetch
         # ring) when present, else an in-memory iterator
@@ -217,6 +253,8 @@ def cmd_train(args):
                            handle_signals=True, resume_from=resume_from,
                            weights=args.weights,
                            steps_per_dispatch=args.fused_steps)
+    if mesh is not None and mesh.get_rank() != 0:
+        return  # rank 0 writes the run's files
     save_checkpoint(args.exp, hist["best_step"],
                     {"params": hist["params"], "state": hist["state"]},
                     prefix="best", meta={"dev_map": hist["best_dev_map"]})
@@ -548,7 +586,8 @@ def cmd_solve(args):
     from .training.graph_solver import GraphSolver
     from .training.signals import SignalHandler
 
-    gs = GraphSolver(args.solver, device=args.device)
+    mesh = _mesh_from_args(args)
+    gs = GraphSolver(args.solver, device=args.device, mesh=mesh)
     if args.snapshot:
         gs.restore(args.snapshot)
     elif args.weights:
@@ -1058,6 +1097,314 @@ def cmd_device_query(args):
                           "cuda": torch.version.cuda}))
 
 
+# ------------------------------------------------------------------- export
+def cmd_export(args):
+    """Freeze the eval forward and the weights into one ``torch.export``
+    artifact (``deploy.py``); the reference's analog is the frozen
+    .caffemodel + deploy-prototxt pair C++ caffe consumes
+    (tools/caffe.cpp:229-296).  The program is the one for the device it
+    was exported on; ``deploy.load_scorer`` moves it to another."""
+    from .deploy import save_scorer
+
+    _, meta, _ = _load_prepped(args.data)
+    model_cfg, _ = _experiment_configs(args, meta)
+    params, state = _load_model(_best_checkpoint(args), args.device)
+    header = save_scorer(args.out, params, state, model_cfg, batch=args.batch)
+    print(json.dumps({"out": args.out, **header}))
+
+
+# --------------------------------------------------------------------- time
+def _time_model(args, device):
+    """`caffe time --model=any.prototxt`: the whole net's training-mode
+    forward and, when it has a loss, forward plus backward, through
+    GraphNet (per-layer times of an eager net would time the host)."""
+    import torch
+
+    from .models.graph_net import GraphNet
+    from .utils.timer import benchmark, trace
+    from .utils.tree import tree_leaves, tree_map
+
+    with open(args.model) as f:
+        net = GraphNet(f.read(), phase="train")
+    shapes = net.declared_input_shapes()
+    missing = [n for n in net.input_names if n not in shapes]
+    if missing:
+        raise SystemExit(
+            f"net declares no shapes for inputs {missing}; add "
+            f"input_shape/input_param declarations (deploy style) "
+            f"or DummyData layers")
+    ins = {k: torch.zeros(v, dtype=torch.float32, device=device)
+           for k, v in shapes.items()}
+    params, state = net.init(torch.Generator().manual_seed(0), ins,
+                             device=device)
+    gen = torch.Generator(device=device)
+
+    @torch.no_grad()
+    def fwd():
+        blobs, _ = net.apply(params, state, ins, train=True,
+                             generator=gen.manual_seed(1))
+        return sum(torch.sum(b.to(torch.float32)) for b in blobs.values()
+                   if torch.is_tensor(b) and b.is_floating_point())
+
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+
+    def fwdbwd():
+        it = iter(leaves)
+        p = tree_map(lambda _: next(it), params)
+        loss, _ = net.loss(p, state, ins, generator=gen.manual_seed(1))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return sum(torch.sum(torch.abs(g)) for g in grads if g is not None)
+
+    has_loss = bool(net.blob_loss_weights())
+    with trace(args.xprof) if args.xprof else contextlib.nullcontext():
+        f_res = benchmark(fwd, iters=args.iters)
+        fb_res = benchmark(fwdbwd, iters=args.iters) if has_loss else None
+    out = {"model": args.model,
+           "full_forward_ms": round(f_res["p50_s"] * 1e3, 4)}
+    if fb_res is not None:
+        out["full_forward_backward_ms"] = round(fb_res["p50_s"] * 1e3, 4)
+    else:
+        out["note"] = "net has no loss layer; backward skipped"
+    if args.xprof:
+        out["xprof"] = args.xprof
+    return out
+
+
+def _time_serve(args, device):
+    """The serving lifecycle on a synthetic pool: build / save / load /
+    query p50 at 1 and 32 queries / add / remove / compact, each fenced by
+    a wait for the card."""
+    import tempfile
+    import time
+
+    import torch
+
+    from .models.mms_qa import V4, mms_qa_init
+    from .serve import QueryEngine
+
+    cfg = dataclasses.replace(V4, vocab_size=20000)
+    params, _ = mms_qa_init(cfg, generator=torch.Generator().manual_seed(0),
+                            device=device)
+    rng = np.random.default_rng(0)
+    n = args.serve_pool
+    cand = rng.integers(0, cfg.vocab_size, (n, cfg.answer_len))
+    pd = args.pool_dtype or "int8"
+
+    def wall(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return r, (time.perf_counter() - t0) * 1e3
+
+    eng = QueryEngine(params, cfg, pool_dtype=pd, device=device)
+    _, build_ms = wall(lambda: eng.build_index(cand))
+    out = {"pool": n, "pool_dtype": pd, "build_index_ms": round(build_ms, 1)}
+    with tempfile.TemporaryDirectory() as td:
+        pth = os.path.join(td, "index.npz")
+        _, save_ms = wall(lambda: eng.save_index(pth))
+        eng2 = QueryEngine(params, cfg, pool_dtype=pd, device=device)
+        _, load_ms = wall(lambda: eng2.load_index(pth))
+        out["save_index_ms"] = round(save_ms, 1)
+        out["load_index_ms"] = round(load_ms, 1)
+        del eng2
+    for nq in (1, 32):
+        q = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (nq, cfg.question_len)),
+                            device=device)
+        wall(lambda: eng.query(q, k=10))  # warm
+        times = sorted(wall(lambda: eng.query(q, k=10))[1]
+                       for _ in range(args.iters))
+        out[f"query_{nq}q_p50_ms"] = round(times[len(times) // 2], 2)
+    n_add = min(1024, n)
+    add_rows = rng.integers(0, cfg.vocab_size, (n_add, cfg.answer_len))
+    _, add_ms = wall(lambda: eng.add_candidates(add_rows))
+    out[f"add_{n_add}_ms"] = round(add_ms, 1)
+    n_rm = min(100, n)
+    _, rm_ms = wall(lambda: eng.remove_candidates(list(range(n_rm))))
+    out[f"remove_{n_rm}_ms"] = round(rm_ms, 1)
+    _, compact_ms = wall(lambda: eng.compact())
+    out["compact_ms"] = round(compact_ms, 1)
+    return out
+
+
+def cmd_time(args):
+    """Per-stage forward and backward times and whole-step numbers:
+    `caffe time` (tools/caffe.cpp:301-387 reports per-layer forward AND
+    backward ms over the train net), on the card unless --device cpu."""
+    import torch
+
+    from .device import resolve_device
+    from .models.mms_qa import V4, mms_qa_apply, mms_qa_init
+    from .training import Trainer, TrainerConfig
+    from .utils.timer import benchmark, stage_times_fwd_bwd, trace
+
+    device = resolve_device(args.device)
+    if args.model:
+        print(json.dumps(_time_model(args, device)))
+        return
+    if args.serve_pool:
+        print(json.dumps(_time_serve(args, device)))
+        return
+
+    cfg = dataclasses.replace(V4, vocab_size=20000)
+    params, state = mms_qa_init(cfg, generator=torch.Generator().manual_seed(
+        0), device=device)
+    rng = np.random.default_rng(0)
+    batch = {
+        "question": rng.integers(0, 20000, (args.batch, 40)),
+        "answer": rng.integers(0, 20000, (args.batch, 40)),
+        "overlap_feat": rng.random((args.batch, 2)).astype(np.float32),
+        "label": rng.integers(0, 2, (args.batch,)),
+    }
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    with trace(args.xprof) if args.xprof else contextlib.nullcontext():
+        stages = stage_times_fwd_bwd(params, state, batch, cfg,
+                                     iters=args.iters)
+        with torch.no_grad():
+            full = benchmark(
+                lambda: mms_qa_apply(params, state, batch, cfg,
+                                     train=False)[0]["logits"],
+                iters=args.iters)
+        # a whole train step: forward, backward and the AdaDelta update
+        tr = Trainer(cfg, TrainerConfig(batch_size=args.batch),
+                     device=device)
+        tparams, tstate, topt = tr.init()
+        train_full = benchmark(
+            lambda: tr._train_step(tparams, tstate, topt, batch, 0)[3],
+            iters=args.iters)
+        scan_ms = None
+        if args.fused_steps > 1:
+            # K steps through scan_train_steps, per step: the JAX package
+            # fuses them into one dispatch; here they are K eager steps
+            k = args.fused_steps
+            stacked = {kk: torch.stack([v] * k) for kk, v in batch.items()}
+            scan_full = benchmark(
+                lambda: tr.scan_train_steps(tparams, tstate, topt, stacked,
+                                            0)[3][-1],
+                iters=max(2, args.iters // 4))
+            scan_ms = scan_full["p50_s"] * 1e3 / k
+    table = {name: {"forward_ms": round(r["forward_ms"], 4),
+                    "backward_ms": round(r["backward_ms"], 4)}
+             for name, r in stages.items()}
+    out = {"batch": args.batch, "p50_ms_per_stage": table,
+           "full_forward_ms": round(full["p50_s"] * 1e3, 4),
+           "full_train_step_ms": round(train_full["p50_s"] * 1e3, 4),
+           "note": "stage times are each stage alone, timed by CUDA events "
+                   "over a burst (backward: autograd of the stage's "
+                   "output); full_forward / full_train_step are host "
+                   "p50s of whole calls; fused_train_step is "
+                   "scan_train_steps' K eager steps per step"}
+    if scan_ms is not None:
+        out["fused_train_step_ms"] = round(scan_ms, 4)
+        out["fused_steps"] = args.fused_steps
+    if args.xprof:
+        out["xprof"] = args.xprof
+    print(json.dumps(out))
+
+
+# --------------------------------------------------------------------- plot
+_PLOT_TYPES = [  # tools/extra/plot_training_log.py.example:41-52's order
+    ("Test accuracy", "Iters"), ("Test accuracy", "Seconds"),
+    ("Test loss", "Iters"), ("Test loss", "Seconds"),
+    ("Train learning rate", "Iters"),
+    ("Train learning rate", "Seconds"),
+    ("Train loss", "Iters"), ("Train loss", "Seconds"),
+]
+
+
+def plot_series(chart_type: int, logs) -> list:
+    """[(label, xs, ys)] that ``plot`` draws: one series a log."""
+    from .utils.parse_log import parse_log
+
+    y_desc, x_desc = _PLOT_TYPES[chart_type]
+    split = y_desc.split()[0].lower()     # train / test rows
+    x_col = "NumIters" if x_desc == "Iters" else "Seconds"
+
+    def y_value(row):
+        if "learning rate" in y_desc:
+            return row.get("LearningRate")
+        want = y_desc.split()[1]          # accuracy / loss
+        if want in row:
+            return row[want]
+        for k in row:                      # accuracy matches acc/accuracy
+            if k not in ("NumIters", "Seconds", "LearningRate") \
+                    and k.startswith(want[:3]):
+                return row[k]
+        return None
+
+    series = []
+    for log_path in logs:
+        with open(log_path) as f:
+            train, test = parse_log(f.read())
+        rows = train if split == "train" else test
+        pts = [(r.get(x_col), y_value(r)) for r in rows]
+        pts = [(x, y) for x, y in pts if x is not None and y is not None]
+        if not pts:
+            raise SystemExit(
+                f"{log_path}: no ({x_desc}, {y_desc}) points — check the "
+                f"log has {split} display lines"
+                + (" with glog timestamps" if x_col == "Seconds" else ""))
+        xs, ys = zip(*pts)
+        series.append((os.path.basename(log_path), list(xs), list(ys)))
+    return series
+
+
+def cmd_plot(args):
+    """tools/extra/plot_training_log.py.example: chart_type [0-7] +
+    parsed training logs -> a PNG of learning curves, one line per log.
+    matplotlib is imported here only; without it the command exits with
+    a message and draws nothing."""
+    if args.chart_type is None or not args.out or not args.logs:
+        for i, (y, x) in enumerate(_PLOT_TYPES):
+            print(f"{i}: {y}  vs. {x}")
+        return
+    if not 0 <= args.chart_type < len(_PLOT_TYPES):
+        raise SystemExit(
+            f"chart_type {args.chart_type} out of range; supported:\n" +
+            "\n".join(f"  {i}: {y} vs {x}"
+                       for i, (y, x) in enumerate(_PLOT_TYPES)))
+    try:
+        import matplotlib
+    except ImportError:
+        raise SystemExit("plot needs matplotlib, which this Python does not "
+                         "have; nothing was drawn") from None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    y_desc, x_desc = _PLOT_TYPES[args.chart_type]
+    series = plot_series(args.chart_type, args.logs)
+    plt.figure()
+    for label, xs, ys in series:
+        plt.plot(xs, ys, marker=".", label=label)
+    plt.xlabel(x_desc)
+    plt.ylabel(y_desc)
+    plt.title(f"{y_desc} vs. {x_desc}")
+    plt.legend()
+    plt.savefig(args.out)
+    plt.close()
+    print(f"wrote {args.out}")
+
+
+# ---------------------------------------------------------------- matbridge
+def cmd_matbridge(args):
+    """matcaffe bridge daemon: serves the MEX command surface
+    (matlab/+caffe/private/caffe_.cpp) over line-delimited JSON, so the
+    shipped matlab/+caffe .m client drives this package without a MEX
+    build.  Blocks until a client sends {"cmd": "shutdown"}."""
+    from .matcaffe import MatBridge, serve_matcaffe
+    srv, port = serve_matcaffe(args.host, args.port, MatBridge(
+        device=args.device), background=True)
+    print(json.dumps({"matbridge": {"host": args.host, "port": port}}),
+          flush=True)
+    try:
+        srv._stop.wait()
+    except KeyboardInterrupt:
+        pass
+    srv.shutdown()
+    srv.server_close()
+
+
 # --------------------------------------------------------------------- main
 def _device_flag(p):
     p.add_argument("--device", default="cuda",
@@ -1095,6 +1442,9 @@ def main(argv=None):
     p.add_argument("--data", required=True)
     p.add_argument("--exp", required=True)
     p.add_argument("--config", help="experiment config json")
+    p.add_argument("--mesh-dp", type=int, default=0,
+                   help="data-parallel over N ranks, one device each (-1 = "
+                        "all; the `caffe train -gpu 0,1,..` analogue)")
     p.add_argument("--max-iter", type=int, default=None,
                    help="iterations (default 40001; overrides --config's "
                         "max_iter when given)")
@@ -1175,6 +1525,42 @@ def main(argv=None):
     _device_flag(p)
     p.set_defaults(fn=cmd_serve)
 
+    p = sub.add_parser("export",
+                       help="freeze the eval forward + weights into one "
+                            "torch.export deployment artifact")
+    p.add_argument("--data", required=True)
+    p.add_argument("--exp", required=True)
+    p.add_argument("--ckpt")
+    p.add_argument("--config")
+    p.add_argument("--out", required=True)
+    p.add_argument("--batch", type=int, default=None,
+                   help="pin the batch dimension (default: symbolic — "
+                        "one program, any request size)")
+    p.add_argument("--max-iter", type=int, default=40001)
+    _device_flag(p)
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("time",
+                       help="per-stage fwd+bwd + whole-step timing")
+    p.add_argument("--model",
+                   help="time any net prototxt (caffe time --model; "
+                        "needs deploy-style input_shape/input_dim or "
+                        "Input-layer shape declarations)")
+    p.add_argument("--batch", type=int, default=50)
+    p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--fused-steps", type=int, default=1,
+                   help="also time K steps through scan_train_steps")
+    p.add_argument("--serve-pool", type=int, default=0, metavar="N",
+                   help="instead: time the serve lifecycle on an "
+                        "N-candidate synthetic pool (build/save/load/"
+                        "query p50/add/remove/compact)")
+    p.add_argument("--pool-dtype", choices=["bf16", "int8", "int4"],
+                   help="pool precision for --serve-pool (default int8)")
+    p.add_argument("--xprof", metavar="PATH",
+                   help="also write a torch.profiler Chrome trace to PATH")
+    _device_flag(p)
+    p.set_defaults(fn=cmd_time)
+
     p = sub.add_parser("extract",
                        help="dump embeddings/probs for a split (npz)")
     p.add_argument("--data", required=True)
@@ -1249,6 +1635,9 @@ def main(argv=None):
     p.add_argument("--weights", help="init from .caffemodel[.h5] files, "
                                      "comma-separated")
     p.add_argument("--snapshot", help="resume from a .solverstate[.h5]")
+    p.add_argument("--mesh-dp", type=int, default=0,
+                   help="data-parallel over N ranks, one device each (-1 = "
+                        "all; the `caffe train -gpu 0,1,..` analogue)")
     _device_flag(p)
     p.set_defaults(fn=cmd_solve)
 
@@ -1410,6 +1799,24 @@ def main(argv=None):
     p = sub.add_parser("device_query", help="list the torch devices")
     _device_flag(p)
     p.set_defaults(fn=cmd_device_query)
+
+    p = sub.add_parser(
+        "plot",
+        help="plot_training_log tool: chart_type [0-7] + logs -> "
+             "learning-curve PNG (no args lists chart types)")
+    p.add_argument("chart_type", nargs="?", type=int)
+    p.add_argument("out", nargs="?", help="output .png")
+    p.add_argument("logs", nargs="*", help="training log files")
+    p.set_defaults(fn=cmd_plot)
+
+    p = sub.add_parser(
+        "matbridge",
+        help="serve the matcaffe command surface to the matlab/+caffe "
+             ".m client (line-delimited JSON over TCP)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8491)
+    _device_flag(p)
+    p.set_defaults(fn=cmd_matbridge)
 
     args = ap.parse_args(argv)
     args.fn(args)

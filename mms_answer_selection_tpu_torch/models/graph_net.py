@@ -52,6 +52,7 @@ from ..metrics import ir_metrics
 from ..ops import losses as losses_ops
 from ..ops import zoo
 from ..ops.batch_norm import bn_apply
+from ..ops.conv import conv_f32
 from ..ops.dropout import dropout
 from ..ops.embed import embed_lookup, load_pretrained_vectors
 from ..ops.pooling import (pool2d_padded, spatial_pyramid_pool,
@@ -59,6 +60,7 @@ from ..ops.pooling import (pool2d_padded, spatial_pyramid_pool,
 from ..ops.recurrent import lstm_apply, rnn_apply
 from ..ops.similarity import (fm_pool, sim_cross_bilinear, sim_cross_cosine,
                               sim_cross_inv_euclidean, sim_matrix)
+from ..parallel.collectives import all_reduce_sum
 from ..utils import fillers
 from ..utils.prototxt import parse_prototxt, upgrade_net_prototxt
 
@@ -182,8 +184,13 @@ class _Ctx:
     """Per-walk context handed to layer handlers."""
 
     def __init__(self, net, params, state, *, train, generator,
-                 initializing, device):
+                 initializing, device, shards=None):
         self.net = net
+        # a dp split of the batch: BN's statistics and dropout's masks are
+        # the global batch's (``parallel.ShardContext``)
+        split = None if shards is None else shards.batch_shard
+        self.batch_shard = split
+        self.dp_group = None if split is None else shards.dp_group
         self.params = params
         self.state = state
         self.new_state = {}
@@ -378,18 +385,24 @@ class GraphNet:
 
     def apply(self, params, state, inputs: dict, *, train: bool = False,
               generator: torch.Generator | None = None,
-              start: str | None = None, end: str | None = None):
+              start: str | None = None, end: str | None = None,
+              shards=None):
         """Run the net.  Returns (blobs, new_state): every named top plus
         the inputs, on the params' device (else the input tensors', else
         ``init``'s); new_state carries the updated BN statistics.
 
         ``start`` / ``end`` name layers for a partial forward (pycaffe's
         ``net.forward(start=, end=)``): only layers in [start, end] run,
-        and ``inputs`` must carry the range's bottoms."""
+        and ``inputs`` must carry the range's bottoms.
+
+        ``shards``: a ``parallel.ShardContext`` whose dp ranks each hold
+        rows of one global batch: the BN and BatchNorm layers take the
+        global batch's statistics and Dropout draws its masks."""
         device = _first_leaf_device(params, state, inputs) or self.device \
             or resolve_device(None)
         ctx = _Ctx(self, params, dict(state), train=train,
-                   generator=generator, initializing=False, device=device)
+                   generator=generator, initializing=False, device=device,
+                   shards=shards)
         lo = 0 if start is None else self.layer_index(start)
         hi = None if end is None else self.layer_index(end)
         blobs = self._walk(ctx, inputs, lo=lo, hi=hi)
@@ -398,11 +411,12 @@ class GraphNet:
         return blobs, merged
 
     def loss(self, params, state, inputs: dict, *,
-             generator: torch.Generator | None = None, train: bool = True):
+             generator: torch.Generator | None = None, train: bool = True,
+             shards=None):
         """Weighted loss sum (net.cpp:156-166).  Returns
         (total_loss, (blobs, new_state))."""
         blobs, new_state = self.apply(params, state, inputs, train=train,
-                                      generator=generator)
+                                      generator=generator, shards=shards)
         total = None
         for node in self.layers:
             for w, top in zip(node.loss_weights, node.tops):
@@ -746,11 +760,10 @@ def _split(ctx, node, bottoms):
 # -- learnable compute -----------------------------------------------------
 
 def _conv_nhwc(x, w_oihw, *, stride, padding, dilation, groups):
-    """F.conv2d over NHWC at full float32 (no TF32), as the reference's
-    Precision.HIGHEST convolutions accumulate."""
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, stride=stride,
-                     padding=padding, dilation=dilation, groups=groups)
+    """A convolution over NHWC at full float32, forward and backward (no
+    TF32), as the reference's Precision.HIGHEST convolutions accumulate."""
+    y = conv_f32(x.permute(0, 3, 1, 2), w_oihw, stride=stride,
+                 padding=padding, dilation=dilation, groups=groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -956,7 +969,7 @@ def _bn(ctx, node, bottoms):
         "var": torch.zeros((c,), device=ctx.device)})
     y, ctx.new_state[node.name] = bn_apply(
         {"scale": scale, "shift": shift}, st, x, train=ctx.train,
-        momentum=float(_one(p.get("bn_memory"), 0.9)))
+        momentum=float(_one(p.get("bn_memory"), 0.9)), group=ctx.dp_group)
     return y
 
 
@@ -981,10 +994,17 @@ def _batch_norm(ctx, node, bottoms):
         f = 1.0 / torch.clamp(st["factor"], min=1e-30)
         mean, var = st["mean"] * f, st["var"] * f
         ctx.new_state[node.name] = st
+    elif ctx.dp_group is not None:
+        # the global batch's statistics, summed over the dp ranks
+        m = math.prod(x.shape[:-1]) * ctx.batch_shard[1]
+        mean = all_reduce_sum(torch.sum(x, dim=dims), ctx.dp_group) / m
+        var = all_reduce_sum(torch.sum(torch.square(x - mean), dim=dims),
+                             ctx.dp_group) / m
     else:
         mean = torch.mean(x, dim=dims)
         var = torch.mean(torch.square(x - mean), dim=dims)
         m = math.prod(x.shape[:-1])
+    if not use_global:
         unbias = m / max(m - 1, 1)
         ctx.new_state[node.name] = {
             "mean": st["mean"] * frac + mean.detach(),
@@ -1154,7 +1174,8 @@ def _dropout(ctx, node, bottoms):
     x, = bottoms
     if not ctx.train or ratio <= 0:
         return x
-    return dropout(ctx.step_key(), x, ratio)
+    return dropout(ctx.step_key(), x, ratio, train=True,
+                   shard=ctx.batch_shard)
 
 
 @_register("ReLU")

@@ -152,19 +152,43 @@ def mms_qa_init(cfg: MMSQAConfig, *, generator: torch.Generator,
     return params, state
 
 
-def sim_map(params, q_emb, a_emb, cfg: MMSQAConfig):
-    """The SimCross stage: (N,W1,D),(N,W2,D) -> (N,W1,W2,M|1)."""
+def sim_map(params, q_emb, a_emb, cfg: MMSQAConfig, *, shards=None):
+    """The SimCross stage: (N,W1,D),(N,W2,D) -> (N,W1,W2,M|1).
+
+    ``shards``: a ``parallel.ShardContext`` whose tp ranks each hold
+    M / tp of the metric's measures: each runs the pair maps on its own,
+    and the measure axis is gathered before the bias."""
     if cfg.sim_mode == 0:
         return sim_cross_cosine(q_emb, a_emb)
     if cfg.sim_mode == 1:
         return sim_cross_inv_euclidean(q_emb, a_emb)
     sim = params["sim"]
+    if shards is not None and shards.tp_size > 1 \
+            and sim["w"].shape[0] * shards.tp_size == cfg.sim_measures:
+        from ..parallel.collectives import copy_to_tp, gather_last_from_tp
+        g = shards.tp_group
+        out = gather_last_from_tp(sim_cross_bilinear(
+            copy_to_tp(q_emb, g), copy_to_tp(a_emb, g), sim["w"]), g)
+        if "b" in sim:
+            out = out + sim["b"].permute(1, 2, 0)[None]
+        return out
     return sim_cross_bilinear(q_emb, a_emb, sim["w"], sim.get("b"))
 
 
+def _lookup(params, ids, cfg: MMSQAConfig, shards):
+    """The table lookup; over a table whose rows the tp ranks split, the
+    sharded lookup and its all-reduce."""
+    if shards is not None and shards.tp_size > 1 \
+            and params["w"].shape[0] * shards.tp_size == cfg.vocab_size:
+        from ..parallel.collectives import sharded_embed_lookup
+        return sharded_embed_lookup(params, ids, cfg.vocab_size, shards)
+    return embed_lookup(params, ids)
+
+
 def mms_qa_apply(params, state, batch, cfg: MMSQAConfig, *, train: bool,
-                 generator: torch.Generator | None = None, q_emb=None,
-                 a_emb=None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None, q_emb=None,
+                 a_emb=None, shards=None):
     """Forward pass.
 
     batch: {'question': int (N, W1), 'answer': int (N, W2),
@@ -172,34 +196,58 @@ def mms_qa_apply(params, state, batch, cfg: MMSQAConfig, *, train: bool,
     Returns (out, new_state) with out = {'logits', 'prob'[, 'loss']}.
     ``generator`` drives dropout and is required when ``train``.
 
+    compute_dtype: the sim map is cast to it after the pair maps.  The
+    conv that takes it rounds its weights to that dtype too and sums the
+    products in float32, as the JAX package's conv does (one dtype for both
+    operands, ``preferred_element_type`` float32); its float32 output
+    leaves BN, pooling, tanh, the later blocks and the head in float32, as
+    JAX's type promotion does.  ``None`` changes nothing.
+
     q_emb / a_emb: optional (N, W, D) embedding activations that replace
     the table lookups, so a caller can differentiate the loss with respect
     to them (``utils/saliency.py``).
+
+    shards: a ``parallel.ShardContext``.  Its dp ranks each hold rows of
+    one global batch: BN takes the global batch's statistics and dropout
+    draws the global batch's masks (this rank's rows of them).  Its tp
+    ranks split the table's rows and the metric's measures where
+    ``parallel.params_pspec`` splits them.  ``None`` is the one-device
+    path.
     """
     if train and generator is None:
         raise ValueError("training forward needs a dropout generator")
     if q_emb is None:
-        q_emb = embed_lookup(params["embed"], batch["question"])
+        q_emb = _lookup(params["embed"], batch["question"], cfg, shards)
     if a_emb is None:
-        a_emb = embed_lookup(params["embed"], batch["answer"])
-    x = sim_map(params, q_emb, a_emb, cfg)
+        a_emb = _lookup(params["embed"], batch["answer"], cfg, shards)
+    x = sim_map(params, q_emb, a_emb, cfg, shards=shards)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    split = None if shards is None else shards.batch_shard
+    group = None if split is None else shards.dp_group
     if train and cfg.sim_dropout > 0:
-        x = dropout(generator, x, cfg.sim_dropout)
+        x = dropout(generator, x, cfg.sim_dropout, train=True, shard=split)
 
     new_state = dict(state)
     for i, b in enumerate(cfg.blocks):
-        x = conv2d(params[f"conv{i}"], x)
+        cp = params[f"conv{i}"]
+        if x.dtype != cp["w"].dtype:
+            # the weights rounded to x's dtype; the exact products of the
+            # rounded operands summed in float32
+            cp = tree_map(lambda t: t.to(x.dtype).float(), cp)
+            x = x.float()
+        x = conv2d(cp, x)
         x, new_state[f"bn{i}"] = bn_apply(params[f"bn{i}"], state[f"bn{i}"],
-                                          x, train=train)
+                                          x, train=train, group=group)
         pool = max_pool2d if b.pool == "max" else avg_pool2d
         x = torch.tanh(pool(x, b.pool_k, b.pool_k, stride_h=b.pool_stride,
                             stride_w=b.pool_stride))
 
-    flat = x.reshape(x.shape[0], -1)                  # NHWC (h, w, c) order
+    flat = x.reshape(x.shape[0], -1).to(params["fc1"]["w"].dtype)
     feat = torch.cat([flat, batch["overlap_feat"].to(flat)], dim=1)
     h = torch.tanh(feat @ params["fc1"]["w"] + params["fc1"]["b"])
     if train and cfg.fc1_dropout > 0:
-        h = dropout(generator, h, cfg.fc1_dropout)
+        h = dropout(generator, h, cfg.fc1_dropout, train=True, shard=split)
     logits = (h @ params["fc2"]["w"] + params["fc2"]["b"]).to(torch.float32)
 
     out = {"logits": logits, "prob": torch.softmax(logits, dim=-1)}

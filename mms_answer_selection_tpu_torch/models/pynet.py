@@ -124,6 +124,12 @@ class Blob(np.lib.mixins.NDArrayOperatorsMixin):
         return self._gbuf
 
     @property
+    def tensor(self) -> torch.Tensor:
+        """The value where it lives (the card), with no copy; a write into
+        ``.data`` shows here too."""
+        return self._current()
+
+    @property
     def shape(self):
         return tuple(self._a.shape)
 

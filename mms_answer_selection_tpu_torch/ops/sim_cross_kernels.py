@@ -442,13 +442,35 @@ class BilinearPairMaps(torch.autograd.Function):
         return dq if need_q else None, da if need_a else None, dw
 
 
+@torch.library.custom_op("mms_torch::pair_maps_fwd", mutates_args=())
+def pair_maps_fwd_op(q: torch.Tensor, a: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    """``pair_maps_fwd`` as a registered operator, so ``torch.export`` can
+    carry it into a program (a ``ctypes`` call cannot be traced): on a
+    CUDA tensor it launches the hand-written kernel, on a CPU tensor it
+    runs the plain version, by the tensors' device as the wrapper does."""
+    return pair_maps_fwd(q, a, w)
+
+
+@pair_maps_fwd_op.register_fake
+def _pair_maps_fwd_fake(q, a, w):
+    n, w1, w2, _, m = _pair_maps_shapes(q, a, w)
+    return q.new_empty((n, w1, w2, m), dtype=torch.float32)
+
+
 def bilinear_pair_maps(q, a, w):
     """Fused SimCross mode-2 map: q (N, W1, D), a (N, W2, D), w (M, D, D)
-    -> (N, W1, W2, M) float32, differentiable in all three.
+    -> (N, W1, W2, M) float32, differentiable in all three.  With no
+    gradient to take (an eval forward, an exported program) it goes
+    through the ``mms_torch::pair_maps_fwd`` operator; training keeps the
+    autograd function.
 
     CUDA operands must be contiguous float32 with M <= 65535; any W1, W2
     and D are taken (they are tiled)."""
-    return BilinearPairMaps.apply(q, a, w)
+    if torch.is_grad_enabled() and (q.requires_grad or a.requires_grad
+                                    or w.requires_grad):
+        return BilinearPairMaps.apply(q, a, w)
+    return pair_maps_fwd_op(q, a, w)
 
 
 def _pair_maps_shapes(q, a, w):

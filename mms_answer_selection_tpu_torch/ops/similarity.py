@@ -23,22 +23,26 @@ import torch
 from .sim_cross_kernels import bilinear_pair_maps
 
 
-def sim_cross_inv_euclidean(q, a):
-    """1 / (1 + ||q_i - a_j||); q: (N, W1, D), a: (N, W2, D)."""
+def sim_cross_inv_euclidean(q, a, *, keep_measure_axis: bool = True):
+    """1 / (1 + ||q_i - a_j||); q: (N, W1, D), a: (N, W2, D) ->
+    (N, W1, W2, 1), or (N, W1, W2) without the measure axis."""
     qq = torch.sum(q * q, dim=-1)
     aa = torch.sum(a * a, dim=-1)
     qa = torch.einsum("nid,njd->nij", q, a)
     d2 = qq[:, :, None] + aa[:, None, :] - 2.0 * qa
     out = 1.0 / (1.0 + torch.sqrt(torch.clamp(d2, min=0.0)))
-    return out[..., None]
+    return out[..., None] if keep_measure_axis else out
 
 
-def sim_cross_cosine(q, a):
-    """<q_i, a_j> / (||q_i|| ||a_j||), unguarded as in the reference."""
+def sim_cross_cosine(q, a, *, eps: float = 0.0,
+                     keep_measure_axis: bool = True):
+    """<q_i, a_j> / (||q_i|| ||a_j|| + eps); ``eps`` 0 leaves it unguarded,
+    as in the reference."""
     qn = torch.sqrt(torch.sum(q * q, dim=-1))
     an = torch.sqrt(torch.sum(a * a, dim=-1))
     qa = torch.einsum("nid,njd->nij", q, a)
-    return (qa / (qn[:, :, None] * an[:, None, :]))[..., None]
+    out = qa / (qn[:, :, None] * an[:, None, :] + eps)
+    return out[..., None] if keep_measure_axis else out
 
 
 def sim_cross_bilinear(q, a, w, bias=None):

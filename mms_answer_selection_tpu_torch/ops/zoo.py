@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .conv import conv_f32
 from .losses import _abs
 
 # ----------------------------------------------------------------- neurons
@@ -148,10 +149,9 @@ def deconv2d(x, weight, bias=None, *, stride: int = 1, pad: int = 0,
         raise ValueError(f"x channels {x.shape[-1]} != weight Cin {cin}")
     if cin % group:
         raise ValueError(f"Cin {cin} not divisible by group {group}")
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight, bias,
-                               stride=stride, padding=pad, groups=group,
-                               dilation=dilation)
+    y = conv_f32(x.permute(0, 3, 1, 2), weight, bias, stride=stride,
+                 padding=pad, dilation=dilation, groups=group,
+                 transposed=True)
     return y.permute(0, 2, 3, 1)
 
 

@@ -106,6 +106,9 @@ class IVFIndex:
                 f"IVF supports bf16 and int8 pools, as the reference does; "
                 f"got {engine.pool_dtype!r} (int4 is capacity-only, served "
                 f"behind query_rerank)")
+        if engine.mesh is not None:
+            raise ValueError("IVF v1 is single-device; meshed pools use "
+                             "the sharded brute-force path")
         if engine.cand_token_ids is None:
             raise ValueError("IVF needs build_index(candidate_ids); "
                              "from-tokens pools keep no ids")
@@ -283,12 +286,18 @@ class IVFIndex:
         return (torch.stack([v for v, _ in out]),
                 torch.stack([ix for _, ix in out]))
 
-    def query_coarse(self, query_ids, k: int = 10, *, shortlist: int = 1024):
+    def query_coarse(self, query_ids, k: int = 10, *, shortlist: int = 1024,
+                     approx_recall: float | None = 0.95):
         """Flat two-stage retrieval: a coarse score for every candidate
         (the dense product with the token means, or with coarse_tokens > 1
         the bf16 MaxSim kernel over the token-centroid mini pool), then the
         exact kernel on the top ``shortlist``.  Returns (scores (Nq, k'),
-        indices (Nq, k')), k' = min(k, shortlist, pool size)."""
+        indices (Nq, k')), k' = min(k, shortlist, pool size).
+
+        ``approx_recall`` is taken for the JAX package's signature, where
+        it picks the TPU's approximate top-k for large shortlists; the
+        shortlist here is always selected exactly, whatever its value."""
+        del approx_recall
         eng = self.engine
         shortlist = min(shortlist, eng.pool_size)
         k = min(k, shortlist)

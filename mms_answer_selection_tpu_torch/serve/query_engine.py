@@ -23,6 +23,15 @@ front of the exact scan (``serve/ivf.py``).
 Ties: ``lax.top_k`` puts the lower index first, while ``torch.topk`` on
 CUDA promises no order.  ``topk`` below fixes the reference's rule, and
 the chunk merge keeps it: an earlier chunk's entries come first.
+
+``mesh``: the pool split along the candidate axis over every rank of a
+``parallel.make_mesh`` mesh.  Rank s holds the contiguous global rows
+[s * P, (s + 1) * P), P = ceil((C + reserve) / ranks), the rows past the
+pool masked; each rank scores its rows with the MaxSim kernel chunk by
+chunk into a local top-k, and the local top-k's values and global indices
+are gathered bit for bit and merged in rank order, so ties still go to
+the lower global index.  The candidate ids stay whole on every rank, so
+``query_rerank`` rescores the merged shortlist on each.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ from ..device import resolve_device
 from ..models.mms_qa import MMSQAConfig, mms_qa_apply
 from ..ops import sim_cross_kernels as sk
 from ..ops.embed import embed_lookup
+from ..parallel.collectives import gather_exact
+from ..parallel.mesh import mesh_device
 from ..utils.tree import tree_map
 
 POOL_DTYPES = ("bf16", "int8", "int4")
@@ -108,11 +119,13 @@ class QueryEngine:
     bf16, so serve it behind ``query_rerank``).
     chunk_size: candidates packed and scored per step; pools larger than
     this are scored chunk by chunk with an incremental top-k merge.
-    device: where the pool lives and the kernels run (default "cuda").
+    device: where the pool lives and the kernels run (default "cuda", or
+    this rank's device on a mesh).
+    mesh: split the pool over every rank of this mesh (module docstring).
     """
 
     def __init__(self, params, cfg: MMSQAConfig, *, pool_dtype: str = "bf16",
-                 chunk_size: int = 131072, device=None):
+                 chunk_size: int = 131072, device=None, mesh=None):
         if cfg.sim_mode != 2:
             raise ValueError("query engine requires the learned bilinear "
                              "metric (sim_mode=2)")
@@ -121,6 +134,12 @@ class QueryEngine:
                              f"{pool_dtype!r}")
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.size() != torch.distributed.get_world_size():
+                raise ValueError("a meshed engine splits its pool over "
+                                 "every rank; the mesh must span them all")
+            device = mesh_device(mesh) if device is None else device
         self.device = resolve_device(device)
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.cfg = cfg
@@ -128,7 +147,8 @@ class QueryEngine:
         self.chunk_size = int(chunk_size)
         self.pool = None          # (capacity, W2P, Dp[/2]) packed rows
         self.aux = None           # int8 / int4 only: (capacity, 2) bf16
-        self.pool_size = 0        # rows in use; [pool_size:] is reserve
+        self.pool_size = 0        # rows in use (global on a mesh)
+        self._offset = 0          # global index of this rank's row 0
         self.cand_token_ids = None  # (C, W2) on device; None for from-tokens
         self.deleted = torch.zeros(0, dtype=torch.int64)  # sorted, CPU
         self.ivf = None           # set by build_ivf
@@ -165,21 +185,39 @@ class QueryEngine:
     def _embedded(self, ids):
         return lambda a, b: embed_lookup(self.params["embed"], ids[a:b])
 
+    def _shards(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size()
+
     def _build(self, c: int, reserve: int, tokens_of):
         if c < 1 or reserve < 0:
             raise ValueError(f"need at least one candidate and reserve >= 0, "
                              f"got C={c}, reserve={reserve}")
         self.pool = self.aux = None  # free the old pool before packing
-        pool, aux = self._pack(tokens_of(0, min(c, self.chunk_size)))
-        self.pool = torch.zeros((c + reserve,) + pool.shape[1:],
+        # this rank's global rows [off, off + rows); on one device, all
+        rows = -(-(c + reserve) // self._shards())
+        off = 0 if self.mesh is None else \
+            torch.distributed.get_rank() * rows
+        live = min(max(c - off, 0), rows)
+        # the first chunk packed fixes the layout; a rank past row 0 packs
+        # global row 0 for the layout alone
+        first = min(live, self.chunk_size) if off == 0 else 1
+        pool, aux = self._pack(tokens_of(0, first))
+        self.pool = torch.zeros((rows,) + pool.shape[1:],
                                 dtype=pool.dtype, device=self.device)
-        self.pool[:pool.shape[0]] = pool
         if aux is not None:
-            self.aux = torch.zeros((c + reserve, 2), dtype=aux.dtype,
+            self.aux = torch.zeros((rows, 2), dtype=aux.dtype,
                                    device=self.device)
-            self.aux[:aux.shape[0]] = aux
-        self._mask_reserve(c)
-        self._write_rows(pool.shape[0], c, tokens_of)
+        if off == 0:
+            self.pool[:pool.shape[0]] = pool
+            if aux is not None:
+                self.aux[:aux.shape[0]] = aux
+            start = first
+        else:
+            start = 0
+        self._mask_reserve(live)
+        self._write_rows(start, live,
+                         lambda a, b: tokens_of(off + a, off + b))
+        self._offset = off
         self.pool_size = c
         self.deleted = torch.zeros(0, dtype=torch.int64)
         self.ivf = None
@@ -213,6 +251,9 @@ class QueryEngine:
         new rows).  Returns the new rows' indices (CPU int64)."""
         if self.pool is None:
             raise ValueError("build_index first")
+        if self.mesh is not None:
+            raise ValueError("add_candidates is single-device; meshed "
+                             "pools rebuild with build_index")
         if self.cand_token_ids is None:
             raise ValueError("add_candidates needs an ids-built index "
                              "(build_index, not build_index_from_tokens)")
@@ -255,7 +296,12 @@ class QueryEngine:
             raise ValueError("build_index first")
         if rows[0] < 0 or rows[-1] >= self.pool_size:
             raise ValueError(f"row out of range [0, {self.pool_size})")
-        r = rows.to(self.device)
+        if self.mesh is not None:  # the rows this rank holds
+            mine = rows - self._offset
+            r = mine[(mine >= 0) & (mine < self.pool.shape[0])].to(
+                self.device)
+        else:
+            r = rows.to(self.device)
         if self.aux is None:
             sk.mask_candidate_rows(self.pool, r)
         else:
@@ -287,6 +333,9 @@ class QueryEngine:
         mapping = torch.full((self.pool_size,), -1, dtype=torch.int64)
         mapping[keep] = torch.arange(keep.numel())
         keep = keep.to(self.device)
+        if self.mesh is not None:  # re-split the live rows over the ranks
+            self.build_index(self.cand_token_ids[keep])
+            return mapping
         self.pool = self.pool[keep]
         self.aux = None if self.aux is None else self.aux[keep]
         self.cand_token_ids = self.cand_token_ids[keep]
@@ -334,10 +383,16 @@ class QueryEngine:
             "pool_size": np.int64(n),
             "chunk_size": np.int64(self.chunk_size),
             "deleted": self.deleted.numpy(),
-            "pool": self.pool[:n],
+            # a meshed index holds one rank's rows; it reloads only onto a
+            # mesh of as many ranks, into the same rank
+            "shards": np.int64(self._shards()),
+            "shard": np.int64(0 if self.mesh is None
+                              else torch.distributed.get_rank()),
         }
+        rows = n if self.mesh is None else self.pool.shape[0]
+        data["pool"] = self.pool[:rows]
         if self.aux is not None:
-            data["aux"] = self.aux[:n]
+            data["aux"] = self.aux[:rows]
         if self.cand_token_ids is not None:
             data["cand_token_ids"] = self.cand_token_ids
         if self.ivf is not None:
@@ -377,6 +432,17 @@ class QueryEngine:
                 raise ValueError(
                     "index was packed under different weights (embed/sim "
                     "fingerprint mismatch); rebuild with build_index")
+            saved_shards = int(z["shards"]) if "shards" in z.files else 1
+            if saved_shards != self._shards():
+                raise ValueError(
+                    f"index was packed for {saved_shards} shard(s); this "
+                    f"engine's mesh has {self._shards()} — the pool padding "
+                    "layout differs, rebuild with build_index")
+            shard = int(z["shard"]) if "shard" in z.files else 0
+            if self.mesh is not None \
+                    and shard != torch.distributed.get_rank():
+                raise ValueError(f"index holds shard {shard}; this is rank "
+                                 f"{torch.distributed.get_rank()}")
             bf16 = set(_text(z["bf16_keys"]).split(","))
 
             def get(key):
@@ -391,6 +457,7 @@ class QueryEngine:
             self.cand_token_ids = (get("cand_token_ids")
                                    if "cand_token_ids" in z.files else None)
             self.pool_size = int(z["pool_size"])
+            self._offset = shard * self.pool.shape[0]
             self.chunk_size = int(z["chunk_size"])
             self.deleted = torch.from_numpy(z["deleted"]).to(torch.int64)
             self.ivf = None
@@ -425,19 +492,26 @@ class QueryEngine:
         with fewer live rows than k returns fewer results, never a
         tombstone.  Pools larger than ``chunk_size`` are scored chunk by
         chunk; each chunk's top-k merges into the running one, earlier
-        chunk first among equal scores (the lower index, as unchunked)."""
+        chunk first among equal scores (the lower index, as unchunked).
+        On a mesh every rank scores its rows so, and the ranks' top-k
+        merge in rank order; every rank returns the merged top-k."""
         proj = self.project(self.query_tokens(query_ids))
         k = min(k, self.n_live, self.chunk_size)
+        rows = self.pool_size if self.mesh is None else self.pool.shape[0]
         vals = idx = None
-        for a in range(0, self.pool_size, self.chunk_size):
-            b = min(self.pool_size, a + self.chunk_size)
+        for a in range(0, rows, self.chunk_size):
+            b = min(rows, a + self.chunk_size)
             aux = None if self.aux is None else self.aux[a:b]
             v, ix = topk(self.score(proj, self.pool[a:b], aux), min(k, b - a))
-            ix = ix + a
+            ix = ix + (a + self._offset)
             if vals is not None:
                 v, pos = topk(torch.cat([vals, v], 1), k)
                 ix = torch.gather(torch.cat([idx, ix], 1), 1, pos)
             vals, idx = v, ix
+        if self.mesh is not None:
+            group = torch.distributed.group.WORLD
+            vals, idx = topk_merge(gather_exact(vals, group),
+                                   gather_exact(idx, group), k)
         return vals, idx
 
     # ------------------------------------------------- approximate retrieval

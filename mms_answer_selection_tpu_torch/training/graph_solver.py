@@ -26,8 +26,14 @@ weights and the solver history in the reference's files
   consumed, so a resumed run repeats the uninterrupted one; dropout and
   the other random layers draw from a generator seeded by (seed, iter).
 
-The JAX package's ``mesh=`` data parallelism is not here (it waits for
-the port's parallel slice).
+* ``mesh=``: data parallelism over a ``parallel.make_mesh`` mesh.  Every
+  rank pulls the same global batches and takes its rows (each micro-batch
+  split on its sample axis); BN / BatchNorm take the global batch's
+  statistics, Dropout draws its masks, and the gradients and the loss are
+  all-reduced to the global-batch mean.  The loss layers normalize over
+  each rank's rows, so a layer whose count varies by rank (an
+  ``ignore_label``) weighs the ranks' means equally.  Rank 0 writes the
+  snapshots.
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ from ..device import resolve_device
 from ..models.graph_net import DATA_TYPES, GraphNet
 from ..utils.prototxt import parse_prototxt, solver_config_from_prototxt
 from ..utils.tree import tree_leaves, tree_map
+from ..parallel.mesh import mesh_device, shard_context
+from ..parallel.train_step import local_batch, reduce_grads
 from .optim import learning_rate, make_solver
 from .trainer import derive_seed
 
@@ -294,7 +302,11 @@ class GraphSolver:
 
     def __init__(self, solver: str, *, base_dir: str | None = None,
                  feeds: dict | None = None, seed: int = 0,
-                 on_display=None, device=None):
+                 on_display=None, device=None, mesh=None):
+        self.mesh = mesh
+        self._shards = shard_context(mesh).without_tp()  # tp: replicas
+        if mesh is not None and device is None:
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
         text = _read(solver)
         self.base_dir = base_dir or (
@@ -418,15 +430,18 @@ class GraphSolver:
                   for p in tree_leaves(self.params)]
         it = iter(leaves)
         params = tree_map(lambda _: next(it), self.params)
-        loss, (blobs, state) = self.net.loss(params, self.state, batch,
-                                             generator=generator)
+        shards = self._shards if self._shards.dp_size > 1 else None
+        loss, (blobs, state) = self.net.loss(
+            params, self.state, local_batch(batch, self._shards),
+            generator=generator, shards=shards)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        it = iter(g if g is not None else torch.zeros_like(x)
-                  for g, x in zip(grads, leaves))
+        grads = [g if g is not None else torch.zeros_like(x)
+                 for g, x in zip(grads, leaves)]
+        grads, loss = reduce_grads(grads, loss.detach(), self._shards)
+        it = iter(grads)
         outs = {t: blobs[t].detach()
                 for t in self.net.output_blob_names()}
-        return (loss.detach(), tree_map(lambda _: next(it), self.params),
-                state, outs)
+        return loss, tree_map(lambda _: next(it), self.params), state, outs
 
     def _train_step(self):
         """One solver iteration on the next batch(es): forward, backward
@@ -607,8 +622,10 @@ class GraphSolver:
         save_state = save_solverstate_h5 if h5 else \
             save_solverstate_binaryproto
         model = self._snapshot_name(".caffemodel" + h5)
-        save_model(model, self.params, self.state, specs=specs)
         st = self._snapshot_name(".solverstate" + h5)
+        if self.mesh is not None and torch.distributed.get_rank() != 0:
+            return model, st  # replicated params: rank 0 writes them
+        save_model(model, self.params, self.state, specs=specs)
         save_state(st, self.params, self.state, self.opt_state, self.iter_,
                    learned_net=os.path.basename(model), specs=specs)
         log.info("Snapshotting to %s", model)

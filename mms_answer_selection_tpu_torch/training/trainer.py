@@ -30,7 +30,12 @@ its seed and step, so a run resumed from a snapshot at step k repeats the
 uninterrupted run bit for bit on the CPU.  The draws differ from the JAX
 package's for the same seed.
 
-Not here yet: mesh data parallelism (ROADMAP Queue 1 item 7).
+``mesh``: data parallelism over a ``parallel.make_mesh`` mesh.  Every rank
+runs this loop on the same global batches and takes its rows of each (the
+sample axis, axis 1 under iter_size > 1); BN takes the global batch's
+statistics, dropout draws the global batch's masks, and the gradients are
+all-reduced to the global-batch mean, so the run is the one-device run's.
+Parameters are replicated; rank 0 writes the snapshots.
 """
 
 from __future__ import annotations
@@ -54,7 +59,9 @@ from ..metrics import (
     mean_reciprocal_rank_torch_sorted,
 )
 from ..models.mms_qa import MMSQAConfig, mms_qa_apply, mms_qa_init, param_spec
-from ..utils.tree import tree_leaves, tree_map
+from ..parallel.mesh import mesh_device, shard_context
+from ..parallel.train_step import local_batch, loss_and_grads, reduce_grads
+from ..utils.tree import tree_map
 from .checkpoint import (
     latest_checkpoint,
     load_checkpoint,
@@ -169,13 +176,21 @@ class Trainer:
     returns ({'loss', ...}, new_state); ``init_fn(model_cfg, generator=,
     device=[, pretrained=])`` returns (params, state), ``pretrained``
     passed only when given (the image-pair model takes none).  Evaluation
-    reads ``out['prob']``, so it stays the QA model's."""
+    reads ``out['prob']``, so it stays the QA model's.
+
+    ``mesh``: a ``parallel.make_mesh`` mesh whose 'dp' axis splits each
+    batch (see the module docstring); the device is then this rank's.
+    Over more than one dp rank ``apply_fn`` must take ``shards=``."""
 
     def __init__(self, model_cfg: MMSQAConfig, cfg: TrainerConfig, *,
-                 device=None, apply_fn: Callable = mms_qa_apply,
+                 device=None, mesh=None, apply_fn: Callable = mms_qa_apply,
                  init_fn: Callable = mms_qa_init):
         self.model_cfg = model_cfg
         self.cfg = cfg
+        self.mesh = mesh
+        self._shards = shard_context(mesh).without_tp()  # tp: replicas
+        if mesh is not None and device is None:
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
         self.apply_fn = apply_fn
         self.init_fn = init_fn
@@ -197,23 +212,22 @@ class Trainer:
             derive_seed(self.cfg.seed, _DROPOUT, *ints))
 
     def _loss_and_grads(self, params, state, batch, generator):
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        it = iter(leaves)
-        p = tree_map(lambda _: next(it), params)
-        out, new_state = self.apply_fn(p, state, batch, self.model_cfg,
-                                       train=True, generator=generator)
-        grads = torch.autograd.grad(out["loss"], leaves, allow_unused=True)
-        it = iter(g if g is not None else torch.zeros_like(x)
-                  for g, x in zip(grads, leaves))
-        return out["loss"].detach(), new_state, tree_map(lambda _: next(it),
-                                                         params)
+        loss, new_state, grads = loss_and_grads(
+            self.apply_fn, params, state, batch, self.model_cfg, generator,
+            self._shards)
+        grads, loss = reduce_grads(grads, loss, self._shards)
+        it = iter(grads)
+        return loss, new_state, tree_map(lambda _: next(it), params)
 
     def _train_step(self, params, state, opt_state, batch, step: int):
         """One solver step.  With ``iter_size`` > 1 every batch leaf carries
         a leading micro-batch axis; the gradients are summed over the
         micro-batches (the solver divides by iter_size) and the loss is
-        their mean.  Returns (params, state, opt_state, loss 0-d tensor)."""
+        their mean.  Over a mesh ``batch`` is the global batch, of which
+        this rank takes its rows.  Returns (params, state, opt_state, loss
+        0-d tensor)."""
         iter_size = self.cfg.solver.iter_size
+        batch = local_batch(batch, self._shards, 0 if iter_size == 1 else 1)
         if iter_size == 1:
             loss, state, grads = self._loss_and_grads(
                 params, state, batch, self._generator(step))
@@ -398,6 +412,8 @@ class Trainer:
 
     def _snapshot(self, it, params, state, opt_state, history, best,
                   **meta):
+        if self.mesh is not None and torch.distributed.get_rank() != 0:
+            return  # replicated params: rank 0 writes them
         save_checkpoint(
             self.cfg.snapshot_dir, it,
             {"params": params, "state": state, "opt_state": opt_state},

@@ -141,12 +141,12 @@ _FAMILIES = [
 ]
 
 
-def register_model_family(name, detector, specs_fn, *, front=True):
+def register_model_family(name, detector, spec_builder, *, front=True):
     """Extension point: register (detector(params) -> bool,
-    specs_fn(params, state) -> specs) for a new model family so its
+    spec_builder(params, state) -> specs) for a new model family so its
     nets round-trip the reference formats like the built-ins."""
     _FAMILIES.insert(0 if front else len(_FAMILIES),
-                     (name, detector, specs_fn))
+                     (name, detector, spec_builder))
 
 
 def detect_family(params) -> str:

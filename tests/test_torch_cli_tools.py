@@ -579,3 +579,196 @@ def test_draw_equals_jax(capsys, tmp_path, phase):
           [*argv, "--out", str(tmp_path / "t.dot")])
     assert (tmp_path / "t.dot").read_text() == \
         (tmp_path / "j.dot").read_text()
+
+
+# ------------------------------------------- time, plot, export, the parser
+TIME_NET = """
+name: "timed" input: "data" input_shape { dim: 4 dim: 3 dim: 6 dim: 6 }
+input: "label" input_shape { dim: 4 }
+layer { name: "conv" type: "Convolution" bottom: "data" top: "conv"
+  convolution_param { num_output: 4 kernel_size: 3
+    weight_filler { type: "xavier" } } }
+layer { name: "ip" type: "InnerProduct" bottom: "conv" top: "ip"
+  inner_product_param { num_output: 3 weight_filler { type: "xavier" } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip" bottom: "label"
+  top: "loss" }
+"""
+
+
+def _time_json(main, argv, capsys):
+    main(argv)
+    return json.loads(_lines(capsys)[-1])
+
+
+@pytest.mark.parametrize("mode", ["stages", "model", "serve"])
+def test_time_keys_equal_jax(capsys, tmp_path, mode):
+    if mode == "stages":
+        argv = ["time", "--batch", "2", "--iters", "1", "--fused-steps", "2"]
+    elif mode == "model":
+        (tmp_path / "net.prototxt").write_text(TIME_NET)
+        argv = ["time", "--model", str(tmp_path / "net.prototxt"),
+                "--iters", "1"]
+    else:
+        argv = ["time", "--serve-pool", "24", "--pool-dtype", "bf16",
+                "--iters", "1"]
+    got = _time_json(cli.main, [*argv, "--device", "cpu"], capsys)
+    want = _time_json(JCLI.main, argv, capsys)
+    assert set(got) == set(want)
+    if mode == "stages":
+        assert list(got["p50_ms_per_stage"]) == list(want["p50_ms_per_stage"])
+        for name, row in want["p50_ms_per_stage"].items():
+            assert set(got["p50_ms_per_stage"][name]) == set(row)
+        assert got["fused_steps"] == want["fused_steps"] == 2
+    for k, v in got.items():
+        if k.endswith("_ms"):
+            assert isinstance(v, float) and v >= 0, k
+
+
+def test_time_writes_the_xprof_trace(capsys, tmp_path):
+    (tmp_path / "net.prototxt").write_text(TIME_NET)
+    out = _time_json(cli.main, ["time", "--model",
+                                str(tmp_path / "net.prototxt"), "--iters",
+                                "1", "--xprof", str(tmp_path / "t.json"),
+                                "--device", "cpu"], capsys)
+    assert out["xprof"] == str(tmp_path / "t.json")
+    assert json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+
+
+def _recorded_plot(monkeypatch, main, argv):
+    import matplotlib.pyplot as plt
+    calls = []
+    monkeypatch.setattr(plt, "plot", lambda xs, ys, **kw: calls.append(
+        (list(xs), list(ys), kw.get("label"))))
+    main(argv)
+    return calls
+
+
+@pytest.mark.parametrize("chart", [0, 3, 4, 6, 7])
+def test_plot_series_equal_jax(monkeypatch, capsys, tmp_path, chart):
+    for name in ("a.log", "b.log"):
+        (tmp_path / name).write_text(GLOG)
+    logs = [str(tmp_path / "a.log"), str(tmp_path / "b.log")]
+    got = _recorded_plot(monkeypatch, cli.main,
+                         ["plot", str(chart), str(tmp_path / "t.png"), *logs])
+    want = _recorded_plot(monkeypatch, JCLI.main,
+                          ["plot", str(chart), str(tmp_path / "j.png"),
+                           *logs])
+    assert got == want and len(got) == 2
+    assert (tmp_path / "t.png").exists()
+    assert [(xs, ys, label) for label, xs, ys in
+            cli.plot_series(chart, logs)] == got
+
+
+def test_plot_lists_and_refuses_as_jax_does(capsys, tmp_path):
+    cli.main(["plot"])
+    got = _lines(capsys)
+    JCLI.main(["plot"])
+    assert got == _lines(capsys) and len(got) == 8
+    with pytest.raises(SystemExit, match="out of range"):
+        cli.main(["plot", "9", str(tmp_path / "x.png"), "a.log"])
+
+
+def test_plot_without_matplotlib_exits_and_draws_nothing(monkeypatch,
+                                                         tmp_path):
+    import sys
+    (tmp_path / "a.log").write_text(GLOG)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(SystemExit, match="matplotlib"):
+        cli.main(["plot", "6", str(tmp_path / "x.png"),
+                  str(tmp_path / "a.log")])
+    assert not (tmp_path / "x.png").exists()
+
+
+def test_export_then_load_scorer_matches(run, capsys):
+    from mms_answer_selection_tpu_torch import deploy
+    from mms_answer_selection_tpu_torch.data import load_dataset
+
+    root, exp = run
+    out = root / "scorer.mmst"
+    cli.main(["export", "--data", str(root / "prep"), "--exp", str(exp),
+              "--out", str(out), "--device", "cpu"])
+    header = json.loads(_lines(capsys)[-1])
+    assert header["out"] == str(out) and header["pair_maps"] == "custom_op"
+    scorer = deploy.load_scorer(str(out), device="cpu")
+    test = load_dataset(str(root / "prep" / "test.npz"))
+    params, state = cli._load_model(cli._best_checkpoint(
+        type("A", (), {"ckpt": None, "exp": str(exp)})), "cpu")
+    cfg, _ = cli._experiment_configs(type("A", (), {
+        "config": None, "exp": str(exp)}), None)
+    want, _ = TQ.mms_qa_apply(params, state, {
+        "question": torch.as_tensor(test["question"]),
+        "answer": torch.as_tensor(test["answer"]),
+        "overlap_feat": torch.as_tensor(test["overlap_feat"])}, cfg,
+        train=False)
+    logits, prob = scorer(test["question"], test["answer"],
+                          test["overlap_feat"])
+    scale = float(want["logits"].abs().max())
+    assert np.abs(logits - want["logits"].numpy()).max() <= 1e-5 * scale
+    np.testing.assert_allclose(prob, want["prob"].numpy(), atol=1e-6)
+
+
+def _usage(main, argv, capsys):
+    with pytest.raises(SystemExit):
+        main([*argv, "--help"])
+    return capsys.readouterr().out
+
+
+def test_subcommands_and_mesh_flags_equal_jax(capsys):
+    import re
+
+    def commands(text):
+        return set(re.search(r"\{([a-z_,]+)\}", text).group(1).split(","))
+
+    got = commands(_usage(cli.main, [], capsys))
+    want = commands(_usage(JCLI.main, [], capsys))
+    assert got == want and len(got) == 24
+    for name in sorted(want):
+        has = "--mesh-dp" in _usage(cli.main, [name], capsys)
+        assert has == ("--mesh-dp" in _usage(JCLI.main, [name], capsys)), \
+            name
+        assert has == (name in ("train", "solve"))
+
+
+def test_mesh_dp_past_the_ranks_exits_as_jax_does(run, capsys):
+    root, exp = run
+    with pytest.raises(SystemExit, match="--mesh-dp 4: only 1 devices"):
+        cli.main(["train", "--data", str(root / "prep"), "--exp",
+                  str(root / "exp_mesh"), "--mesh-dp", "4", "--max-iter",
+                  "1", "--device", "cpu"])
+
+
+def test_train_mesh_dp_one_rank_is_the_plain_run(run, tmp_path):
+    """--mesh-dp 1 trains over a one-rank mesh (a gloo group made for the
+    process): the same history and best checkpoint as without it."""
+    import torch.distributed as dist
+
+    from mms_answer_selection_tpu_torch.training.checkpoint import \
+        load_checkpoint
+
+    root, exp = run
+    model, trainer = TConfig.experiment_from_json((exp / "cfg.json")
+                                                  .read_text())
+    outs = {}
+    assert not dist.is_initialized()
+    try:
+        for name, extra in (("plain", []), ("mesh", ["--mesh-dp", "1"])):
+            out = tmp_path / name
+            out.mkdir()
+            (out / "cfg.json").write_text(TConfig.experiment_to_json(
+                model, dataclasses.replace(
+                    trainer, snapshot_dir=str(out / "models"))))
+            cli.main(["train", "--data", str(root / "prep"), "--exp",
+                      str(out), "--config", str(out / "cfg.json"),
+                      "--device", "cpu", *extra])
+            outs[name] = out
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    hist = [json.loads((outs[n] / "history.json").read_text())
+            for n in ("plain", "mesh")]
+    assert hist[0] == hist[1]
+    best = [load_checkpoint(str(next((outs[n]).glob("best_iter_*"))))[0]
+            for n in ("plain", "mesh")]
+    for a, b in zip(jax.tree.leaves(best[0]), jax.tree.leaves(best[1])):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -1006,3 +1006,138 @@ def test_set_mode_routes_nets_and_solvers(tmp_path, gpu_mode):
     caffe.set_mode_gpu()
     assert caffe.AdaDeltaSolver(path, feeds=feeds,
                                 device="cpu")._gs.device.type == "cpu"
+
+
+# --------------------------------------------- the operator, export, meshes
+def test_pair_map_operator_launches_the_kernel_and_equals_plain():
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((50, 40, 50), generator=g, device=dev)
+    a = torch.randn((50, 40, 50), generator=g, device=dev)
+    w = torch.randn((4, 50, 50), generator=g, device=dev) * 0.1
+    before = T.LAUNCH_COUNTS["pair_maps_fwd"]
+    got = torch.ops.mms_torch.pair_maps_fwd(q, a, w)
+    assert T.LAUNCH_COUNTS["pair_maps_fwd"] == before + 1
+    want = T.bilinear_pair_maps_plain(q, a, w)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= \
+        T.KERNEL_VS_PLAIN_RTOL["pair_maps_fwd"] * scale
+    # the eval forward (no gradient to take) goes through the operator
+    with torch.no_grad():
+        T.bilinear_pair_maps(q, a, w)
+    assert T.LAUNCH_COUNTS["pair_maps_fwd"] == before + 2
+
+
+def test_loaded_scorer_on_cuda_equals_the_live_model(tmp_path):
+    from mms_answer_selection_tpu_torch import deploy
+
+    dev = _cuda()
+    cfg = dataclasses.replace(TM.V4, vocab_size=500)
+    params, state = TM.mms_qa_init(cfg, generator=torch.Generator()
+                                   .manual_seed(0), device=dev)
+    params["sim"]["w"].normal_(0, 0.05)
+    state = {k: {"mean": torch.rand(v["mean"].shape, device=dev) * 0.1,
+                 "var": torch.rand(v["var"].shape, device=dev) + 0.5}
+             for k, v in state.items()}
+    path = str(tmp_path / "s.mmst")
+    deploy.save_scorer(path, params, state, cfg)
+    scorer = deploy.load_scorer(path)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for n in (1, 7, 64):
+        batch = {"question": torch.randint(0, 500, (n, 40), generator=g,
+                                           device=dev),
+                 "answer": torch.randint(0, 500, (n, 40), generator=g,
+                                         device=dev),
+                 "overlap_feat": torch.rand((n, 2), generator=g, device=dev)}
+        before = T.LAUNCH_COUNTS["pair_maps_fwd"]
+        logits, prob = scorer(batch["question"], batch["answer"],
+                              batch["overlap_feat"])
+        assert T.LAUNCH_COUNTS["pair_maps_fwd"] == before + 1
+        with torch.no_grad():
+            want, _ = TM.mms_qa_apply(params, state, batch, cfg, train=False)
+        want = want["logits"].cpu().numpy()
+        assert abs(logits - want).max() <= 1e-5 * abs(want).max()
+
+
+def _dp_case():
+    """The ranks' Trainer(mesh=) run: a tiny model, three global batches
+    of 8, and where the ranks import their function from."""
+    import os
+
+    from mms_answer_selection_tpu_torch.ops import _build
+    from mms_answer_selection_tpu_torch.training import (SolverConfig,
+                                                         TrainerConfig)
+
+    _build.load_library()          # the ranks load the built library
+    cfg = TM.MMSQAConfig(
+        vocab_size=200, embed_dim=8, question_len=12, answer_len=12,
+        sim_measures=2, sim_weight_init="xavier",
+        blocks=(TM.ConvBlock(3, 3, 4, "ave", 2, 2),
+                TM.ConvBlock(3, 3, 4, "ave", 3, 1)), fc1_dim=4)
+    g = torch.Generator().manual_seed(4)
+    batches = [{"question": torch.randint(0, 200, (8, 12), generator=g),
+                "answer": torch.randint(0, 200, (8, 12), generator=g),
+                "overlap_feat": torch.rand((8, 2), generator=g),
+                "label": torch.randint(0, 2, (8,), generator=g)}
+               for _ in range(3)]
+    kw = dict(model_cfg=cfg, trainer_cfg=TrainerConfig(
+        solver=SolverConfig(), batch_size=8), batches=batches,
+        device="cuda")
+    return kw, [os.path.dirname(os.path.abspath(__file__))]
+
+
+def _losses_close(rank, one):
+    for a, b in zip(rank["losses"], one["losses"]):
+        assert abs(a - b) <= 1e-4 * abs(b) + 1e-4
+
+
+def test_gloo_dp2_on_the_card_equals_dp1():
+    from mms_answer_selection_tpu_torch.parallel.launch import spawn
+
+    _cuda()
+    kw, here = _dp_case()
+    one = spawn("test_torch_parallel_ranks:trainer_steps", 1, kwargs=kw,
+                backend="nccl", pythonpath=here, timeout=180)[0]
+    for rank in spawn("test_torch_parallel_ranks:trainer_steps", 2,
+                      kwargs=kw, backend="gloo", pythonpath=here,
+                      timeout=180, share_device=True):
+        _losses_close(rank, one)
+
+
+def test_nccl_ranks_drive_their_own_cards():
+    """Two ranks on a host with two cards or more: ``launch.spawn`` and
+    torchrun (through ``multihost.initialize``) bind rank r to card r,
+    NCCL (which refuses two ranks on one card) all-reduces across them,
+    and dp = 2 over NCCL equals one rank."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from mms_answer_selection_tpu_torch.parallel.launch import spawn
+
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    kw, here = _dp_case()
+    ranks = spawn("test_torch_parallel_ranks:card_check", 2,
+                  backend="nccl", pythonpath=here, timeout=180)
+    assert [r["card"] for r in ranks] == [0, 1]
+    assert [r["sum"] for r in ranks] == [2.0, 2.0]
+    root = os.path.dirname(here[0])
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2",
+         os.path.join(here[0], "test_torch_parallel_ranks.py")],
+        env={**os.environ, "PYTHONPATH": root}, capture_output=True,
+        text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-4000:]
+    runs = sorted(json.loads(line)["card"] for line in
+                  out.stdout.splitlines() if line.startswith("{"))
+    assert runs == [0, 1], out.stdout
+    one = spawn("test_torch_parallel_ranks:trainer_steps", 1, kwargs=kw,
+                backend="nccl", pythonpath=here, timeout=180)[0]
+    for rank in spawn("test_torch_parallel_ranks:trainer_steps", 2,
+                      kwargs=kw, backend="nccl", pythonpath=here,
+                      timeout=180):
+        _losses_close(rank, one)

@@ -66,11 +66,25 @@ import mms_answer_selection_tpu_torch.caffe_compat
 import mms_answer_selection_tpu_torch.models.classifier
 import mms_answer_selection_tpu_torch.models.detector
 import mms_answer_selection_tpu_torch.utils.draw
+import mms_answer_selection_tpu_torch.utils.timer
+import mms_answer_selection_tpu_torch.deploy
+import mms_answer_selection_tpu_torch.matcaffe
+import mms_answer_selection_tpu_torch.parallel
+import mms_answer_selection_tpu_torch.parallel.collectives
+import mms_answer_selection_tpu_torch.parallel.mesh
+import mms_answer_selection_tpu_torch.parallel.train_step
+import mms_answer_selection_tpu_torch.parallel.multihost
+import mms_answer_selection_tpu_torch.parallel.launch
+import mms_answer_selection_tpu_torch.parallel.dryrun
+# the pair-map operator is registered, and matplotlib stays out until
+# ``plot`` draws
+import torch
+assert torch.ops.mms_torch.pair_maps_fwd.default is not None
 # h5py and PIL are imported only inside the functions that read or write
 # HDF5 files or decode image files
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "flax", "msgpack", "mms_answer_selection_tpu", "h5py",
-        "PIL")]
+        "PIL", "matplotlib")]
 assert not bad, bad
 print("clean")
 """

@@ -206,6 +206,24 @@ def test_query_coarse_matches_jax(monkeypatch, jax_engines, pool_dtype,
         == 1.0
 
 
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("approx_recall", [None, 0.5, 0.95])
+def test_query_coarse_takes_approx_recall(monkeypatch, jax_engines,
+                                          pool_dtype, approx_recall):
+    """The port selects the shortlist exactly for every approx_recall: each
+    result is JAX's exact selection (approx_recall=None)."""
+    jeng = jax_engines[pool_dtype, ()]
+    teng = _port_ivf(monkeypatch, jeng, pool_dtype)
+    for shortlist in (48, 240):
+        jv, ji = jeng.ivf.query_coarse(QUERY_IDS, k=5, shortlist=shortlist,
+                                       approx_recall=None)
+        tv, ti = teng.ivf.query_coarse(Q, k=5, shortlist=shortlist,
+                                       approx_recall=approx_recall)
+        _assert_topk_agrees(tv, ti, jv, ji)
+        ev, ei = teng.ivf.query_coarse(Q, k=5, shortlist=shortlist)
+        assert torch.equal(ti, ei) and torch.equal(tv, ev)
+
+
 # ------------------------------------------------------------- tombstones
 @pytest.mark.parametrize("pool_dtype", ["bf16", "int8"])
 def test_tombstones_never_returned(pool_dtype):

@@ -118,7 +118,7 @@ def test_pooling_caffe_ceil_mode(kind, h, w, k, s):
 
 def test_dropout_scales_kept_units():
     x = torch.ones(4000)
-    y = tops.dropout(torch.Generator().manual_seed(0), x, 0.25)
+    y = tops.dropout(torch.Generator().manual_seed(0), x, 0.25, train=True)
     kept = y != 0
     assert abs(float(kept.float().mean()) - 0.75) < 0.03
     np.testing.assert_allclose(y[kept].numpy(), 1 / 0.75, rtol=1e-6)
@@ -126,8 +126,8 @@ def test_dropout_scales_kept_units():
 
 def test_dropout_is_reproducible_from_the_generator():
     x = torch.ones(64)
-    a = tops.dropout(torch.Generator().manual_seed(3), x, 0.5)
-    b = tops.dropout(torch.Generator().manual_seed(3), x, 0.5)
+    a = tops.dropout(torch.Generator().manual_seed(3), x, 0.5, train=True)
+    b = tops.dropout(torch.Generator().manual_seed(3), x, 0.5, train=True)
     assert torch.equal(a, b)
 
 
@@ -181,3 +181,92 @@ def test_embed_init_refuses_what_jax_refuses(shape):
         jops.embed_init(jax.random.PRNGKey(0), 9, 6, pretrained=pre)
     with pytest.raises(ValueError):
         tops.embed_init(torch.Generator(), 9, 6, pretrained=pre)
+
+
+# bf16 compute: the sim map and the first conv's weights rounded to bf16,
+# their products summed in float32.  The port and JAX then agree on the
+# logits to within 9e-8 at these widths, where bf16 moves them from float32
+# by 5e-7 to 9e-6: the port is held to JAX at BF16_TOL, and the bf16 effect
+# must be BF16_RATIO times that gap, so a cast placed elsewhere, or none,
+# fails
+BF16_TOL = 3e-7
+BF16_RATIO = 5
+
+
+def _bf16_check(JQ, TQ, jcfg, tcfg, jp, js, tp, ts, batch, tb):
+    """The port's bf16 forward against JAX's (the first conv's weights given
+    to JAX in bf16, as its conv takes one dtype for both operands), and the
+    bf16 effect against the port's gap to JAX."""
+    jp16 = dict(jp, conv0=jax.tree.map(
+        lambda x: jnp.asarray(x, jnp.bfloat16), jp["conv0"]))
+    jb = jax.tree.map(jnp.asarray, batch)
+    want, _ = JQ.mms_qa_apply(jp16, js, jb, jcfg, train=False,
+                              compute_dtype=jnp.bfloat16)
+    got, _ = TQ.mms_qa_apply(tp, ts, tb, tcfg, train=False,
+                             compute_dtype=torch.bfloat16)
+    f32, _ = TQ.mms_qa_apply(tp, ts, tb, tcfg, train=False)
+    assert got["logits"].dtype == got["prob"].dtype == torch.float32
+    for k in ("logits", "prob"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=0, atol=BF16_TOL)
+    gap = float(np.abs(got["logits"].numpy()
+                       - np.asarray(want["logits"])).max())
+    moved = float((got["logits"] - f32["logits"]).abs().max())
+    assert moved >= BF16_RATIO * max(gap, 1e-9), (gap, moved)
+
+
+def _bf16_case(blocks):
+    import dataclasses
+
+    from mms_answer_selection_tpu.models import mms_qa as JQ
+    from mms_answer_selection_tpu_torch.convert import params_from_numpy
+    from mms_answer_selection_tpu_torch.models import mms_qa as TQ
+
+    jcfg = JQ.MMSQAConfig(vocab_size=200, embed_dim=8, question_len=12,
+                          answer_len=12, sim_measures=2,
+                          sim_weight_init="xavier", blocks=blocks, fc1_dim=4)
+    tcfg = TQ.MMSQAConfig(**{**dataclasses.asdict(jcfg), "blocks": tuple(
+        TQ.ConvBlock(**dataclasses.asdict(b)) for b in jcfg.blocks)})
+    jp, js = JQ.mms_qa_init(jax.random.PRNGKey(3), jcfg)
+    jp = jax.tree.map(np.asarray, jp)
+    js = {k: {"mean": _np(v["mean"].shape) * 0.1,
+              "var": np.abs(_np(v["var"].shape)) + 0.5}
+          for k, v in js.items()}
+    batch = {"question": rng.integers(0, 200, (8, 12)).astype(np.int32),
+             "answer": rng.integers(0, 200, (8, 12)).astype(np.int32),
+             "overlap_feat": rng.random((8, 2)).astype(np.float32)}
+    tp, ts = params_from_numpy(jp, js, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    return JQ, TQ, jcfg, tcfg, jp, js, tp, ts, batch, tb
+
+
+def test_compute_dtype_bf16_matches_jax():
+    """JAX casts the sim map and runs the conv on it; its conv takes one
+    dtype for both operands and accumulates to float32, so its one block's
+    weights are given in bf16 there.  The port casts the block's weights
+    itself."""
+    from mms_answer_selection_tpu.models.mms_qa import ConvBlock
+    _bf16_check(*_bf16_case((ConvBlock(3, 3, 4, "ave", 2, 2),)))
+
+
+def test_compute_dtype_bf16_two_blocks_against_float32():
+    """Two blocks: the second conv takes the first block's float32 output,
+    in float32, as JAX's does; the BN state stays float32; ``None`` is the
+    float32 forward."""
+    from mms_answer_selection_tpu.models.mms_qa import ConvBlock
+    case = _bf16_case((ConvBlock(3, 3, 4, "ave", 2, 2),
+                       ConvBlock(3, 3, 4, "ave", 3, 1)))
+    _bf16_check(*case)
+    JQ, TQ, jcfg, tcfg, jp, js, tp, ts, batch, tb = case
+    want, _ = JQ.mms_qa_apply(jp, js, jax.tree.map(jnp.asarray, batch), jcfg,
+                              train=False)
+    _, st = TQ.mms_qa_apply(tp, ts, dict(tb, label=torch.zeros(
+        8, dtype=torch.int64)), tcfg, train=True,
+        generator=torch.Generator().manual_seed(0),
+        compute_dtype=torch.bfloat16)
+    assert all(v.dtype == torch.float32 for s in st.values()
+               for v in s.values())
+    none, _ = TQ.mms_qa_apply(tp, ts, tb, tcfg, train=False,
+                              compute_dtype=None)
+    np.testing.assert_allclose(none["prob"].numpy(),
+                               np.asarray(want["prob"]), **TOL)
