@@ -107,6 +107,17 @@ at the V4 recipe's widths, after building the hand-written kernels from
   and its pool's MaxSim kernel); ``cli matbridge`` in its own process
   driven over its socket and held to in-process pycaffe; ``plot`` (or its refusal without
   matplotlib);
+* the examples (``examples_phase``): the JAX package's example scripts as
+  the port's twins (``mms_answer_selection_tpu_torch/examples``), each
+  through its ``main`` on the card: the recipe rehearsal with ``--hard``
+  (3,001 steps, patience 5; its own ``trec_eval`` parity and min-gain
+  asserts), ``trec_qa_mms`` in smoke mode, ``retrieval_1m`` at 1,048,576
+  int8 candidates and at 262,144 bf16 with IVF and the coarse shortlist,
+  ``serve_load`` at its defaults, the full int8 error analysis into a
+  temporary directory and ``pair_image_metric``; a line each with its
+  wall and launches, failing unless the recipe and ``trec_qa_mms``
+  launched the three pair-map kernels, the int8 legs ``maxsim_int8`` and
+  the bf16 legs and IVF ``maxsim_bf16``;
 
 and times the kernels, the engine and the train step.  The pair-map
 kernels are timed at batch 50 and 1024 at D = 50 and at V4_WIDE's D = 300
@@ -127,9 +138,9 @@ the line before it lists every kernel with its launches on the main path,
 its error against the plain version, its time, the plain version's, the
 bound and what sets it, and the one-call library time (null where no
 single PyTorch call computes the function); lines before it, the
-launches of the generic, the pycaffe, the multimodal and the tail paths.
-About 260-330 s on an H100, build included, peaking near 27 GiB of device
-memory.
+launches of the generic, the pycaffe, the multimodal, the tail and the
+examples' paths.  About 350-420 s on an H100, build included, peaking near
+27 GiB of device memory.
 """
 
 from __future__ import annotations
@@ -3522,6 +3533,140 @@ def tail_phase(dev, card: str, splits) -> dict:
 
 
 
+# the examples' twins (mms_answer_selection_tpu_torch/examples), each called
+# through its main() at the JAX script's defaults but where noted, and the
+# kernels each must launch.  ``retrieval_1m`` also runs IVF and the coarse
+# shortlist over a bf16 pool of POOL candidates.
+EXAMPLE_RUNS = (  # (label, module, argv, kernels it must launch)
+    ("recipe_scale_rehearsal --hard", "recipe_scale_rehearsal", ("--hard",),
+     CLI_TRAIN_KERNELS),
+    ("trec_qa_mms", "trec_qa_mms", (), (*CLI_TRAIN_KERNELS, "maxsim_bf16")),
+    ("retrieval_1m", "retrieval_1m", (), ("maxsim_int8",)),
+    ("retrieval_1m --ivf-clusters", "retrieval_1m",
+     ("--pool", str(POOL), "--ivf-clusters", "1024", "--coarse-shortlist",
+      "1024"), ("maxsim_bf16",)),
+    ("serve_load", "serve_load", (), ("maxsim_int8",)),
+    ("int8_error_analysis", "int8_error_analysis", (),
+     ("maxsim_int8", "maxsim_bf16")),
+    ("pair_image_metric", "pair_image_metric", (), ()),
+)
+
+
+def _check_example(name: str, out: dict) -> str:
+    """The example's own result, read as the repo reads it; returns a
+    one-line summary."""
+    import math
+
+    if name == "recipe_scale_rehearsal":
+        # the twin asserted trec_eval = numpy = in-graph and its min gain
+        if out["backend"] != "cuda":
+            raise AssertionError(f"the recipe ran on {out['backend']}")
+        return (f"dev MAP {out['chance_dev_map_step0']:.4f} -> "
+                f"{out['best_dev_map']:.4f} @ {out['best_step']}, test MAP "
+                f"/ MRR {out['test_map']:.4f} / {out['test_mrr']:.4f}, "
+                f"fit {out['fit_s']} s, last eval {out['last_eval_step']}")
+    if name == "trec_qa_mms":
+        if not (0.0 <= out["test_map"] <= 1.0
+                and len(out["retrieval_top5"]) == 3):
+            raise AssertionError(f"trec_qa_mms gave {out}")
+        return (f"test MAP / MRR {out['test_map']:.4f} / "
+                f"{out['test_mrr']:.4f}, best dev MAP "
+                f"{out['best_dev_map']:.4f} @ {out['best_step']}")
+    if name == "retrieval_1m":
+        scores = [v for _, v in out["top_k_query0"]]
+        if not (len(scores) == K and all(map(math.isfinite, scores))
+                and scores == sorted(scores, reverse=True)):
+            raise AssertionError(f"retrieval_1m's top-k: {scores}")
+        line = (f"{out['pool_dtype']} {out['queries']} q x {out['pool']}: "
+                f"{out['query_ms']:.3f} ms ({out['pairs_per_s']:.4g} "
+                f"pairs/s), index {out['index_s']:.3f} s")
+        for mode in ("ivf", "coarse"):
+            if mode in out:
+                line += (f"; {mode} 1 q {out[mode]['ms']:.3f} ms, "
+                         f"recall@10 {out[mode]['recall@10']:.3f}")
+        return line
+    if name == "serve_load":
+        for label in ("unbatched", "batched"):
+            if out[label]["device_dispatches"] < 1:
+                raise AssertionError(f"serve_load {label}: {out[label]}")
+        return "; ".join(
+            f"{label} {out[label]['req_per_s']:.1f} req/s p50 "
+            f"{out[label]['p50_ms']:.3f} ms p99 {out[label]['p99_ms']:.3f} "
+            f"ms, {out[label]['rows_per_dispatch']:.2f} rows a dispatch"
+            for label in ("unbatched", "batched"))
+    if name == "int8_error_analysis":
+        for pool in (POOL, BIG_POOL):
+            row = out[f"pool_{pool}"]
+            # the bf16 top-10 within an int8 shortlist of 512
+            if not (row["top10_agreement"] > 0.5
+                    and row["recall10_in_s"]["512"] >= 0.99):
+                raise AssertionError(f"int8 at {pool}: {row}")
+        sizes = {k: v for k, v in out["guidance"].items() if k != "rule"}
+        return (f"sigma {out['per_pair_error']['sigma']:.4f}; top-10 "
+                f"agreement {out[f'pool_{POOL}']['top10_agreement']:.4f} / "
+                f"{out[f'pool_{BIG_POOL}']['top10_agreement']:.4f}, "
+                f"shortlists {json.dumps(sizes)}")
+    if name == "pair_image_metric":
+        if not (math.isfinite(out["final_loss"])
+                and out["final_loss"] < out["loss"][0]):
+            raise AssertionError(f"pair_image_metric's loss: {out}")
+        return f"loss {out['loss'][0]:.4f} -> {out['final_loss']:.4f}"
+    raise KeyError(name)
+
+
+def examples_phase(card: str) -> dict:
+    """The JAX package's examples as the port's twins, on the card, each
+    through its ``main``: the recipe with ``--hard`` (3,001 steps,
+    patience 5, its own trec_eval parity and 0.25 min-gain asserts),
+    ``trec_qa_mms`` in smoke mode, ``retrieval_1m`` at 1,048,576 int8 and
+    at POOL with IVF and the coarse shortlist, ``serve_load``, the full
+    int8 error analysis into a temporary directory and
+    ``pair_image_metric``.  Logs each one's wall and launches and fails
+    unless each launched its kernels; returns the launches, example by
+    example."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as td:
+        for label, name, argv, kernels in EXAMPLE_RUNS:
+            mod = importlib.import_module(
+                f"mms_answer_selection_tpu_torch.examples.{name}")
+            argv = list(argv)
+            kw = {}
+            if name == "int8_error_analysis":
+                kw["out_dir"] = f"{td}/int8"
+            elif name in ("recipe_scale_rehearsal", "trec_qa_mms"):
+                argv += ["--out", f"{td}/{name}"]
+            elif name == "pair_image_metric":
+                argv += ["--dir", f"{td}/pairs"]
+            for k in sk.LAUNCH_COUNTS:
+                sk.LAUNCH_COUNTS[k] = 0
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                out = mod.main(argv, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(sk.LAUNCH_COUNTS)
+            launches[label] = got
+            log(f"example {label}: {wall:.1f} s, launches "
+                f"{json.dumps({k: v for k, v in got.items() if v})}; "
+                f"{_check_example(name, out)} [{card}]")
+            for kernel in kernels:
+                if got[kernel] < 1:
+                    raise AssertionError(f"example {label} never launched "
+                                         f"{kernel}")
+            torch.cuda.empty_cache()
+    log(f"examples phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3687,10 +3832,13 @@ def main() -> int:
     wide_train_phase(dev, normal, card, max_err)
     torch.cuda.empty_cache()
     mm = multimodal_phase(sk, normal, dev, card, max_err)
+    torch.cuda.empty_cache()
+    examples = examples_phase(card)
     log(f"launches on the generic path: {json.dumps(graph)}")
     log(f"launches on the pycaffe path: {json.dumps(pycaffe)}")
     log(f"launches on the multimodal path: {json.dumps(mm)}")
     log(f"launches on the tail path: {json.dumps(tail)}")
+    log(f"launches on the examples' paths: {json.dumps(examples)}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
         f"GiB; run {time.perf_counter() - started:.1f} s, build included")
 

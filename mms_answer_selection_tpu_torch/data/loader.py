@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..training.trainer import derive_seed
+from ..utils.seed import derive_seed
 
 
 class ArrayDataset:

@@ -15,6 +15,20 @@ from .pair_image import (  # noqa: F401
     pair_image_apply,
     pair_image_init,
 )
+from .graph_net import GraphNet, register_layer  # noqa: F401
+from .pynet import Net  # noqa: F401
+from .classifier import Classifier  # noqa: F401
+from .detector import Detector  # noqa: F401
+from .pysolver import (  # noqa: F401
+    AdaDeltaSolver,
+    AdaGradSolver,
+    AdamSolver,
+    NesterovSolver,
+    RMSPropSolver,
+    SGDSolver,
+    Solver,
+    get_solver,
+)
 from .caption_image import (  # noqa: F401
     CaptionImageConfig,
     caption_image_apply,

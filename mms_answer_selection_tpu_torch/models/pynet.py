@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..device import pycaffe_device
-from ..training.trainer import derive_seed
+from ..utils.seed import derive_seed
 from ..utils.tree import tree_leaves, tree_map
 from .graph_net import DATA_TYPES, GraphNet
 

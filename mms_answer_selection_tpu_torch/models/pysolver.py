@@ -36,9 +36,7 @@ from collections import OrderedDict
 import torch
 
 from ..device import pycaffe_device
-from ..training.graph_solver import GraphSolver
-from ..training.optim import make_solver
-from ..training.trainer import derive_seed
+from ..utils.seed import derive_seed
 from ..utils.tree import tree_map
 from .pynet import Blob, _as_tensor
 
@@ -156,6 +154,10 @@ class Solver:
     _force_type: str | None = None  # subclasses pin the solver algorithm
 
     def __init__(self, solver: str, *, device=None, **kw):
+        # imported here: ``models`` exports this class, and ``training``
+        # imports ``models``
+        from ..training.graph_solver import GraphSolver
+        from ..training.optim import make_solver
         self._gs = GraphSolver(solver, device=pycaffe_device(device), **kw)
         gs = self._gs
         if self._force_type and gs.cfg.solver_type != self._force_type:

@@ -12,7 +12,13 @@ from .losses import (  # noqa: F401
     sigmoid_cross_entropy,
     softmax_cross_entropy,
 )
-from .pooling import avg_pool2d, max_pool2d  # noqa: F401
+from .pooling import (  # noqa: F401
+    avg_pool2d,
+    max_pool2d,
+    pool2d_padded,
+    spatial_pyramid_pool,
+    stochastic_pool2d,
+)
 from .similarity import (  # noqa: F401
     fm_pool,
     sim_cross_bilinear,

@@ -47,11 +47,11 @@ import torch
 from ..device import resolve_device
 from ..models.graph_net import DATA_TYPES, GraphNet
 from ..utils.prototxt import parse_prototxt, solver_config_from_prototxt
+from ..utils.seed import derive_seed
 from ..utils.tree import tree_leaves, tree_map
 from ..parallel.mesh import mesh_device, shard_context
 from ..parallel.train_step import local_batch, reduce_grads
 from .optim import learning_rate, make_solver
-from .trainer import derive_seed
 
 log = logging.getLogger("mms_tpu_torch.graph_solver")
 

@@ -61,6 +61,7 @@ from ..metrics import (
 from ..models.mms_qa import MMSQAConfig, mms_qa_apply, mms_qa_init, param_spec
 from ..parallel.mesh import mesh_device, shard_context
 from ..parallel.train_step import local_batch, loss_and_grads, reduce_grads
+from ..utils.seed import derive_seed
 from ..utils.tree import tree_map
 from .checkpoint import (
     latest_checkpoint,
@@ -97,13 +98,6 @@ class TrainerConfig:
     seed: int = 22
     snapshot_dir: str | None = None
     snapshot_prefix: str = "qa"
-
-
-def derive_seed(*ints: int) -> int:
-    """A 63-bit seed that is a fixed function of ``ints``."""
-    state = np.random.SeedSequence([int(i) for i in ints]).generate_state(
-        2, np.uint32)
-    return (int(state[0]) << 31) ^ int(state[1])
 
 
 def _new_history(cfg: TrainerConfig) -> dict:

@@ -1,0 +1,1 @@
+from . import fillers  # noqa: F401

@@ -1141,3 +1141,48 @@ def test_nccl_ranks_drive_their_own_cards():
                       kwargs=kw, backend="nccl", pythonpath=here,
                       timeout=180):
         _losses_close(rank, one)
+
+
+def _launches(fn):
+    for name in T.LAUNCH_COUNTS:
+        T.LAUNCH_COUNTS[name] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(T.LAUNCH_COUNTS)
+
+
+def test_trec_qa_mms_twin_launches_the_pair_maps_and_maxsim(tmp_path):
+    """The examples' twin on the card: training through the three pair-map
+    kernels, retrieval through the bf16 MaxSim kernel.  The card's scores
+    part from the CPU's by rounding, so the check is the launches and a
+    valid MAP."""
+    _cuda()
+    from mms_answer_selection_tpu_torch.examples import trec_qa_mms
+
+    out, got = _launches(lambda: trec_qa_mms.main(["--out", str(tmp_path)]))
+    assert 0.0 <= out["test_map"] <= 1.0
+    for name in ("pair_maps_fwd", "pair_maps_bwd_w", "pair_maps_bwd_qa",
+                 "maxsim_bf16"):
+        assert got[name] >= 1, (name, got)
+
+
+def test_retrieval_1m_twin_on_the_card_equals_the_cpu(tmp_path):
+    """The int8 leg launches ``maxsim_int8`` and gives query 0 the CPU
+    run's top-10 scores (printed to 3 decimals; ties may swap ids); IVF
+    probing every cluster is exact."""
+    dev = _cuda()
+    from mms_answer_selection_tpu_torch.examples import retrieval_1m
+
+    argv = ["--pool", "8192", "--queries", "16"]
+    card, got = _launches(lambda: retrieval_1m.main(argv))
+    cpu = retrieval_1m.main(argv, device="cpu")
+    assert got["maxsim_int8"] >= 1 and card["device"] == dev.type
+    for (_, v_card), (_, v_cpu) in zip(card["top_k_query0"],
+                                       cpu["top_k_query0"]):
+        assert abs(v_card - v_cpu) <= 2e-3
+    ivf, got = _launches(lambda: retrieval_1m.main(
+        ["--pool", "8192", "--queries", "16", "--ivf-clusters", "8",
+         "--nprobe", "8", "--coarse-shortlist", "8192"]))
+    assert got["maxsim_bf16"] >= 1
+    assert ivf["ivf"]["recall@10"] == 1.0
+    assert ivf["coarse"]["recall@10"] == 1.0

@@ -76,6 +76,14 @@ import mms_answer_selection_tpu_torch.parallel.train_step
 import mms_answer_selection_tpu_torch.parallel.multihost
 import mms_answer_selection_tpu_torch.parallel.launch
 import mms_answer_selection_tpu_torch.parallel.dryrun
+import mms_answer_selection_tpu_torch.examples
+import mms_answer_selection_tpu_torch.examples.recipe_scale_rehearsal
+import mms_answer_selection_tpu_torch.examples.trec_qa_mms
+import mms_answer_selection_tpu_torch.examples.retrieval_1m
+import mms_answer_selection_tpu_torch.examples.serve_load
+import mms_answer_selection_tpu_torch.examples.int8_error_analysis
+import mms_answer_selection_tpu_torch.examples.pair_image_metric
+import mms_answer_selection_tpu_torch.examples.pycaffe_port
 # the pair-map operator is registered, and matplotlib stays out until
 # ``plot`` draws
 import torch
