@@ -25,6 +25,16 @@ at the V4 recipe's widths, after building the hand-written kernels from
   every 100 steps), holding the best params' test-split probabilities
   against the CPU's and scoring them through ``trec_eval`` against the
   in-process MAP/MRR;
+* the trainer's dispatch (``dispatch_phase``): every chunk of K steps of
+  ``fit``, ``fit_stream`` and ``scan_train_steps`` is one CUDA graph
+  replay (``training/dispatch.py``); a 5-step graph chunk against 5 eager
+  steps from one carry, dropout on, at batch 50 and 1,024; the step p50
+  eager, as a K = 1 replay and per step of a K = 50 replay, in turns, at
+  batch 50, 256 and 1,024, with the profiler's read of a replay (one
+  ``cudaGraphLaunch``, the pair-map kernels inside, the idle share) and
+  each length's capture time and graph pool; ``fit`` and ``fit_stream`` at
+  K = 50, replays = chunks (a partial last chunk its own length); the
+  ``fit``, CLI and multimodal runs below go through graphs too;
 * the CLI, the path a user takes (``cli.main`` in this process, V4's
   widths, the recipe-sized corpus written as XML and a GloVe-format
   ``.txt``): ``prep --mmsp``, ``train --stream`` (the packed store's ring
@@ -138,9 +148,9 @@ the line before it lists every kernel with its launches on the main path,
 its error against the plain version, its time, the plain version's, the
 bound and what sets it, and the one-call library time (null where no
 single PyTorch call computes the function); lines before it, the
-launches of the generic, the pycaffe, the multimodal, the tail and the
-examples' paths.  About 350-420 s on an H100, build included, peaking near
-27 GiB of device memory.
+launches of the dispatch, the generic, the pycaffe, the multimodal, the
+tail and the examples' paths.  About 320-420 s on an H100, build
+included, peaking near 28 GiB of device memory.
 """
 
 from __future__ import annotations
@@ -196,6 +206,16 @@ WIDE_STEP_BATCHES = (BATCH, 1024)
 PROB_ATOL = 1e-4
 STEP_BATCHES = (50, 256, 1024)
 ADADELTA_STEP = (5e-7 / 0.05) ** 0.5   # lr * sqrt(delta / (1 - momentum))
+# the dispatch path (dispatch_phase): a DISPATCH_CHECK_K-step graph chunk
+# against as many eager steps from one carry at DISPATCH_CHECK_BATCHES,
+# dropout on (loss within MM_LOSS_RTOL relative, params within rtol 1e-4 +
+# atol 1e-5, conv biases within AdaDelta's band a step); the step p50
+# eager, as a K = 1 graph and per step of a K = DISPATCH_K graph, in turns,
+# at STEP_BATCHES, the profiler's read of one K = DISPATCH_K replay; fit
+# for FIT_STEPS and fit_stream for DISPATCH_STREAM_STEPS steps at K =
+# DISPATCH_K, each chunk one replay
+DISPATCH_CHECK_K, DISPATCH_K, DISPATCH_STREAM_STEPS = 5, 50, 130
+DISPATCH_CHECK_BATCHES = (BATCH, 1024)
 # the CLI path: train --stream to step CLI_SPLIT - 1, --resume to
 # CLI_STEPS - 1, beside one uninterrupted run (evals and snapshots every
 # 100 steps); an int8 index of POOL candidates behind serve --listen,
@@ -600,6 +620,11 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
     for name in pairs:
         if launches[name] < 1:
             raise AssertionError(f"the training path never launched {name}")
+    chunks = len(chunk_lengths(0, FIT_STEPS, 1, [TEST_INTERVAL]))
+    capture_costs(trainer.runner, f"fit batch {BATCH}", card)
+    if trainer.runner.replays != chunks:
+        raise AssertionError(f"fit ran {chunks} chunks but replayed "
+                             f"{trainer.runner.replays} graphs")
     losses = np.asarray(hist["train_loss"])
     dev_map = np.asarray(hist["dev_map"])
     if not np.isfinite(losses).all() or not losses[-5:].mean() < losses[0]:
@@ -663,9 +688,9 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
                 f"[{[round(x, 4) for x in t]}; {card}]")
     step_times(model, tcfg, splits, info, dev, STEP_BATCHES, "V4", card)
     log(f"time fit {FIT_STEPS} steps at batch {BATCH} with "
-        f"{len(hist['steps'])} dev+test evals: {fit_s:.3f} s "
-        f"({FIT_STEPS / fit_s:.2f} steps/s); host data prep {prep_s:.3f} s "
-        f"[{card}]")
+        f"{len(hist['steps'])} dev+test evals, K=1 (each step one graph "
+        f"replay): {fit_s:.3f} s ({FIT_STEPS / fit_s:.2f} steps/s); host "
+        f"data prep {prep_s:.3f} s [{card}]")
     return launches, splits, info
 
 
@@ -694,6 +719,219 @@ def wide_train_phase(dev, normal, card: str, max_err: dict) -> None:
     step_card_vs_cpu(model, tcfg, splits, info, dev, "V4_WIDE")
     step_times(model, tcfg, splits, info, dev, WIDE_STEP_BATCHES, "V4_WIDE",
                card)
+
+
+def chunk_lengths(it: int, steps: int, k: int, intervals) -> list:
+    """The lengths of the chunks ``Trainer._loop`` runs from step ``it``
+    until ``steps``."""
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    lengths = []
+    while it < steps:
+        lengths.append(Trainer._plan_chunk(it, k, steps - it, intervals))
+        it += lengths[-1]
+    return lengths
+
+
+def corpus_batches(tr, splits, n: int) -> list:
+    """The first ``n`` batches of ``tr``'s shuffled passes over the train
+    split, on the device."""
+    import itertools
+
+    train = tr._full_batch({k: v for k, v in splits["train"].items()
+                            if k != "group"})
+    passes = (tr._epoch_batches(train, e) for e in itertools.count())
+    return list(itertools.islice(itertools.chain.from_iterable(passes), n))
+
+
+def capture_costs(runner, label: str, card: str) -> None:
+    """A line per chunk length the runner captured."""
+    for c in sorted(runner.stats(), key=lambda c: c["k"]):
+        log(f"capture {label} K={c['k']}: {c['capture_s']:.3f} s (capture "
+            f"and instantiate), graph pool {c['pool_bytes'] / 2**20:.1f} "
+            f"MiB, a replay launches {c['tally']}, {c['replays']} replays "
+            f"[{card}]")
+
+
+def graph_vs_eager(model, tcfg, splits, info, dev, b: int) -> None:
+    """A DISPATCH_CHECK_K-step chunk as one graph replay against as many
+    eager ``_train_step`` calls from the same carry on the same batches,
+    dropout on."""
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    tr = Trainer(model, tcfg, device=dev)
+    p0, s0, o0 = tr.init(pretrained=info["pretrained"])
+    batches = corpus_batches(tr, splits, DISPATCH_CHECK_K)
+    p, s, o, want = p0, s0, o0, []
+    for i, batch in enumerate(batches):
+        p, s, o, loss = tr._train_step(p, s, o, batch, i)
+        want.append(loss)
+    stacked = {k: torch.stack([x[k] for x in batches]) for k in batches[0]}
+    gp, _, _, got = tr.scan_train_steps(p0, s0, o0, stacked, 0)
+    want = torch.stack(want)
+    if tr.runner.replays != 1 or not tr.runner.captures:
+        raise AssertionError("the chunk was not one graph replay")
+    loss_rel = float(((got - want).abs() / want.abs()).max())
+    worst, where, band = 0.0, "", 2 * 2 * ADADELTA_STEP * DISPATCH_CHECK_K
+    for name, sub in p.items():
+        for k, w in sub.items():
+            diff = float((gp[name][k] - w).abs().max())
+            if name.startswith("conv") and k == "b":
+                ok = diff <= band
+            else:
+                ok = torch.allclose(gp[name][k], w, rtol=1e-4, atol=1e-5)
+                if diff > worst:
+                    worst, where = diff, f"{name}.{k}"
+            if not ok:
+                raise AssertionError(f"graph chunk at batch {b}: {name}.{k} "
+                                     f"{diff:.3e} from the eager steps")
+    log(f"check graph chunk vs eager steps (V4, batch {b}, "
+        f"{DISPATCH_CHECK_K} steps, dropout on, xavier W): losses "
+        f"{[round(float(x), 6) for x in got]}, max rel diff {loss_rel:.3e} "
+        f"(tol {MM_LOSS_RTOL:g}); params max abs diff {worst:.3e} at {where}"
+        f" (rtol 1e-4, atol 1e-5; conv biases within {band:.3e})")
+    if loss_rel > MM_LOSS_RTOL:
+        raise AssertionError(f"graph chunk at batch {b}: losses differ")
+
+
+def dispatch_times(model, tcfg, splits, info, dev, b: int,
+                   card: str) -> None:
+    """Step p50 at batch ``b``: eager, one K = 1 replay, and a K =
+    DISPATCH_K replay per step (host wall of calls each ended by a sync,
+    capture off the clock), in turns; the profiler's read of one eager
+    step and one K = DISPATCH_K replay."""
+    from torch.autograd import DeviceType
+
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    tr = Trainer(model, tcfg, device=dev)
+    p, s, o = tr.init(pretrained=info["pretrained"])
+    batches = corpus_batches(tr, splits, DISPATCH_K)
+    runner = tr._runner_for((p, s, o))
+    reps = max(5, 1000 // b)
+    modes = {"eager": (lambda: tr._train_step(p, s, o, batches[0], 0),
+                       reps, 1),
+             "K=1": (lambda: runner.run(batches[:1], 0), reps, 1),
+             f"K={DISPATCH_K}": (lambda: runner.run(batches, 0),
+                                 max(2, 200 // b), DISPATCH_K)}
+    times = {m: [] for m in modes}
+    for m in [*modes, *reversed(modes)]:
+        fn, r, k = modes[m]
+        times[m].append(sync_ms(fn, r) / k)
+    p50 = {m: sum(t) / 2 for m, t in times.items()}
+    prof = {}
+    for m in ("eager", f"K={DISPATCH_K}"):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as pr:
+            modes[m][0]()
+            torch.cuda.synchronize()
+        rows = pr.key_averages()
+        on_dev = [e for e in rows if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in on_dev) / 1e3
+        calls = {e.key: e.count for e in rows if e.key in (
+            "cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+            "cuLaunchKernel", "cudaMemcpyAsync")}
+        pair = {n: sum(e.count for e in on_dev if n + "_kernel" in e.key)
+                for n in CLI_TRAIN_KERNELS}
+        wall = p50[m] * modes[m][2]
+        prof[m] = {"device_ops": sum(e.count for e in on_dev),
+                   "device_ms": busy, "idle": max(0.0, 1 - busy / wall),
+                   "host_calls": calls, "pair_map_kernels": pair}
+    replay = prof[f"K={DISPATCH_K}"]
+    log(f"time train step V4 batch {b}: eager p50 {p50['eager']:.3f} ms, "
+        f"K=1 graph p50 {p50['K=1']:.3f} ms, K={DISPATCH_K} graph "
+        f"{p50[f'K={DISPATCH_K}']:.3f} ms a step (each the mean of two "
+        f"turns: {({m: [round(x, 3) for x in t] for m, t in times.items()})}"
+        f"); profiler: eager step {prof['eager']['device_ops']} device ops, "
+        f"{prof['eager']['device_ms']:.3f} ms device time, idle "
+        f"{prof['eager']['idle']:.1%}, host {prof['eager']['host_calls']}; "
+        f"one K={DISPATCH_K} replay {replay['device_ops']} device ops, "
+        f"{replay['device_ms']:.3f} ms device time ("
+        f"{replay['device_ms'] / DISPATCH_K:.3f} ms a step), idle "
+        f"{replay['idle']:.1%}, host {replay['host_calls']}, pair-map "
+        f"kernels {replay['pair_map_kernels']} [{card}]")
+    if replay["host_calls"].get("cudaGraphLaunch") != 1 or any(
+            n < DISPATCH_K for n in replay["pair_map_kernels"].values()):
+        raise AssertionError(f"a K={DISPATCH_K} chunk is not one graph "
+                             f"launch running the pair-map kernels: {replay}")
+    capture_costs(runner, f"V4 batch {b}", card)
+
+
+def dispatch_phase(dev, card: str, splits, info) -> dict:
+    """The trainer's dispatch: every chunk of K steps one CUDA graph
+    replay.  Holds a K-step graph chunk to as many eager steps at batch 50
+    and 1,024, times eager steps against K = 1 and K = DISPATCH_K replays
+    at STEP_BATCHES with the profiler's read of a replay (one
+    ``cudaGraphLaunch``, the pair-map kernels inside), and runs ``fit``
+    and ``fit_stream`` at K = DISPATCH_K (replays = chunks).  Returns the
+    launches of the fit and fit_stream runs."""
+    import dataclasses
+
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch.models.mms_qa import V4
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    started = time.perf_counter()
+    tcfg = recipe_trainer()
+    model = dataclasses.replace(V4, vocab_size=info["vocab_size"])
+    xavier = dataclasses.replace(model, sim_weight_init="xavier")
+    for b in DISPATCH_CHECK_BATCHES:
+        graph_vs_eager(xavier, dataclasses.replace(tcfg, batch_size=b),
+                       splits, info, dev, b)
+    for b in STEP_BATCHES:
+        dispatch_times(model, dataclasses.replace(tcfg, batch_size=b),
+                       splits, info, dev, b, card)
+
+    # fit and fit_stream through K = DISPATCH_K graphs, counts from 0
+    for name in sk.LAUNCH_COUNTS:
+        sk.LAUNCH_COUNTS[name] = 0
+    tr = Trainer(model, tcfg, device=dev)
+    t0 = time.perf_counter()
+    hist = tr.fit(splits["train"], splits["dev"], test_data=splits["test"],
+                  pretrained=info["pretrained"],
+                  steps_per_dispatch=DISPATCH_K)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    chunks = len(chunk_lengths(0, FIT_STEPS, DISPATCH_K, [TEST_INTERVAL]))
+    losses = np.asarray(hist["train_loss"])
+    log(f"time fit {FIT_STEPS} steps at batch {BATCH}, K={DISPATCH_K}: "
+        f"{fit_s:.3f} s ({FIT_STEPS / fit_s:.2f} steps/s), {chunks} chunks, "
+        f"{tr.runner.replays} graph replays; loss {losses[0]:.4f} -> "
+        f"{losses[-5:].mean():.4f}, dev MAP "
+        f"{[round(float(x), 4) for x in hist['dev_map']]} [{card}]")
+    capture_costs(tr.runner, f"fit batch {BATCH}", card)
+    if tr.runner.replays != chunks or hist["steps"] != list(
+            range(0, FIT_STEPS, TEST_INTERVAL)) \
+            or not np.isfinite(losses).all() \
+            or not losses[-5:].mean() < losses[0]:
+        raise AssertionError(f"fit at K={DISPATCH_K}: {tr.runner.stats()}")
+    stream = corpus_batches(tr, splits, DISPATCH_STREAM_STEPS)
+    tr = Trainer(model, tcfg, device=dev)
+    shist = tr.fit_stream(iter([{k: v.cpu().numpy() for k, v in b.items()}
+                                for b in stream]), splits["dev"],
+                          steps=10 * DISPATCH_STREAM_STEPS,
+                          pretrained=info["pretrained"],
+                          steps_per_dispatch=DISPATCH_K)
+    torch.cuda.synchronize()
+    planned = chunk_lengths(0, DISPATCH_STREAM_STEPS, DISPATCH_K,
+                            [TEST_INTERVAL])
+    lengths = sorted(c["k"] for c in tr.runner.stats())
+    log(f"fit_stream over {DISPATCH_STREAM_STEPS} batches at K="
+        f"{DISPATCH_K}: {len(shist['train_loss'])} loss records, evals at "
+        f"{shist['steps']}, {tr.runner.replays} replays of graphs of "
+        f"{lengths} steps (the iterator's last, partial chunk its own)")
+    if tr.runner.replays != len(planned) or lengths != sorted(set(planned)):
+        raise AssertionError(f"fit_stream: {tr.runner.stats()}")
+    launches = dict(sk.LAUNCH_COUNTS)
+    for name in CLI_TRAIN_KERNELS:
+        if launches[name] < FIT_STEPS:
+            raise AssertionError(f"the dispatch path launched {name} "
+                                 f"{launches[name]} times")
+    log(f"dispatch phase: {time.perf_counter() - started:.1f} s")
+    return launches
 
 
 def plain_scores(eng, query_ids):
@@ -2624,14 +2862,22 @@ def caption_queries(gen, dev, n: int, cfg):
     return torch.where(keep, first, noise)
 
 
+def stacked(batches, where) -> dict:
+    """A chunk's batches as (K, ...) tensors on ``where``."""
+    return {k: torch.stack([b[k] for b in batches]).to(where)
+            for k in batches[0]}
+
+
 def steps_card_vs_cpu(make_trainer, batches, checks, dev,
                       label: str) -> dict:
     """The same training steps on the CPU and on the card from the same
-    weights (drawn on the CPU) and batches; after each step in ``checks``
-    the loss within MM_LOSS_RTOL relative and every param leaf within
-    MM_PARAM_RTOL of its max |value| (MM_NOISE_LEAVES within AdaDelta's
-    band of 2 x lr_mult 2 x its normalized step a step).  Returns the
-    measured worst differences by step."""
+    weights (drawn on the CPU) and batches, through ``scan_train_steps`` in
+    chunks that end at each step in ``checks`` (one graph replay a chunk
+    on the card, eager steps on the CPU); after each such step the loss
+    within MM_LOSS_RTOL relative and every param leaf within MM_PARAM_RTOL
+    of its max |value| (MM_NOISE_LEAVES within AdaDelta's band of 2 x
+    lr_mult 2 x its normalized step a step).  Returns the measured worst
+    differences by step."""
     from mms_answer_selection_tpu_torch.utils.tree import tree_map
 
     runs = []
@@ -2639,12 +2885,13 @@ def steps_card_vs_cpu(make_trainer, batches, checks, dev,
         tr = make_trainer(where)
         p, s, o = tr.init()
         runs.append([])
-        for i, b in enumerate(batches[:max(checks)]):
-            p, s, o, loss = tr._train_step(
-                p, s, o, {k: v.to(where) for k, v in b.items()}, i)
-            if i + 1 in checks:
-                runs[-1].append(tree_map(lambda t: t.detach().cpu(),
-                                         {"p": p, "loss": loss}))
+        done = 0
+        for step in checks:
+            p, s, o, losses = tr.scan_train_steps(
+                p, s, o, stacked(batches[done:step], where), done)
+            done = step
+            runs[-1].append(tree_map(lambda t: t.detach().cpu(),
+                                     {"p": p, "loss": losses[-1]}))
     measured = {}
     for step, cpu, card in zip(checks, *runs):
         loss_rel = abs(float(card["loss"]) / float(cpu["loss"]) - 1)
@@ -2722,13 +2969,14 @@ def multimodal_phase(sk, normal, dev, card: str, max_err: dict) -> dict:
     tcfg = TrainerConfig(solver=SolverConfig(solver_type="adadelta",
                                              weight_decay=0.0),
                          batch_size=BATCH, seed=SEED + 2)
-    accs = []
+    seen = []   # (captured?, rank accuracy) of each training forward
 
     def recorded(params, state, batch, model_cfg, *, train, generator=None):
         out, new_state = caption_image_apply(params, state, batch, model_cfg,
                                              train=train, generator=generator)
         if train:
-            accs.append(out["rank_accuracy"].detach())
+            seen.append((torch.cuda.is_current_stream_capturing(),
+                         out["rank_accuracy"].detach()))
         return out, new_state
 
     def caption_trainer(where, apply_fn=caption_image_apply):
@@ -2744,18 +2992,29 @@ def multimodal_phase(sk, normal, dev, card: str, max_err: dict) -> dict:
     for name in sk.LAUNCH_COUNTS:
         sk.LAUNCH_COUNTS[name] = 0
     t0 = time.perf_counter()
-    losses = []
-    for i, b in enumerate(batches):
-        p, s, o, loss = tr._train_step(p, s, o, b, i)
+    losses, accs, outputs = [], [], {}
+    for a in range(0, MM_STEPS, MM_ACC_WINDOW):   # chunks of the window
+        chunk = batches[a:a + MM_ACC_WINDOW]
+        n_seen = len(seen)
+        p, s, o, loss = tr.scan_train_steps(p, s, o, stacked(chunk, dev), a)
+        # a replay runs no Python: the captured forwards' accuracies are
+        # the graph's outputs, rewritten by each replay
+        captured = [x for capturing, x in seen[n_seen:] if capturing]
+        if captured:
+            outputs[len(chunk)] = captured
+        accs.append(torch.stack(outputs[len(chunk)]))
         losses.append(loss)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     trained = dict(sk.LAUNCH_COUNTS)
-    acc = torch.stack(accs).cpu().numpy()
+    acc = torch.cat(accs).cpu().numpy()
     first, last = acc[:MM_ACC_WINDOW].mean(), acc[-MM_ACC_WINDOW:].mean()
-    losses = torch.stack(losses).cpu().numpy()
+    losses = torch.cat(losses).cpu().numpy()
     log(f"launches of {MM_STEPS} caption training steps: {trained} (per "
-        f"step {({k: v / MM_STEPS for k, v in trained.items() if v})})")
+        f"step {({k: v / MM_STEPS for k, v in trained.items() if v})}; "
+        f"{tr.runner.replays} graph replays of {MM_ACC_WINDOW} steps)")
+    if tr.runner.replays != MM_STEPS // MM_ACC_WINDOW:
+        raise AssertionError("caption training: a chunk was not one replay")
     for name in CLI_TRAIN_KERNELS:
         if trained[name] < 1:
             raise AssertionError(f"caption training never launched {name}")
@@ -2904,11 +3163,15 @@ def multimodal_phase(sk, normal, dev, card: str, max_err: dict) -> dict:
     on_card = [{k: v.to(dev) for k, v in b.items()} for b in pair_batches]
     t0 = time.perf_counter()
     losses = []
-    for i, b in enumerate(on_card):
-        p, s, o, loss = tr._train_step(p, s, o, b, i)
+    for a in range(0, PAIR_STEPS, 10):               # chunks of 10 steps
+        p, s, o, loss = tr.scan_train_steps(
+            p, s, o, stacked(on_card[a:a + 10], dev), a)
         losses.append(loss)
-    losses = torch.stack(losses).cpu().numpy()
+    losses = torch.cat(losses).cpu().numpy()
     pair_s = time.perf_counter() - t0
+    if tr.runner.replays != PAIR_STEPS // 10:
+        raise AssertionError("image-pair training: a chunk was not one "
+                             "replay")
     log(f"image-pair training ({PAIR_STEPS} steps, batch {BATCH}, "
         f"{PAIR_CORPUS} pairs through PairImageDataset, loaded in "
         f"{load_s:.3f} s; {pair_s:.3f} s): loss {losses[:10].mean():.4f} "
@@ -3782,6 +4045,7 @@ def main() -> int:
                                                timed)
     launches.update({k: train_launches[k] for k in KERNELS
                      if k not in MAXSIM})
+    dispatch = dispatch_phase(dev, card, splits, info)
     cli_phase(dev, card)
     graph = graph_phase(dev, card, splits, info)
     pycaffe = pycaffe_phase(dev, card, splits, info)
@@ -3834,6 +4098,7 @@ def main() -> int:
     mm = multimodal_phase(sk, normal, dev, card, max_err)
     torch.cuda.empty_cache()
     examples = examples_phase(card)
+    log(f"launches on the dispatch path: {json.dumps(dispatch)}")
     log(f"launches on the generic path: {json.dumps(graph)}")
     log(f"launches on the pycaffe path: {json.dumps(pycaffe)}")
     log(f"launches on the multimodal path: {json.dumps(mm)}")

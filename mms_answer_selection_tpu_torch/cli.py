@@ -1275,8 +1275,9 @@ def cmd_time(args):
             iters=args.iters)
         scan_ms = None
         if args.fused_steps > 1:
-            # K steps through scan_train_steps, per step: the JAX package
-            # fuses them into one dispatch; here they are K eager steps
+            # K steps through scan_train_steps, per step: one dispatch, as
+            # in the JAX package (on the card one CUDA graph replay, its
+            # capture in the warm-up calls; on the CPU K eager steps)
             k = args.fused_steps
             stacked = {kk: torch.stack([v] * k) for kk, v in batch.items()}
             scan_full = benchmark(
@@ -1293,8 +1294,10 @@ def cmd_time(args):
            "note": "stage times are each stage alone, timed by CUDA events "
                    "over a burst (backward: autograd of the stage's "
                    "output); full_forward / full_train_step are host "
-                   "p50s of whole calls; fused_train_step is "
-                   "scan_train_steps' K eager steps per step"}
+                   "p50s of whole calls; fused_train_step is one "
+                   "scan_train_steps call of K steps (on the card one "
+                   "CUDA graph replay, captured in the warm-up) per "
+                   "step"}
     if scan_ms is not None:
         out["fused_train_step_ms"] = round(scan_ms, 4)
         out["fused_steps"] = args.fused_steps
@@ -1460,8 +1463,9 @@ def main(argv=None):
                         "via the C++ prefetch ring when <data>/train.mmsp "
                         "exists, else an in-memory iterator)")
     p.add_argument("--fused-steps", type=int, default=1,
-                   help="up to K steps a chunk (scan_train_steps); chunks "
-                        "end at eval and snapshot steps")
+                   help="up to K steps a chunk (scan_train_steps; on the "
+                        "card one CUDA graph replay); chunks end at eval "
+                        "and snapshot steps")
     p.add_argument("--solver-prototxt",
                    help="use a reference solver.prototxt for the "
                         "optimization and loop settings (--max-iter "
@@ -1549,7 +1553,8 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=50)
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--fused-steps", type=int, default=1,
-                   help="also time K steps through scan_train_steps")
+                   help="also time K steps through scan_train_steps "
+                        "(on the card one CUDA graph replay)")
     p.add_argument("--serve-pool", type=int, default=0, metavar="N",
                    help="instead: time the serve lifecycle on an "
                         "N-candidate synthetic pool (build/save/load/"

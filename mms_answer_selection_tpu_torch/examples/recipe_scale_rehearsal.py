@@ -22,11 +22,13 @@ pair-map kernels:
 Writes docs/runs-style artifacts (summary.json, history.json, truth/result,
 curve.png where matplotlib is installed) under --out.  ``--cpu`` runs the
 plain PyTorch versions on the CPU; otherwise the run needs a card.
-``--fused-steps`` is ``Trainer.fit``'s ``steps_per_dispatch``: the port
-runs a chunk's steps one by one.
+``--fused-steps`` is ``Trainer.fit``'s ``steps_per_dispatch``: on the card
+each chunk of up to K steps is one CUDA graph replay (each chunk length
+captured once), as the JAX package's chunk is one fused dispatch; on the
+CPU the chunk's steps run eagerly.
 
     python -m mms_answer_selection_tpu_torch.examples.recipe_scale_rehearsal \\
-        --out docs/runs_torch/recipe_full_budget --max-iter 40001 --hard \\
+        --out docs/runs_torch/recipe_full_budget_graphs --max-iter 40001 --hard \\
         --early-stop-patience 0 --fused-steps 50 --snapshot-interval 1000
 """
 
@@ -243,6 +245,11 @@ def main(argv=None) -> dict:
         "card": None if args.cpu else card_description(),
         "fit_s": round(fit_s, 1),
         "wall_s": round(time.time() - t0, 1),
+        # the chunks as dispatched: graph replays and each length's capture
+        "dispatch": {"graph_replays": trainer.runner.replays,
+                     "captures": [{k: c[k] for k in ("k", "capture_s",
+                                                     "pool_bytes")}
+                                  for c in trainer.runner.stats()]},
     }
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)

@@ -27,9 +27,12 @@ def _pad_amount(size: int, k: int, s: int) -> int:
     return max(0, (_out_size(size, k, s) - 1) * s + k - size)
 
 
-def _window_counts(size: int, k: int, s: int) -> np.ndarray:
-    starts = np.arange(_out_size(size, k, s)) * s
-    return (np.minimum(starts + k, size) - starts).astype(np.float32)
+def _window_counts(size: int, k: int, s: int, like: torch.Tensor):
+    """Input elements each window covers, in ``like``'s dtype on its
+    device: computed there, so a captured CUDA graph holds no copy from
+    the host."""
+    starts = torch.arange(_out_size(size, k, s), device=like.device) * s
+    return (torch.clamp(starts + k, max=size) - starts).to(like.dtype)
 
 
 def max_pool2d(x: torch.Tensor, kh: int, kw: int, *, stride_h: int = 1,
@@ -52,9 +55,8 @@ def avg_pool2d(x: torch.Tensor, kh: int, kw: int, *, stride_h: int = 1,
     xc = F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph))
     sums = F.avg_pool2d(xc, (kh, kw), (stride_h, stride_w),
                         divisor_override=1)
-    counts = np.outer(_window_counts(h, kh, stride_h),
-                      _window_counts(w, kw, stride_w))
-    counts = torch.as_tensor(counts, dtype=x.dtype, device=x.device)
+    counts = _window_counts(h, kh, stride_h, x)[:, None] \
+        * _window_counts(w, kw, stride_w, x)[None, :]
     return (sums / counts).permute(0, 2, 3, 1)
 
 

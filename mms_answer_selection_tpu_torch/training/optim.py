@@ -6,7 +6,7 @@ Every update is element-wise PyTorch under ``torch.no_grad()``; there is no
 ``torch.optim`` here, because the reference's rules differ from it (its
 AdaDelta adds delta to both accumulators before the ratio).  ``apply``
 returns new tensors and leaves its inputs untouched, so a caller may keep
-references to earlier params (the trainer's best-so-far) without copying.
+references to earlier params without copying.
 
 Semantics, in the reference's order (SGDSolver::ApplyUpdate,
 sgd_solver.cpp:102-116):
@@ -33,16 +33,16 @@ Update rules (diff == value subtracted from params):
            c = sqrt(1-b2^t)/(1-b1^t), t = step+1
            diff = lr*c * m_t/(sqrt(v_t)+eps)
 
-The learning rate and the clip scale are float32 tensors computed on the
-device, as the reference's in-graph forms are, so a step makes no host
-round trip.  The QA recipe: AdaDelta, base_lr=1.0, momentum=0.95,
+The learning rate, Adam's correction and the clip scale are float32
+tensors computed on the device, as the reference's in-graph forms are,
+from a step that may itself be a 0-d device tensor, so a step makes no
+host round trip.  The QA recipe: AdaDelta, base_lr=1.0, momentum=0.95,
 delta=5e-7, weight_decay=5e-4, fixed LR, no clipping.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Sequence
 
 import torch
@@ -73,11 +73,16 @@ class SolverConfig:
 
 
 def learning_rate(cfg: SolverConfig, step, device=None) -> torch.Tensor:
-    """LR policies (sgd_solver.cpp:27-63) as a 0-d float32 tensor."""
+    """LR policies (sgd_solver.cpp:27-63) as a 0-d float32 tensor.
+
+    ``step``: a Python int, or a 0-d integer or float32 tensor on
+    ``device``, which the rate is computed from on that device with no
+    host round trip (a captured CUDA graph computes its steps so)."""
     step = torch.as_tensor(step, dtype=torch.float32, device=device)
     p = cfg.lr_policy
     if p == "fixed":
-        return torch.full((), cfg.base_lr, dtype=torch.float32, device=device)
+        return torch.full((), cfg.base_lr, dtype=torch.float32,
+                          device=step.device)
     if p == "step":
         if cfg.stepsize <= 0:
             # the reference crashes on iter_ / stepsize; returning lr=0
@@ -89,9 +94,11 @@ def learning_rate(cfg: SolverConfig, step, device=None) -> torch.Tensor:
     if p == "inv":
         return cfg.base_lr * (1.0 + cfg.gamma * step) ** (-cfg.power)
     if p == "multistep":
-        boundaries = torch.tensor(list(cfg.stepvalues) or [math.inf],
-                                  dtype=torch.float32, device=device)
-        current = torch.sum((step >= boundaries).to(torch.float32))
+        # the boundaries passed, counted against each as a Python number
+        # (a tensor of them would be a host-to-device copy)
+        current = torch.zeros((), dtype=torch.float32, device=step.device)
+        for boundary in cfg.stepvalues:
+            current = current + (step >= float(boundary)).to(torch.float32)
         return cfg.base_lr * cfg.gamma ** current
     if p == "poly":
         return cfg.base_lr * (1.0 - step / cfg.max_iter) ** cfg.power

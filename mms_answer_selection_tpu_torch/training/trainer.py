@@ -21,7 +21,11 @@ and of the QA script (do_trec_qa_clean.py:782-845):
 * a deterministic reshuffle of the training set each pass, the
   HDF5DataLayer shuffle equivalent (hdf5_data_layer.cpp:55-68)
 * ``fit_stream``: the same loop over a batch iterator (``data/loader.py``,
-  the packed store's ``NativePrefetcher``) with patience counted in evals.
+  the packed store's ``NativePrefetcher``) with patience counted in evals
+* chunks of up to ``steps_per_dispatch`` steps, each one dispatch: on the
+  card one replay of a CUDA graph captured around the chunk's steps
+  (``training/dispatch.py``, the counterpart of the JAX package's fused
+  ``lax.scan``), on the CPU the same steps run eagerly.
 
 Randomness: dropout draws from a ``torch.Generator`` on the training device
 seeded from (seed, step[, micro-batch]); the shuffle of a pass from a CPU
@@ -35,7 +39,8 @@ runs this loop on the same global batches and takes its rows of each (the
 sample axis, axis 1 under iter_size > 1); BN takes the global batch's
 statistics, dropout draws the global batch's masks, and the gradients are
 all-reduced to the global-batch mean, so the run is the one-device run's.
-Parameters are replicated; rank 0 writes the snapshots.
+Parameters are replicated; rank 0 writes the snapshots.  A mesh's chunks
+run as eager steps: its collectives are not captured.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from ..parallel.mesh import mesh_device, shard_context
 from ..parallel.train_step import local_batch, loss_and_grads, reduce_grads
 from ..utils.seed import derive_seed
 from ..utils.tree import tree_map
+from .dispatch import ChunkRunner
 from .checkpoint import (
     latest_checkpoint,
     load_checkpoint,
@@ -189,6 +195,8 @@ class Trainer:
         self.apply_fn = apply_fn
         self.init_fn = init_fn
         self.solver = None  # built in init() when the spec exists
+        # the chunk runner of the last carry trained (static carry, graphs)
+        self.runner: ChunkRunner | None = None
 
     # ------------------------------------------------------------------ init
     def init(self, *, pretrained=None):
@@ -201,9 +209,13 @@ class Trainer:
         return params, state, self.solver.init(params)
 
     # ----------------------------------------------------------------- steps
+    def _dropout_seed(self, *ints) -> int:
+        """The dropout seed of a step, or of a step's micro-batch."""
+        return derive_seed(self.cfg.seed, _DROPOUT, *ints)
+
     def _generator(self, *ints):
         return torch.Generator(device=self.device).manual_seed(
-            derive_seed(self.cfg.seed, _DROPOUT, *ints))
+            self._dropout_seed(*ints))
 
     def _loss_and_grads(self, params, state, batch, generator):
         loss, new_state, grads = loss_and_grads(
@@ -213,24 +225,33 @@ class Trainer:
         it = iter(grads)
         return loss, new_state, tree_map(lambda _: next(it), params)
 
-    def _train_step(self, params, state, opt_state, batch, step: int):
+    def _train_step(self, params, state, opt_state, batch, step,
+                    generators=None):
         """One solver step.  With ``iter_size`` > 1 every batch leaf carries
         a leading micro-batch axis; the gradients are summed over the
         micro-batches (the solver divides by iter_size) and the loss is
         their mean.  Over a mesh ``batch`` is the global batch, of which
         this rank takes its rows.  Returns (params, state, opt_state, loss
-        0-d tensor)."""
+        0-d tensor).
+
+        ``step``: an int, or a 0-d integer tensor on the device (a captured
+        chunk computes its steps there); ``generators``: the iter_size
+        dropout generators, seeded with ``_dropout_seed(step[, i])``
+        (needed with a tensor ``step``; made from ``step`` if not given)."""
         iter_size = self.cfg.solver.iter_size
         batch = local_batch(batch, self._shards, 0 if iter_size == 1 else 1)
+        if generators is None:
+            generators = [self._generator(step)] if iter_size == 1 else \
+                [self._generator(step, i) for i in range(iter_size)]
         if iter_size == 1:
             loss, state, grads = self._loss_and_grads(
-                params, state, batch, self._generator(step))
+                params, state, batch, generators[0])
         else:
             losses, grads = [], None
             for i in range(iter_size):
                 loss_i, state, g = self._loss_and_grads(
                     params, state, {k: v[i] for k, v in batch.items()},
-                    self._generator(step, i))
+                    generators[i])
                 losses.append(loss_i)
                 grads = g if grads is None else tree_map(torch.add, grads, g)
             loss = torch.stack(losses).mean()
@@ -259,18 +280,26 @@ class Trainer:
     # --------------------------------------------------------- multi-step
     def scan_train_steps(self, params, state, opt_state, batches, step0):
         """Run K training steps over ``batches`` (dict of (K, ...) stacked
-        tensors), step ``step0 + i`` on slice i, exactly as K ``_train_step``
-        calls do.  The JAX package fuses these into one compiled dispatch;
-        here it is a plain loop, so a chunk gives the bits of K single
-        steps.  Returns (params, state, opt_state, losses (K,) tensor)."""
-        k = next(iter(batches.values())).shape[0]
-        losses = []
-        for i in range(k):
-            batch = {n: v[i] for n, v in batches.items()}
-            params, state, opt_state, loss = self._train_step(
-                params, state, opt_state, batch, step0 + i)
-            losses.append(loss)
-        return params, state, opt_state, torch.stack(losses)
+        tensors) in ONE dispatch, step ``step0 + i`` on slice i, as K
+        ``_train_step`` calls do: on the card (no mesh) one replay of the
+        CUDA graph of K-step chunks, captured the first time K runs
+        (``training/dispatch.py``); on the CPU, and over a mesh, the same
+        steps run eagerly and give the step loop's bits.  The inputs are
+        left untouched.  Returns (params, state, opt_state, losses (K,)
+        tensor), copies that no later chunk overwrites."""
+        runner = self._runner_for((params, state, opt_state))
+        losses = runner.run(batches, int(step0))
+        return (*runner.snapshot(), losses.clone())
+
+    def _runner_for(self, carry) -> ChunkRunner:
+        """The chunk runner with ``carry`` loaded into its static carry:
+        the last one when the carry fits it (its captured graphs kept),
+        else a new one."""
+        if self.runner is not None and self.runner.fits(carry):
+            self.runner.load(carry)
+        else:
+            self.runner = ChunkRunner(self, carry)
+        return self.runner
 
     @staticmethod
     def _plan_chunk(it: int, k: int, limit: int, intervals) -> int:
@@ -436,12 +465,14 @@ class Trainer:
 
     @staticmethod
     def _finish(history, best, params, state):
+        """The history with the best params and state, or copies of the
+        last ones (the static carry, which a later chunk overwrites)."""
         history["best_step"] = best["step"]
         history["best_dev_map"] = best["dev_map"]
         history["params"] = best["params"] if best["params"] is not None \
-            else params
+            else tree_map(torch.clone, params)
         history["state"] = best["state"] if best["state"] is not None \
-            else state
+            else tree_map(torch.clone, state)
         return history
 
     # ------------------------------------------------------------------ loop
@@ -457,12 +488,14 @@ class Trainer:
         snapshots' meta.
 
         Chunks of up to ``steps_per_dispatch`` steps end at every eval and
-        snapshot step.  The JAX package fuses a chunk into one dispatch;
-        here its steps run one by one, so only the signal poll (once a
-        chunk) depends on the chunk length.  Returns the history dict."""
+        snapshot step; each is one ``ChunkRunner.run`` on the runner's
+        static carry (one graph replay on the card), its losses copied to
+        the host once.  The best params are copies taken at their eval.
+        Returns the history dict."""
         from .signals import Action, SignalHandler
         cfg = self.cfg
-        params, state, opt_state = carry
+        runner = self._runner_for(carry)
+        params, state, opt_state = runner.carry
         intervals = [eval_interval] if eval_interval else []
         if cfg.snapshot_dir and cfg.snapshot_interval:
             intervals.append(cfg.snapshot_interval)
@@ -473,27 +506,27 @@ class Trainer:
             sig_ctx.__enter__()
         try:
             while it < steps and not stop and not exhausted:
-                losses = []
+                batches = []
                 for _ in range(self._plan_chunk(it, steps_per_dispatch,
                                                 steps - it, intervals)):
                     try:
-                        batch = pull()
+                        batches.append(pull())
                     except StopIteration:
                         exhausted = True
                         break
-                    params, state, opt_state, loss = self._train_step(
-                        params, state, opt_state, batch, it + len(losses))
-                    losses.append(loss)
+                if not batches:
+                    break
+                losses = runner.run(batches, it).tolist()
                 # per-step bookkeeping over the chunk; the planner puts
                 # every eval and snapshot step at a chunk's end, where the
                 # params are that step's
                 last_j = len(losses) - 1
                 for j, loss in enumerate(losses):
                     if it % cfg.train_loss_record_interval == 0:
-                        history["train_loss"].append(float(loss))
+                        history["train_loss"].append(loss)
                     if log_every and it % log_every == 0:
                         log.info("%s %d loss %.4f (%.1fs)", what, it,
-                                 float(loss), time.time() - t0)
+                                 loss, time.time() - t0)
                     if eval_interval and it % eval_interval == 0:
                         assert j == last_j, "chunk planner missed a boundary"
                         dev_map = self._record_eval(it, params, state,
@@ -501,14 +534,14 @@ class Trainer:
                                                     history)
                         improved = dev_map > best["dev_map"]
                         if improved:
-                            # the solver and BN return new tensors each
-                            # step, so references stay the post-step state
+                            # copies: the next chunk overwrites the carry
                             best.update(dev_map=dev_map, step=it,
-                                        params=params, state=state)
+                                        params=tree_map(torch.clone, params),
+                                        state=tree_map(torch.clone, state))
                         stop |= stop_rule.evaluated(improved)
                         if callback:
                             callback({"step": it, "dev_map": dev_map,
-                                      "loss": float(loss)})
+                                      "loss": loss})
                     stop |= stop_rule.stepped(it)
 
                     # snapshots after the stop rule's bookkeeping, so their
@@ -564,9 +597,11 @@ class Trainer:
         resume_from.
 
         steps_per_dispatch: chunks of up to K steps, ending at eval and
-        snapshot steps, as the JAX package plans its fused dispatches; the
-        steps run one by one (see ``_loop``), so the history is that of
-        K = 1, bit for bit.
+        snapshot steps, as the JAX package plans its fused dispatches; on
+        the card each chunk is one CUDA graph replay (``scan_train_steps``;
+        each chunk length is captured once), on the CPU its steps run
+        eagerly and the history is that of K = 1, bit for bit.  Signals
+        are polled once a chunk.
         """
         if resume_from and weights:
             raise ValueError("resume_from and weights are mutually exclusive "

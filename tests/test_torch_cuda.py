@@ -1186,3 +1186,221 @@ def test_retrieval_1m_twin_on_the_card_equals_the_cpu(tmp_path):
     assert got["maxsim_bf16"] >= 1
     assert ivf["ivf"]["recall@10"] == 1.0
     assert ivf["coarse"]["recall@10"] == 1.0
+
+
+# ------------------------------------------------------------ graph chunks
+# A chunk of K training steps is one CUDA graph replay
+# (``training/dispatch.py``).  Against K eager ``_train_step`` calls from
+# the same carry, with dropout on (the registered generators re-seeded as
+# the eager step seeds its own): each step's loss within 1e-5 relative,
+# params within rtol 1e-4 + atol 1e-5, the conv biases within AdaDelta's
+# band of 2 x lr_mult 2 x its normalized step a step (their gradient is
+# rounding noise under train-mode BN, and the embedding gradient's scatter
+# sums in the order its atomics land, so two runs on one card part in the
+# last bits).
+GRAPH_ADADELTA_STEP = (5e-7 / 0.05) ** 0.5
+
+
+def _graph_trainer(dev, batch=50, **cfg_kw):
+    from mms_answer_selection_tpu_torch.training import (
+        SolverConfig, Trainer, TrainerConfig)
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(TM.MMSQAConfig(), vocab_size=500,
+                              sim_weight_init="xavier", **cfg_kw)
+    tcfg = TrainerConfig(solver=SolverConfig(), batch_size=batch,
+                         test_interval=5, train_loss_record_interval=1)
+    return Trainer(cfg, tcfg, device=dev)
+
+
+def _graph_batches(dev, n, batch=50, seed=4):
+    g = torch.Generator().manual_seed(seed)
+    return [{"question": torch.randint(0, 500, (batch, 40), generator=g),
+             "answer": torch.randint(0, 500, (batch, 40), generator=g),
+             "overlap_feat": torch.rand((batch, 2), generator=g),
+             "label": (torch.rand((batch,), generator=g) < 0.3).int()}
+            for _ in range(n)]
+
+
+def _stack(batches, dev):
+    return {k: torch.stack([b[k] for b in batches]).to(dev)
+            for k in batches[0]}
+
+
+def _assert_steps_close(got_losses, want_losses, got_p, want_p, steps):
+    from mms_answer_selection_tpu_torch.utils.tree import tree_leaves
+
+    rel = (got_losses - want_losses).abs() / want_losses.abs()
+    assert float(rel.max()) <= 1e-5, rel
+    band = 2 * 2 * GRAPH_ADADELTA_STEP * steps
+    for name in want_p:
+        for k, want in want_p[name].items():
+            got = got_p[name][k]
+            if name.startswith("conv") and k == "b":
+                assert float((got - want).abs().max()) <= band, (name, k)
+            else:
+                assert torch.allclose(got, want, rtol=1e-4, atol=1e-5), \
+                    (name, k, float((got - want).abs().max()))
+    assert len(tree_leaves(got_p)) == len(tree_leaves(want_p))
+
+
+def test_graph_chunk_matches_eager_steps_with_dropout():
+    dev = _cuda()
+    tr = _graph_trainer(dev)
+    p0, s0, o0 = tr.init()
+    batches = [{k: v.to(dev) for k, v in b.items()}
+               for b in _graph_batches(dev, 5)]
+    p, s, o, want = p0, s0, o0, []
+    for i, b in enumerate(batches):
+        p, s, o, loss = tr._train_step(p, s, o, b, 3 + i)
+        want.append(loss)
+    gp, gs, go, got = tr.scan_train_steps(p0, s0, o0, _stack(batches, dev),
+                                          3)
+    torch.cuda.synchronize()
+    assert tr.runner.captures and tr.runner.replays == 1
+    _assert_steps_close(got, torch.stack(want), gp, p, 5)
+
+
+def test_launch_counts_are_replays_times_the_tally():
+    dev = _cuda()
+    tr = _graph_trainer(dev)
+    carry = tr.init()
+    stacked = _stack([{k: v.to(dev) for k, v in b.items()}
+                      for b in _graph_batches(dev, 4)], dev)
+    carry = tr.scan_train_steps(*carry, stacked, 0)[:3]   # captures K = 4
+    (stats,) = tr.runner.stats()
+    assert stats["tally"] == {"pair_maps_fwd": 4, "pair_maps_bwd_qa": 4,
+                              "pair_maps_bwd_w": 4}
+    before = dict(T.LAUNCH_COUNTS)
+    for step in (4, 8, 12):
+        carry = tr.scan_train_steps(*carry, stacked, step)[:3]
+    assert {k: T.LAUNCH_COUNTS[k] - before[k] for k in before} == {
+        k: 3 * stats["tally"].get(k, 0) for k in before}
+    assert tr.runner.stats()[0]["replays"] == 4
+
+
+def test_a_reseeded_registered_generator_replays_from_offset_zero():
+    dev = _cuda()
+    gen = torch.Generator(device=dev)
+    out = torch.empty((3, 4099), device=dev)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    gen.manual_seed(1)
+    torch.rand(8, generator=gen, device=dev)          # warm-up draw
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        for i in range(3):
+            out[i].copy_(torch.rand(4099, generator=gen, device=dev))
+    for seed in (5, 5, 11):
+        gen.manual_seed(seed)
+        graph.replay()
+        fresh = torch.Generator(device=dev).manual_seed(seed)
+        want = torch.stack([torch.rand(4099, generator=fresh, device=dev)
+                            for _ in range(3)])
+        assert torch.equal(out, want), seed
+
+
+def test_a_host_sync_in_the_step_fails_to_capture_and_raises():
+    dev = _cuda()
+    from mms_answer_selection_tpu_torch.models.mms_qa import mms_qa_apply
+    from mms_answer_selection_tpu_torch.utils.tree import tree_leaves
+
+    def syncing(*args, **kw):
+        out, state = mms_qa_apply(*args, **kw)
+        if float(out["loss"]) < 0:                   # a host sync
+            raise AssertionError("negative loss")
+        return out, state
+
+    tr = _graph_trainer(dev)
+    tr.apply_fn = syncing
+    carry = tr.init()
+    stacked = _stack(_graph_batches(dev, 2), dev)
+    for _ in range(2):                               # nothing is cached
+        with pytest.raises(RuntimeError, match="capturing a 2-step chunk"
+                           r"(.|\n)*float\(out"):
+            tr.scan_train_steps(*carry, stacked, 0)
+    assert tr.runner.replays == 0 and tr.runner.stats() == []
+    for got, want in zip(tree_leaves(dict(enumerate(tr.runner.carry))),
+                         tree_leaves(dict(enumerate(carry)))):
+        assert torch.equal(got, want)                # no step ran
+    loss = tr._train_step(*carry, {k: v[0] for k, v in stacked.items()},
+                          0)[3]
+    assert torch.isfinite(loss)                      # the card still works
+
+
+def test_fit_and_fit_stream_chunks_are_graph_replays():
+    """Every chunk one replay: ``fit`` at K = 4 with evals every 5 steps
+    (chunks of 1 and 4), ``fit_stream`` over 13 batches (a partial chunk of
+    2 at the end gets a graph of its own); the history is K = 1's on the
+    card within the eager tolerances."""
+    dev = _cuda()
+    import numpy as np
+
+    rng = np.random.default_rng(6)
+
+    def rows(n):
+        return {"question": rng.integers(0, 500, (n, 40)).astype(np.int32),
+                "answer": rng.integers(0, 500, (n, 40)).astype(np.int32),
+                "overlap_feat": rng.random((n, 2)).astype(np.float32),
+                "label": (rng.random(n) < 0.3).astype(np.int32)}
+
+    train, dev_split = rows(300), rows(60) | {"group": np.repeat(
+        np.arange(6), 10)}
+    runs = {}
+    for k in (1, 4):
+        tr = _graph_trainer(dev)
+        tr.cfg = dataclasses.replace(tr.cfg, max_iter=16)
+        runs[k] = tr.fit(train, dev_split, steps_per_dispatch=k)
+        chunks = 16 if k == 1 else 7   # 0 | 1-4 | 5 | 6-9 | 10 | 11-14 | 15
+        assert tr.runner.replays == chunks, tr.runner.stats()
+    assert runs[4]["steps"] == runs[1]["steps"] == [0, 5, 10, 15]
+    np.testing.assert_allclose(runs[4]["train_loss"], runs[1]["train_loss"],
+                               rtol=1e-5)
+
+    tr = _graph_trainer(dev)
+    batches = iter([{k: v[i * 50:(i + 1) * 50] for k, v in train.items()}
+                    for i in range(6)] * 2 + [{k: v[:50] for k, v in
+                                                train.items()}])
+    hist = tr.fit_stream(batches, dev_split, steps=40, eval_interval=5,
+                         steps_per_dispatch=4)
+    assert len(hist["train_loss"]) == 13 and hist["steps"] == [0, 5, 10]
+    assert sorted((c["k"], c["replays"]) for c in tr.runner.stats()) == \
+        [(1, 3), (2, 1), (4, 2)]
+    assert tr.runner.replays == 6
+
+
+def test_caption_model_chunk_captures_and_matches_eager():
+    dev = _cuda()
+    from mms_answer_selection_tpu_torch.models import (
+        caption_image_apply, caption_image_init)
+    from mms_answer_selection_tpu_torch.training import (
+        SolverConfig, Trainer, TrainerConfig)
+
+    cfg, batch = _caption_step_inputs()
+    tr = Trainer(cfg, TrainerConfig(solver=SolverConfig(weight_decay=0.0),
+                                    batch_size=50), device=dev,
+                 apply_fn=caption_image_apply, init_fn=caption_image_init)
+    p0, s0, o0 = tr.init()
+    b = {k: v.to(dev) for k, v in batch.items()}
+    p, s, o, want = p0, s0, o0, []
+    for i in range(3):
+        p, s, o, loss = tr._train_step(p, s, o, b, i)
+        want.append(loss)
+    stacked = {k: torch.stack([v] * 3) for k, v in b.items()}
+    gp, _, _, got = tr.scan_train_steps(p0, s0, o0, stacked, 0)
+    assert tr.runner.replays == 1
+    assert set(tr.runner.stats()[0]["tally"]) == {
+        "pair_maps_fwd", "pair_maps_bwd_qa", "pair_maps_bwd_w"}
+    # within 1e-5 relative; a hinge loss of exactly 0 (every positive
+    # past the margin) must be 0 in both
+    assert torch.allclose(got, torch.stack(want), rtol=1e-5, atol=0.0), \
+        (got, want)
+    band = 2 * 2 * GRAPH_ADADELTA_STEP * 3
+    for name in p:
+        for k, w in p[name].items():
+            diff = float((gp[name][k] - w).abs().max())
+            if name.startswith("conv") and k == "b":
+                assert diff <= band, (name, k, diff)
+            else:
+                assert diff <= 1e-4 * max(float(w.abs().max()), 1e-30), \
+                    (name, k, diff)

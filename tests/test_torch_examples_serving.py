@@ -171,6 +171,34 @@ def test_full_budget_card_artifact_files():
     assert abs(ev["recip_rank"] - s["test_mrr"]) < 1e-9
 
 
+def test_full_budget_graphs_card_artifact():
+    """The recipe's 40,001 steps with each chunk of 50 one CUDA graph
+    replay (``docs/runs_torch/recipe_full_budget_graphs/README.md``): every
+    chunk the loop plans was a replay, the curve is the summary's, and
+    truth / result score to its trec_eval fields."""
+    from mms_answer_selection_tpu_torch.metrics import trec_eval
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    d = RUNS / "recipe_full_budget_graphs"
+    s = json.loads((d / "summary.json").read_text())
+    h = json.loads((d / "history.json").read_text())
+    assert s["max_iter"] == 40001 and s["early_stop_patience"] == 0
+    assert s["backend"] == "cuda" and s["card"].endswith(" W")
+    chunks, it = 0, 0
+    while it < s["max_iter"]:
+        it += Trainer._plan_chunk(it, 50, s["max_iter"] - it, [100, 1000])
+        chunks += 1
+    assert s["dispatch"]["graph_replays"] == chunks == 801
+    assert sorted(c["k"] for c in s["dispatch"]["captures"]) == [1, 50]
+    assert s["best_dev_map"] > s["chance_dev_map_step0"] + 0.25
+    assert len(h["steps"]) == 401 and h["steps"][-1] == 40000
+    assert max(h["dev_map"]) == s["best_dev_map"]
+    assert h["steps"][int(np.argmax(h["dev_map"]))] == s["best_step"]
+    ev = trec_eval(str(d / "truth"), str(d / "result"))
+    assert abs(ev["map"] - s["test_map"]) < 1e-9
+    assert abs(ev["recip_rank"] - s["test_mrr"]) < 1e-9
+
+
 def test_int8_error_analysis_card_artifact_keys():
     want = json.loads((ROOT / "docs/runs/int8_error_analysis/summary.json")
                       .read_text())
