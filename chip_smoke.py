@@ -35,6 +35,21 @@ at the V4 recipe's widths, after building the hand-written kernels from
   each length's capture time and graph pool; ``fit`` and ``fit_stream`` at
   K = 50, replays = chunks (a partial last chunk its own length); the
   ``fit``, CLI and multimodal runs below go through graphs too;
+* the one-dispatch serving (``serve_dispatch_phase``, ``utils/graphs.py``):
+  ``query`` at 1, 32 and 256 queries and ``query_rerank`` at 32 on the
+  bf16, int8 and int4 engines of 262,144 and 1,048,576 candidates in
+  chunks of 131,072, each one CUDA graph replay held bit for bit to the
+  eager call on the same engine (``scan_chunks`` off), its top-10 to the
+  plain top-10, the keys replayed out of their capture order, and timed
+  in turns with the eager call (p50s, launches a replay, the profiler's
+  device time and idle share, capture seconds, graph-pool growth); the
+  graphs dropped and recaptured after an add past the reserve, a
+  removal and ``compact`` (no removed row returned); the IVF probe at
+  nprobe 8 and the T=8 coarse stage the same way in ``ivf_phase``, the
+  eval step on the dev and test splits and the 301-step ``fit``'s evals
+  in ``dispatch_phase``, and HTTP /query at 1 and 32 queries eager
+  against replays (a padded batch answering as the engine does) in
+  ``cli_phase``;
 * the CLI, the path a user takes (``cli.main`` in this process, V4's
   widths, the recipe-sized corpus written as XML and a GloVe-format
   ``.txt``): ``prep --mmsp``, ``train --stream`` (the packed store's ring
@@ -171,6 +186,10 @@ POOL = 262_144
 N_QUERIES, N_RERANK, K, SHORTLIST = 256, 32, 10, 50
 BIG_POOL, CHUNK = 1_048_576, 131_072   # the README's 1M pool, in chunks
 LIFE_POOL, LIFE_CHUNK, LIFE_RESERVE = 20_000, 8192, 1000
+# the one-dispatch serving (serve_dispatch_phase): query at DISPATCH_NQ
+# queries and the rerank at N_RERANK, each a graph replay in turns with
+# the eager path on the same engine
+DISPATCH_NQ = (1, 32, N_QUERIES)
 # IVF: bench.py's topic pool and its ~2 clusters per latent topic
 IVF_CLUSTERS, IVF_TOKENS, IVF_SHORTLIST, IVF_QUERIES = 1024, 8, 1024, 64
 N_CHECK = 4                       # queries held against brute force
@@ -908,6 +927,25 @@ def dispatch_phase(dev, card: str, splits, info) -> dict:
             or not np.isfinite(losses).all() \
             or not losses[-5:].mean() < losses[0]:
         raise AssertionError(f"fit at K={DISPATCH_K}: {tr.runner.stats()}")
+    # its evals: one replay per split and eval, a graph per split shape
+    evals = len(hist["steps"])
+    log(f"fit's evals: {tr.evals.replays} replays of "
+        f"{len(tr.evals.keys())} eval graphs ({evals} evals on dev and "
+        f"test): " + "; ".join(
+            f"capture {st['capture_s']:.3f} s, graph pool +"
+            f"{st['pool_bytes'] / 2**20:.1f} MiB, a replay launches "
+            f"{st['tally']}" for st in tr.evals.stats()) + f" [{card}]")
+    if tr.evals.replays != 2 * evals or len(tr.evals.keys()) != 2:
+        raise AssertionError(f"fit's evals: {tr.evals.stats()}")
+    # the eval step alone on the last carry: replay against eager
+    p, s, _ = tr.runner.carry
+    tr.evals.drop()
+    for name in ("dev", "test"):
+        batch = tr._full_batch(splits[name])
+        graphed_vs_eager(f"eval step {name} ({len(splits[name]['label'])} "
+                         f"pairs)", tr.evals,
+                         lambda: tr._eval_step(p, s, batch),
+                         lambda: tr._eval_body(p, s, batch), 20, card)
     stream = corpus_batches(tr, splits, DISPATCH_STREAM_STEPS)
     tr = Trainer(model, tcfg, device=dev)
     shist = tr.fit_stream(iter([{k: v.cpu().numpy() for k, v in b.items()}
@@ -932,6 +970,196 @@ def dispatch_phase(dev, card: str, splits, info) -> dict:
                                  f"{launches[name]} times")
     log(f"dispatch phase: {time.perf_counter() - started:.1f} s")
     return launches
+
+
+def profile_call(call) -> dict:
+    """``torch.profiler``'s read of one ``call()``: device ops and device
+    time (the CUDA rows' self time), and the host's launch calls."""
+    from torch.autograd import DeviceType
+
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as pr:
+        call()
+        torch.cuda.synchronize()
+    rows = pr.key_averages()
+    on_dev = [e for e in rows if e.device_type == DeviceType.CUDA]
+    return {"device_ops": sum(e.count for e in on_dev),
+            "device_ms": sum(e.self_device_time_total for e in on_dev) / 1e3,
+            "host_calls": {e.key: e.count for e in rows if e.key in (
+                "cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernel", "cudaMemcpyAsync")}}
+
+
+def same_tensors(got, want) -> bool:
+    """Equal trees of tensors (tuples or dicts, None leaves), bit for bit."""
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(
+            same_tensors(got[k], want[k]) for k in want)
+    if isinstance(want, tuple):
+        return len(got) == len(want) and all(
+            same_tensors(a, b) for a, b in zip(got, want))
+    return (got is want is None) or torch.equal(got, want)
+
+
+def graphed_vs_eager(label: str, calls, graphed, eager, reps: int,
+                     card: str):
+    """One graphed path against its eager twin: ``graphed()`` (captured at
+    its first call, then a replay) must equal ``eager()`` bit for bit;
+    then the p50 of each in turns (eager, replay, replay, eager, each the
+    median of ``reps`` calls ended by a sync), the profiler's read of one
+    call of each (device time; idle share against the p50), and the
+    graph's capture seconds, pool growth and tally from ``calls`` (the
+    owner's ``GraphedCall``).  Fails unless a replay is one
+    ``cudaGraphLaunch``.  Returns (eager result, a dict of the numbers)."""
+    want = eager()
+    known = set(calls.keys())
+    for turn in ("capture", "replay"):
+        if not same_tensors(graphed(), want):
+            raise AssertionError(f"{label}: the graph's {turn} differs from "
+                                 f"the eager call")
+    new = [s for k, s in zip(calls.keys(), calls.stats()) if k not in known]
+    if len(new) != 1:
+        raise AssertionError(f"{label}: {len(new)} graphs captured, not 1")
+    (st,) = new
+    times = {"eager": [], "replay": []}
+    for mode in ("eager", "replay", "replay", "eager"):
+        times[mode].append(sync_ms(graphed if mode == "replay" else eager,
+                                   reps))
+    p50 = {m: sum(t) / 2 for m, t in times.items()}
+    prof = {m: profile_call(graphed if m == "replay" else eager)
+            for m in p50}
+    for m, pr in prof.items():
+        pr["idle"] = max(0.0, 1 - pr["device_ms"] / p50[m])
+    if prof["replay"]["host_calls"].get("cudaGraphLaunch") != 1:
+        raise AssertionError(f"{label}: a replay is not one graph launch: "
+                             f"{prof['replay']}")
+    out = {"eager_ms": p50["eager"], "replay_ms": p50["replay"],
+           "turns": times, "tally": st["tally"],
+           "capture_s": st["capture_s"],
+           "pool_mib": st["pool_bytes"] / 2**20, "profile": prof}
+    log(f"dispatch {label}: eager p50 {p50['eager']:.3f} ms, replay p50 "
+        f"{p50['replay']:.3f} ms ({p50['eager'] / p50['replay']:.3f}x; "
+        f"turns {({m: [round(x, 3) for x in t] for m, t in times.items()})}"
+        f"); a replay launches {st['tally']}; profiler: eager "
+        f"{prof['eager']['device_ops']} device ops, "
+        f"{prof['eager']['device_ms']:.3f} ms device time, idle "
+        f"{prof['eager']['idle']:.1%}; replay {prof['replay']['device_ops']}"
+        f" device ops, {prof['replay']['device_ms']:.3f} ms, idle "
+        f"{prof['replay']['idle']:.1%}, host {prof['replay']['host_calls']}"
+        f"; capture {st['capture_s']:.3f} s, graph pool +"
+        f"{st['pool_bytes'] / 2**20:.1f} MiB [{card}]")
+    return want, out
+
+
+def engine_dispatch(eng, state, queries, label: str, card: str) -> dict:
+    """``query`` at DISPATCH_NQ queries and ``query_rerank`` at N_RERANK,
+    each as a graph replay against the eager path on ``eng`` (its
+    ``scan_chunks`` toggled); the query's top-K held to the plain top-K
+    on N_CHECK rows; the keys then replayed in another order than their
+    capture, each equal to its eager result.  Returns the numbers."""
+    def on(flag, fn):
+        def call():
+            eng.scan_chunks = flag
+            return fn()
+        return call
+
+    paths = {f"query {nq} q": (lambda nq=nq: eng.query(queries[:nq], k=K),
+                               max(3, 40 // nq) if nq < 256 else 3)
+             for nq in DISPATCH_NQ}
+    paths[f"rerank {N_RERANK} q S={SHORTLIST}"] = (
+        lambda: eng.query_rerank(state, queries[:N_RERANK], k=K,
+                                 shortlist=SHORTLIST), 10)
+    results, numbers = {}, {}
+    eng._calls.drop()                 # each path captured here, afresh
+    for name, (fn, reps) in paths.items():
+        results[name], numbers[name] = graphed_vs_eager(
+            f"{label} {name}", eng._calls, on(True, fn), on(False, fn), reps,
+            card)
+        if name.startswith("query"):
+            n = min(N_CHECK, len(results[name][0]))
+            check_topk(eng, queries[:n], results[name][0][:n],
+                       results[name][1][:n], f"{label} {name} replay")
+    eng.scan_chunks = True
+    for name in reversed(list(paths)):           # out of capture order
+        if not same_tensors(paths[name][0](), results[name]):
+            raise AssertionError(f"{label} {name}: a replay out of capture "
+                                 f"order differs from the eager call")
+    return numbers
+
+
+def lifecycle_dispatch(params, state, cfg, cand_ids, queries, dev) -> None:
+    """After an add past the reserve, a removal and ``compact``, each path
+    replayed on a graphed int8 engine equals the same engine's eager call,
+    and no removed row comes back."""
+    from mms_answer_selection_tpu_torch.serve import QueryEngine
+
+    q = queries[:8]
+    eng = QueryEngine(params, cfg, pool_dtype="int8", chunk_size=LIFE_CHUNK,
+                      device=dev).build_index(cand_ids[:LIFE_POOL],
+                                              reserve=LIFE_RESERVE)
+    _, top = eng.query(q, k=K)
+    dead = sorted(set(top[:, :3].flatten().tolist()) | {0, LIFE_POOL - 1})
+    steps = (("add", lambda: eng.add_candidates(
+                  cand_ids[LIFE_POOL:LIFE_POOL + LIFE_RESERVE + 10])),
+             ("remove", lambda: eng.remove_candidates(dead)),
+             ("compact", lambda: eng.compact()))
+    for what, op in steps:
+        version = eng.version
+        op()
+        if eng.version == version or eng._calls.keys():
+            raise AssertionError(f"lifecycle {what}: the graphs were kept")
+        out = {}
+        for flag in (False, True, True):        # eager, capture, replay
+            eng.scan_chunks = flag
+            out[flag] = (eng.query(q, k=K), eng.query_rerank(
+                state, q, k=K, shortlist=SHORTLIST))
+            if flag and not same_tensors(out[True], out[False]):
+                raise AssertionError(f"lifecycle {what}: a graph differs "
+                                     f"from the eager call")
+        if what == "remove" and set(dead) & set(
+                torch.cat([out[True][0][1], out[True][1][1]]).flatten()
+                .tolist()):
+            raise AssertionError("lifecycle: a removed row came back")
+    log(f"dispatch lifecycle int8 at {LIFE_POOL} (+{LIFE_RESERVE} reserve, "
+        f"chunk {LIFE_CHUNK}): after add past the reserve, remove and "
+        f"compact every graph was dropped, the recaptured query and rerank "
+        f"= eager bit for bit, {len(dead)} removed rows never returned")
+
+
+def serve_dispatch_phase(params, state, cfg, engines, queries, dev,
+                         card: str) -> dict:
+    """The one-dispatch serving (``utils/graphs.py``): ``query`` at 1, 32
+    and 256 queries and ``query_rerank`` at 32 as graph replays against
+    the eager calls on the same engines, bf16, int8 and int4, at POOL (the
+    main path's engines) and at BIG_POOL (built here, one at a time), in
+    chunks of CHUNK; the lifecycle gate.  (IVF and the coarse stage are
+    held in ``ivf_phase``, HTTP in ``cli_phase``, the eval step in
+    ``dispatch_phase``.)  Returns the numbers."""
+    from mms_answer_selection_tpu_torch.serve import QueryEngine
+
+    started = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    numbers = {}
+    for pd, eng in engines.items():
+        numbers[pd, POOL] = engine_dispatch(eng, state, queries,
+                                            f"{pd} at {POOL}", card)
+    cand = torch.randint(0, VOCAB, (BIG_POOL, W2), generator=gen, device=dev)
+    for pd in POOL_DTYPES:
+        eng = QueryEngine(params, cfg, pool_dtype=pd, chunk_size=CHUNK,
+                          device=dev).build_index(cand)
+        numbers[pd, BIG_POOL] = engine_dispatch(eng, state, queries,
+                                                f"{pd} at {BIG_POOL}", card)
+        del eng
+        torch.cuda.empty_cache()
+    del cand
+    lifecycle_dispatch(params, state, cfg, torch.randint(
+        0, VOCAB, (LIFE_POOL + LIFE_RESERVE + 10, W2), generator=gen,
+        device=dev), queries, dev)
+    log(f"serve dispatch phase: {time.perf_counter() - started:.1f} s")
+    return numbers
 
 
 def plain_scores(eng, query_ids):
@@ -1346,6 +1574,21 @@ def ivf_phase(params, cfg, gen, dev, card: str) -> None:
                 f"bucket {ivf.bucket}, {POOL} pool): kernel {probe_ms:.4f} "
                 f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
                 f"{b_ms / probe_ms:.1%} of it reached) [{card}]")
+        eng._calls.drop()             # each path captured here, afresh
+        for label, fn in (
+                (f"IVF {pd} 1 q nprobe 8", lambda: eng.query_ivf(
+                    q[:1], k=K, nprobe=8)),
+                (f"coarse {pd} 1 q T={IVF_TOKENS} S={IVF_SHORTLIST}",
+                 lambda: ivf.query_coarse(q[:1], k=K,
+                                          shortlist=IVF_SHORTLIST))):
+            def on(flag, fn=fn):
+                def call():
+                    eng.scan_chunks = flag
+                    return fn()
+                return call
+            graphed_vs_eager(f"{label} at {eng.pool_size} (topic pool)",
+                             eng._calls, on(True), on(False), 20, card)
+        eng.scan_chunks = True
         log(f"IVF {pd} at {eng.pool_size} (topic pool): {ivf.n_clusters} "
             f"clusters, bucket {ivf.bucket}, spilled {ivf.spilled}, built in "
             f"{build_s:.3f} s (T={IVF_TOKENS} mini pool included); probe-all "
@@ -1667,9 +1910,10 @@ def cli_phase(dev, card: str) -> dict:
         if health["pool"] != POOL or health["pool_dtype"] != "int8":
             raise AssertionError(f"serve --index: {health}")
         q_all = torch.as_tensor(splits["test"]["question"][:32], device=dev)
-        timed, direct = {}, {}
+        timed, direct, timed_want = {}, {}, {}
         for nq in (1, 32):
             q = q_all[:nq]
+            timed_want[nq] = engine.query(q, k=K)
             for rerank in (0, SHORTLIST):
                 req = {"tokens": q.tolist(), "k": K, "rerank": rerank}
                 reply = request("/query", req)
@@ -1693,6 +1937,37 @@ def cli_phase(dev, card: str) -> dict:
                     lambda: engine.query(q, k=K))
                 direct[nq, rerank] = sync_ms(
                     lambda: [t.cpu() for t in call()], HTTP_REPS)
+        # one dispatch over HTTP: a batch the server pads (3 rows to the
+        # bucket of 4) answers as the engine does unpadded; the server's
+        # engine eager (scan_chunks off) against graph replays, in turns
+        same_reply(request("/query", {"tokens": q_all[:3].tolist(),
+                                      "k": K}),
+                   *engine.query(q_all[:3], k=K), "/query 3 q (padded)")
+        http = {}
+        for nq in (1, 32):
+            req = {"tokens": q_all[:nq].tolist(), "k": K}
+            turns = {"eager": [], "replay": []}
+            for mode in ("eager", "replay", "replay", "eager"):
+                srv.engine.scan_chunks = mode == "replay"
+                # warm (a replay's capture), held to the engine
+                same_reply(request("/query", req), *timed_want[nq],
+                           f"/query {nq} q {mode}")
+                times = []
+                for _ in range(HTTP_REPS):
+                    t = time.perf_counter()
+                    request("/query", req)
+                    times.append((time.perf_counter() - t) * 1e3)
+                turns[mode].append(statistics.median(times))
+            http[nq] = turns
+        srv.engine.scan_chunks = True
+        log(f"dispatch HTTP /query through serve --listen (int8, {POOL} "
+            f"candidates, pad_buckets on): " + ", ".join(
+                f"{nq} q eager p50 {sum(t['eager']) / 2:.3f} ms, replay p50 "
+                f"{sum(t['replay']) / 2:.3f} ms (turns "
+                f"{({m: [round(x, 3) for x in v] for m, v in t.items()})})"
+                for nq, t in http.items())
+            + f" ({HTTP_REPS} requests a turn); a 3-q batch padded to 4 "
+            f"answers as the engine [{card}]")
         added = request("/add", {"tokens": cand[:3].tolist()})
         if added["added"] != engine.add_candidates(cand[:3]).tolist():
             raise AssertionError("/add differs from the engine")
@@ -4035,6 +4310,8 @@ def main() -> int:
         log(f"{pd} vs bf16 over {N_QUERIES} queries at {POOL}: top-{K} "
             f"agreement {float(agree):.4f}, bf16 top-{K} in {pd} top-"
             f"{SHORTLIST} recall {float(recall):.4f}")
+
+    serve_dispatch_phase(params, state, cfg, engines, queries, dev, card)
 
     # ------------------------------------------- lifecycle, IVF, 1M pools
     lifecycle_phase(params, state, cfg, cand_ids, queries, dev)

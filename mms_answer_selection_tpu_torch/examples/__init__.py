@@ -10,8 +10,9 @@ Entry points run on the card; the scripts' CPU flags (``--cpu`` in the
 recipe, ``--interpret`` in ``serve_load``) choose ``device="cpu"`` and the
 plain PyTorch versions.  Without a card and without such a flag a twin
 raises, as ``device.resolve_device`` does.  TPU-only arguments
-(``enable_compilation_cache``, ``interpret=``, ``scan_chunks=``) are
-dropped.
+(``enable_compilation_cache``, ``interpret=``) are dropped;
+``scan_chunks=`` is kept where a script passes it (the port's engine takes
+it: a graph replay, or eager launches).
 
 * ``recipe_scale_rehearsal``: the V4 recipe on the recipe-scale synthetic
   corpus, with ``trec_eval`` parity and docs/runs-style artifacts;

@@ -72,8 +72,8 @@ def error_analysis(pools=(262144, 1048576), *, subpool: int = 2048,
     params = {"embed": {"w": embed_table}, "sim": {"w": w}}
     queries = rng.integers(0, vocab, (nq, w1)).astype(np.int32)
 
-    def build(mode, cand_ids):
-        return QueryEngine(params, cfg, pool_dtype=mode,
+    def build(mode, cand_ids, scan=True):
+        return QueryEngine(params, cfg, pool_dtype=mode, scan_chunks=scan,
                            device=device).build_index(cand_ids)
 
     def top(eng, kk):
@@ -114,7 +114,7 @@ def error_analysis(pools=(262144, 1048576), *, subpool: int = 2048,
     for pool in pools:
         tag = f"pool_{pool}"
         cand_ids = rng.integers(0, vocab, (pool, w2)).astype(np.int32)
-        vb, ib = top(build("bf16", cand_ids), 50)
+        vb, ib = top(build("bf16", cand_ids, scan=pool <= 300_000), 50)
         free()
         vi, ii = top(build("int8", cand_ids), s_max)
         free()

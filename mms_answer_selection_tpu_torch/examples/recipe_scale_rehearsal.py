@@ -24,8 +24,9 @@ curve.png where matplotlib is installed) under --out.  ``--cpu`` runs the
 plain PyTorch versions on the CPU; otherwise the run needs a card.
 ``--fused-steps`` is ``Trainer.fit``'s ``steps_per_dispatch``: on the card
 each chunk of up to K steps is one CUDA graph replay (each chunk length
-captured once), as the JAX package's chunk is one fused dispatch; on the
-CPU the chunk's steps run eagerly.
+captured once), as the JAX package's chunk is one fused dispatch, and so
+is each split's eval (``eval_dispatch`` in ``summary.json``); on the CPU
+the chunk's steps and the evals run eagerly.
 
     python -m mms_answer_selection_tpu_torch.examples.recipe_scale_rehearsal \\
         --out docs/runs_torch/recipe_full_budget_graphs --max-iter 40001 --hard \\
@@ -196,6 +197,10 @@ def main(argv=None) -> dict:
                        pretrained=info["pretrained"], log_every=100,
                        steps_per_dispatch=args.fused_steps)
     fit_s = time.time() - t_fit
+    # the evals as dispatched (``evaluate`` below takes its own copies)
+    evals = {"graph_replays": trainer.evals.replays,
+             "captures": [{k: c[k] for k in ("capture_s", "pool_bytes")}
+                          for c in trainer.evals.stats()]}
     chance = hist["dev_map"][0]
     print(f"dev MAP: chance(step0)={chance:.4f} "
           f"best={hist['best_dev_map']:.4f} @ {hist['best_step']} "
@@ -250,6 +255,7 @@ def main(argv=None) -> dict:
                      "captures": [{k: c[k] for k in ("k", "capture_s",
                                                      "pool_bytes")}
                                   for c in trainer.runner.stats()]},
+        "eval_dispatch": evals,
     }
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)

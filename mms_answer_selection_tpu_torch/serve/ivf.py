@@ -20,7 +20,9 @@ classic two-level index in front of the exact kernel:
    per launch.  ``query_coarse`` instead shortlists over every candidate
    (the dense coarse product, or with ``coarse_tokens`` T > 1 the bf16
    kernel over a mini pool of T token centroids per candidate) and scores
-   the shortlist exactly.
+   the shortlist exactly.  With the engine's ``scan_chunks`` each is one
+   CUDA graph replay over the query batch (the per-query launches inside
+   it, as the JAX package's ``lax.map`` is inside its program).
 
 With ``nprobe == n_clusters`` every live candidate is scored by the exact
 kernel, so the result equals ``QueryEngine.query`` (the same per-pair
@@ -243,48 +245,47 @@ class IVFIndex:
             return proj[0]
         return sk.project_queries(q_tokens, self.engine.params["sim"]["w"])
 
-    def _dead(self):
-        """(pool_size,) bool of the engine's removed rows, or None."""
-        eng = self.engine
-        if eng.deleted.numel() == 0:
-            return None
-        dead = torch.zeros(eng.pool_size, dtype=torch.bool,
-                           device=eng.device)
-        dead[eng.deleted.to(eng.device)] = True
-        return dead
-
-    def _exact(self, proj, i: int, idx, ok, dead, k: int):
-        """Query i's top-k over candidates ``idx`` (``ok`` marks real,
-        live ones) scored by the exact kernel; other slots come back as
-        index -1, score -inf."""
+    def _exact(self, proj, i: int, idx, ok, k: int):
+        """Query i's top-k over candidates ``idx`` (``ok`` marks real
+        ones; the engine's ``dead`` mask, the removed) scored by the exact
+        kernel; other slots come back as index -1, score -inf."""
         eng = self.engine
         safe = idx.clamp(min=0)
-        if dead is not None:
-            ok = ok & ~dead[safe]
+        ok = ok & ~eng.dead[safe]
         aux = None if eng.aux is None else eng.aux[safe]
         s = eng.score(tuple(p[i:i + 1] for p in proj), eng.pool[safe], aux)
         v, j = topk(torch.where(ok, s[0], -torch.inf), k)
         return v, torch.where(ok[j], idx[j], -1)
+
+    def _stack(self, out):
+        return (torch.stack([v for v, _ in out]),
+                torch.stack([ix for _, ix in out]))
 
     def query(self, query_ids, k: int = 10, *, nprobe: int = 8):
         """(scores (Nq, k'), candidate indices (Nq, k')) over the probed
         buckets, k' = min(k, nprobe * bucket, pool size).  Slots beyond the
         probed set's live candidates return index -1 with score -inf."""
         eng = self.engine
+        if eng.pool is None:
+            raise RuntimeError("build_index first")
         nprobe = min(nprobe, self.n_clusters)
         k = min(k, nprobe * self.bucket, eng.pool_size)
-        q_tokens = eng.query_tokens(query_ids)
+        return eng._dispatch(("ivf", k, nprobe),
+                             lambda q: self._probe(q, k, nprobe),
+                             torch.as_tensor(query_ids))
+
+    def _probe(self, query, k: int, nprobe: int):
+        eng = self.engine
+        q_tokens = eng._tokens(query)
         proj = eng.project(q_tokens)
         d = self.centroids.shape[1]
         u = self._route(q_tokens, proj).to(torch.float32).sum(1)[:, :d]
         _, cl = topk(u @ self.centroids.T, nprobe)             # (Nq, P)
         valid = self.bucket_map >= 0
-        dead = self._dead()
-        out = [self._exact(proj, i, self.bucket_map[cl[i]].reshape(-1),
-                           valid[cl[i]].reshape(-1), dead, k)
-               for i in range(cl.shape[0])]
-        return (torch.stack([v for v, _ in out]),
-                torch.stack([ix for _, ix in out]))
+        return self._stack([
+            self._exact(proj, i, self.bucket_map[cl[i]].reshape(-1),
+                        valid[cl[i]].reshape(-1), k)
+            for i in range(cl.shape[0])])
 
     def query_coarse(self, query_ids, k: int = 10, *, shortlist: int = 1024,
                      approx_recall: float | None = 0.95):
@@ -299,9 +300,17 @@ class IVFIndex:
         shortlist here is always selected exactly, whatever its value."""
         del approx_recall
         eng = self.engine
+        if eng.pool is None:
+            raise RuntimeError("build_index first")
         shortlist = min(shortlist, eng.pool_size)
         k = min(k, shortlist)
-        q_tokens = eng.query_tokens(query_ids)
+        return eng._dispatch(("coarse", k, shortlist),
+                             lambda q: self._coarse(q, k, shortlist),
+                             torch.as_tensor(query_ids))
+
+    def _coarse(self, query, k: int, shortlist: int):
+        eng = self.engine
+        q_tokens = eng._tokens(query)
         proj = eng.project(q_tokens)
         qw = self._route(q_tokens, proj)
         if self.coarse_pool is not None:
@@ -310,15 +319,12 @@ class IVFIndex:
             d = self.coarse.shape[1]
             cs = qw.to(torch.float32).sum(1)[:, :d] \
                 @ self.coarse.to(torch.float32).T
-        dead = self._dead()
-        if dead is not None:
-            cs = cs.masked_fill(dead, -torch.inf)   # tombstones never shortlist
+        # tombstones never shortlist
+        cs = cs.masked_fill(eng.dead[:eng.pool_size], -torch.inf)
         _, sl = topk(cs, shortlist)                              # (Nq, S)
         ok = torch.ones(shortlist, dtype=torch.bool, device=eng.device)
-        out = [self._exact(proj, i, sl[i], ok, dead, k)
-               for i in range(sl.shape[0])]
-        return (torch.stack([v for v, _ in out]),
-                torch.stack([ix for _, ix in out]))
+        return self._stack([self._exact(proj, i, sl[i], ok, k)
+                            for i in range(sl.shape[0])])
 
 
 def ivf_recall(engine, query_ids, *, k: int = 10, nprobe: int = 8,

@@ -24,6 +24,19 @@ Ties: ``lax.top_k`` puts the lower index first, while ``torch.topk`` on
 CUDA promises no order.  ``topk`` below fixes the reference's rule, and
 the chunk merge keeps it: an earlier chunk's entries come first.
 
+``scan_chunks`` (default True): on the card ``query`` is one CUDA graph
+replay of the whole chunk scan with its running top-k merge, as the JAX
+package's ``lax.scan`` is one dispatch; ``query_rerank`` is one replay of
+shortlist, device gather, V4 forward and top-k; ``query_ivf`` and
+``IVFIndex.query_coarse`` are one replay each over the query batch
+(``utils/graphs.py``: a graph per path, shape and the ints it closes
+over, captured the first time it runs).  False: the same work as eager
+launches, chunk by chunk from the host, and ``query_rerank`` as two
+phases.  The graphs read the pool, the ids, the weights and the IVF index
+in place, so every call that rebinds or reshapes them (a build, an add, a
+removal, ``compact``, ``load_index``, ``build_ivf``, new ``params``)
+bumps ``version``, which drops them all.
+
 ``mesh``: the pool split along the candidate axis over every rank of a
 ``parallel.make_mesh`` mesh.  Rank s holds the contiguous global rows
 [s * P, (s + 1) * P), P = ceil((C + reserve) / ranks), the rows past the
@@ -37,6 +50,7 @@ the lower global index.  The candidate ids stay whole on every rank, so
 from __future__ import annotations
 
 import hashlib
+import logging
 import os
 
 import numpy as np
@@ -48,7 +62,10 @@ from ..ops import sim_cross_kernels as sk
 from ..ops.embed import embed_lookup
 from ..parallel.collectives import gather_exact
 from ..parallel.mesh import mesh_device
+from ..utils.graphs import GraphedCall, on_device
 from ..utils.tree import tree_map
+
+log = logging.getLogger("mms_tpu_torch.serve")
 
 POOL_DTYPES = ("bf16", "int8", "int4")
 INDEX_FORMAT = "mms_answer_selection_tpu_torch.index"
@@ -119,13 +136,17 @@ class QueryEngine:
     bf16, so serve it behind ``query_rerank``).
     chunk_size: candidates packed and scored per step; pools larger than
     this are scored chunk by chunk with an incremental top-k merge.
+    scan_chunks: each query path one CUDA graph replay on the card (True,
+    the JAX package's default), or eager launches from the host (False;
+    module docstring).
     device: where the pool lives and the kernels run (default "cuda", or
     this rank's device on a mesh).
     mesh: split the pool over every rank of this mesh (module docstring).
     """
 
     def __init__(self, params, cfg: MMSQAConfig, *, pool_dtype: str = "bf16",
-                 chunk_size: int = 131072, device=None, mesh=None):
+                 chunk_size: int = 131072, scan_chunks: bool = True,
+                 device=None, mesh=None):
         if cfg.sim_mode != 2:
             raise ValueError("query engine requires the learned bilinear "
                              "metric (sim_mode=2)")
@@ -141,7 +162,15 @@ class QueryEngine:
                                  "every rank; the mesh must span them all")
             device = mesh_device(mesh) if device is None else device
         self.device = resolve_device(device)
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.scan_chunks = bool(scan_chunks)
+        self.version = 0          # bumped by every change the graphs read
+        # over a mesh the scan's collectives are not captured: eager
+        self._calls = GraphedCall(self.device, captures=mesh is None,
+                                  name="engine")
+        if mesh is not None and self.device.type == "cuda":
+            log.info("mesh: queries run as eager launches (a collective "
+                     "inside the scan is not captured)")
+        self.params = params
         self.cfg = cfg
         self.pool_dtype = pool_dtype
         self.chunk_size = int(chunk_size)
@@ -151,7 +180,30 @@ class QueryEngine:
         self._offset = 0          # global index of this rank's row 0
         self.cand_token_ids = None  # (C, W2) on device; None for from-tokens
         self.deleted = torch.zeros(0, dtype=torch.int64)  # sorted, CPU
+        self.dead = None          # (rows,) bool on device: this rank's
+        #                           tombstones, read by the IVF paths
         self.ivf = None           # set by build_ivf
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, value):
+        self._params = tree_map(lambda t: t.to(self.device), value)
+        self._changed()
+
+    def _changed(self) -> None:
+        """A new version: every graph of the old one is dropped."""
+        self.version += 1
+        self._calls.drop()
+
+    def _mark_dead(self) -> None:
+        """``dead`` anew from ``deleted``, over this rank's rows."""
+        dead = torch.zeros(self.pool.shape[0], dtype=torch.bool)
+        local = self.deleted - self._offset
+        dead[local[(local >= 0) & (local < dead.numel())]] = True
+        self.dead = dead.to(self.device)
 
     # ------------------------------------------------------------------ build
     def build_index(self, candidate_ids, *, reserve: int = 0):
@@ -220,7 +272,9 @@ class QueryEngine:
         self._offset = off
         self.pool_size = c
         self.deleted = torch.zeros(0, dtype=torch.int64)
+        self._mark_dead()
         self.ivf = None
+        self._changed()
 
     def _pack(self, tokens):
         return _PATHS[self.pool_dtype][0](tokens)
@@ -248,7 +302,8 @@ class QueryEngine:
         equals a full rebuild), into the reserve when it has room, else
         into a grown pool (the old rows copied once; bulk adds beat
         row-at-a-time).  Any IVF index is dropped (it does not cover the
-        new rows).  Returns the new rows' indices (CPU int64)."""
+        new rows), and so are the graphs (the scan covers new rows).
+        Returns the new rows' indices (CPU int64)."""
         if self.pool is None:
             raise ValueError("build_index first")
         if self.mesh is not None:
@@ -279,7 +334,9 @@ class QueryEngine:
         self._write_rows(old, c, self._embedded(ids))
         self.cand_token_ids = ids
         self.pool_size = c
+        self._mark_dead()
         self.ivf = None
+        self._changed()
         return torch.arange(old, c)
 
     def remove_candidates(self, rows):
@@ -307,6 +364,8 @@ class QueryEngine:
         else:
             sk.mask_candidate_rows_int8(self.aux, r)
         self.deleted = torch.unique(torch.cat([self.deleted, rows]))
+        self._mark_dead()
+        self._changed()
         return self
 
     @property
@@ -341,7 +400,9 @@ class QueryEngine:
         self.cand_token_ids = self.cand_token_ids[keep]
         self.pool_size = keep.numel()
         self.deleted = torch.zeros(0, dtype=torch.int64)
+        self._mark_dead()
         self.ivf = None
+        self._changed()
         return mapping
 
     # ------------------------------------------------------------ persistence
@@ -460,10 +521,12 @@ class QueryEngine:
             self._offset = shard * self.pool.shape[0]
             self.chunk_size = int(z["chunk_size"])
             self.deleted = torch.from_numpy(z["deleted"]).to(torch.int64)
+            self._mark_dead()
             self.ivf = None
             if "ivf_meta" in z.files:
                 from .ivf import IVFIndex
                 self.ivf = IVFIndex.restore(self, get)
+        self._changed()
         return self
 
     # ------------------------------------------------------------------ query
@@ -472,7 +535,9 @@ class QueryEngine:
         (Nq, W1, D) token embeddings."""
         if self.pool is None:
             raise RuntimeError("build_index first")
-        query = torch.as_tensor(query, device=self.device)
+        return self._tokens(torch.as_tensor(query, device=self.device))
+
+    def _tokens(self, query):
         return (query.to(torch.float32) if query.ndim == 3
                 else embed_lookup(self.params["embed"], query))
 
@@ -486,6 +551,15 @@ class QueryEngine:
         rows of this engine's dtype (a slice or a gather of its pool)."""
         return _PATHS[self.pool_dtype][2](proj, pool, aux)
 
+    def _dispatch(self, key: tuple, body, *args):
+        """``body(*args)`` on the device: with ``scan_chunks`` one graph
+        replay (eager on the CPU and over a mesh), else eager launches.
+        ``key``: the path and the ints ``body`` closes over."""
+        if not self.scan_chunks:
+            return body(*on_device(args, self.device))
+        return self._calls(key + (self.chunk_size, self.pool_size), body,
+                           *args)
+
     def query(self, query_ids, k: int = 10):
         """Top-k candidates under the learned metric: (scores (Nq, k'),
         indices (Nq, k')) with k' = min(k, n_live, chunk_size), so a pool
@@ -494,9 +568,17 @@ class QueryEngine:
         chunk; each chunk's top-k merges into the running one, earlier
         chunk first among equal scores (the lower index, as unchunked).
         On a mesh every rank scores its rows so, and the ranks' top-k
-        merge in rank order; every rank returns the merged top-k."""
-        proj = self.project(self.query_tokens(query_ids))
+        merge in rank order; every rank returns the merged top-k.  One
+        graph replay with ``scan_chunks`` (module docstring)."""
+        if self.pool is None:
+            raise RuntimeError("build_index first")
         k = min(k, self.n_live, self.chunk_size)
+        return self._dispatch(("query", k), lambda q: self._scan(q, k),
+                              torch.as_tensor(query_ids))
+
+    def _scan(self, query, k: int):
+        """The chunk scan of ``query`` (on the device) for ``k``."""
+        proj = self.project(self._tokens(query))
         rows = self.pool_size if self.mesh is None else self.pool.shape[0]
         vals = idx = None
         for a in range(0, rows, self.chunk_size):
@@ -527,6 +609,7 @@ class QueryEngine:
         self.ivf = IVFIndex(self, n_clusters=n_clusters, bucket=bucket,
                             kmeans_iters=kmeans_iters, seed=seed,
                             coarse_tokens=coarse_tokens)
+        self._changed()
         return self.ivf
 
     def query_ivf(self, query_ids, k: int = 10, *, nprobe: int = 8):
@@ -546,7 +629,8 @@ class QueryEngine:
         candidate indices (Nq, k')).  shortlist is clamped to the live
         rows (beyond them a shortlist would reach tombstones) and to
         ``chunk_size``, and k to the shortlist.  Needs ``build_index``
-        (ids kept)."""
+        (ids kept).  With ``scan_chunks`` the four steps are one graph
+        replay; ``state`` is copied into its buffers each call."""
         if self.cand_token_ids is None:
             raise ValueError(
                 "query_rerank needs build_index(candidate_ids); a "
@@ -555,29 +639,43 @@ class QueryEngine:
             raise ValueError("no live candidates to rerank")
         shortlist = min(shortlist, self.n_live, self.chunk_size)
         k = min(k, shortlist)
-        query_ids = torch.as_tensor(query_ids, device=self.device)
-        _, idx = self.query(query_ids, k=shortlist)            # (Nq, S)
+        q = torch.as_tensor(query_ids)
+        of = None if overlap_feat is None else torch.as_tensor(overlap_feat)
+        if not self.scan_chunks:   # two phases: the shortlist, then rescore
+            q, state, of = on_device((q, state, of), self.device)
+            _, idx = self.query(q, k=shortlist)
+            return self._rescore(state, q, idx, of, k)
+        return self._dispatch(
+            ("rerank", k, shortlist),
+            lambda q, st, of: self._rescore(st, q, self._scan(q, shortlist)[1],
+                                            of, k), q, state, of)
+
+    def _rescore(self, state, q, idx, of, k: int):
+        """Top-k of the shortlist ``idx`` (Nq, S) by P(correct), the
+        candidates gathered on the device."""
         nq, s = idx.shape
         cand = self.cand_token_ids[idx.reshape(-1)]            # (Nq*S, W2)
-        of = (None if overlap_feat is None else torch.repeat_interleave(
-            torch.as_tensor(overlap_feat, device=self.device), s, dim=0))
-        probs = self.score_pairs(state, torch.repeat_interleave(
-            query_ids, s, dim=0), cand, overlap_feat=of).reshape(nq, s)
-        vals, order = topk(probs, k)
+
+        def rows(t):          # each query's row repeated S times
+            return t[:, None].expand(nq, s, *t.shape[1:]).reshape(
+                nq * s, *t.shape[1:])
+
+        probs = self._score_pairs(state, rows(q), cand,
+                                  None if of is None else rows(of))
+        vals, order = topk(probs.reshape(nq, s), k)
         return vals, torch.gather(idx, 1, order)
 
     def score_pairs(self, state, query_ids, candidate_ids, overlap_feat=None):
         """P(correct) of the full interaction model for explicit (query,
         candidate) pairs; zero overlap features when none are given."""
-        q = torch.as_tensor(query_ids, device=self.device)
+        return self._score_pairs(*on_device(
+            (state, query_ids, candidate_ids, overlap_feat), self.device))
+
+    def _score_pairs(self, state, q, a, overlap_feat):
         if overlap_feat is None:
             overlap_feat = torch.zeros((q.shape[0], self.cfg.overlap_features),
                                        dtype=torch.float32, device=self.device)
-        batch = {"question": q,
-                 "answer": torch.as_tensor(candidate_ids, device=self.device),
-                 "overlap_feat": torch.as_tensor(overlap_feat,
-                                                 device=self.device)}
-        state = tree_map(lambda t: t.to(self.device), state)
+        batch = {"question": q, "answer": a, "overlap_feat": overlap_feat}
         out, _ = mms_qa_apply(self.params, state, batch, self.cfg,
                               train=False)
         return out["prob"][:, 1]

@@ -40,9 +40,14 @@ host (``.cpu().numpy()``) inside it: requests arrive on the server's
 threads, the engine's tensors live on one device, and no CUDA tensor ever
 reaches ``json``.  With ``batch_window_ms > 0`` concurrent requests that
 share (k, rerank, shortlist) coalesce into one device call
-(``_MicroBatcher``).  The JAX package also pads each call's rows to a
-power of two to bound its jit compiles; eager PyTorch compiles nothing,
-so rows go to the engine as they come.
+(``_MicroBatcher``).  With ``pad_buckets`` (the default, as in the JAX
+package) each call's rows are padded with ``pad_idx`` queries up to the
+next power of two, at most ``max_batch``, and the filler's results sliced
+off: every query row is scored on its own, so the padding changes no
+real row's result, and the engine captures one CUDA graph per bucket and
+(k, rerank, shortlist) -- at most log2(max_batch) + 1 of them -- where
+without it every distinct batch size is a graph of its own (the JAX
+package bounds its jit compiles so).
 """
 
 from __future__ import annotations
@@ -194,12 +199,16 @@ class QAServer:
     vocab_words: index-ordered word array (vocab.npz["words"]) enabling
         "text" queries; unknown_idx/pad_idx follow build_vocab's layout
         (n and n+1, data/trec_qa.py).
+    pad_buckets: pad each device call's rows to a power of two (module
+        docstring): at most log2(max_batch) + 1 graphs per (k, rerank,
+        shortlist); without it a graph per distinct batch size.
     """
 
     def __init__(self, engine, *, state=None, vocab_words=None,
                  q_len: int | None = None, host: str = "127.0.0.1",
                  port: int = 0, default_k: int = 10,
-                 max_batch: int = 1024, batch_window_ms: float = 0.0):
+                 max_batch: int = 1024, batch_window_ms: float = 0.0,
+                 pad_buckets: bool = True):
         if engine.pool_size == 0:
             raise ValueError("engine has no index; call build_index first")
         self.engine = engine
@@ -207,6 +216,7 @@ class QAServer:
         self.q_len = q_len or engine.cfg.question_len
         self.default_k = default_k
         self.max_batch = max_batch
+        self.pad_buckets = pad_buckets
         self.stats = _Stats()
         self._device_lock = threading.Lock()
         self.batch_window_ms = float(batch_window_ms)
@@ -488,8 +498,15 @@ class QAServer:
 
     def _dispatch_group(self, key, q) -> tuple:
         """One device call for ``q`` under dispatch key ``(k, rerank,
-        shortlist)``; the results come back to the host under the lock."""
+        shortlist)``, its rows padded to their bucket (``pad_buckets``);
+        the results come back to the host under the lock."""
         k, rerank, shortlist = key
+        n = n_pad = len(q)
+        if self.pad_buckets and n < self.max_batch:
+            n_pad = min(1 << (n - 1).bit_length(), self.max_batch)
+        if n_pad > n:
+            q = np.concatenate([q, np.full((n_pad - n, q.shape[1]),
+                                           self.pad_idx, q.dtype)])
         with self._device_lock:
             if rerank:
                 vals, idx = self.engine.query_rerank(
@@ -501,8 +518,8 @@ class QAServer:
                 vals, idx = self.engine.query(q, k=k)
             vals = vals.cpu().numpy()  # the host fetch fences the device work
             idx = idx.cpu().numpy()
-        self.stats.record_dispatch(len(q))
-        return vals, idx
+        self.stats.record_dispatch(n_pad)
+        return vals[:n], idx[:n]
 
 
 class _BadRequest(ValueError):

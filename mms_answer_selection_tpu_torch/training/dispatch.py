@@ -41,35 +41,15 @@ from __future__ import annotations
 import gc
 import logging
 import time
-import traceback
 import weakref
-from typing import Callable
 
 import torch
 
 from ..ops import sim_cross_kernels as sk
+from ..utils.graphs import _origin, add_tally, record_tally
 from ..utils.tree import tree_map
 
 log = logging.getLogger("mms_tpu_torch.dispatch")
-
-
-def record_tally(counts: dict, body: Callable[[], None]) -> dict:
-    """Run ``body`` (a capture) and take back the launches it counted in
-    ``counts``; returns them (the graph's tally), name -> launches."""
-    before = dict(counts)
-    try:
-        body()
-    finally:
-        tally = {k: counts[k] - before[k] for k in counts
-                 if counts[k] != before[k]}
-        counts.update(before)
-    return tally
-
-
-def add_tally(counts: dict, tally: dict) -> None:
-    """Count one replay of a graph whose tally is ``tally``."""
-    for k, v in tally.items():
-        counts[k] += v
 
 
 def _copy_tree(dst, src) -> None:
@@ -94,18 +74,6 @@ def _same_leaves(a, b) -> bool:
 def _named(carry) -> dict:
     params, state, opt_state = carry
     return {"params": params, "state": state, "opt_state": opt_state}
-
-
-def _origin(exc: BaseException) -> str:
-    """The line of the step code where a failed capture started: the
-    innermost frame of the first exception in the chain."""
-    while exc.__context__ is not None:
-        exc = exc.__context__
-    frames = traceback.extract_tb(exc.__traceback__)
-    if not frames:
-        return repr(exc)
-    f = frames[-1]
-    return f"{f.filename}:{f.lineno} ({f.line}): {exc}"
 
 
 class _Chunk:

@@ -26,6 +26,11 @@ and of the QA script (do_trec_qa_clean.py:782-845):
   card one replay of a CUDA graph captured around the chunk's steps
   (``training/dispatch.py``, the counterpart of the JAX package's fused
   ``lax.scan``), on the CPU the same steps run eagerly.
+* the eval step (forward and metrics of one split) as one CUDA graph
+  replay on the card (``utils/graphs.py``, the counterpart of the JAX
+  package's ``jax.jit(eval_step)``): a graph per split shape, reading the
+  chunk runner's carry in place inside the loop and copies made on entry
+  in ``evaluate``; the host reads the metrics after the replay.
 
 Randomness: dropout draws from a ``torch.Generator`` on the training device
 seeded from (seed, step[, micro-batch]); the shuffle of a pass from a CPU
@@ -66,9 +71,10 @@ from ..metrics import (
 from ..models.mms_qa import MMSQAConfig, mms_qa_apply, mms_qa_init, param_spec
 from ..parallel.mesh import mesh_device, shard_context
 from ..parallel.train_step import local_batch, loss_and_grads, reduce_grads
+from ..utils.graphs import GraphedCall
 from ..utils.seed import derive_seed
 from ..utils.tree import tree_map
-from .dispatch import ChunkRunner
+from .dispatch import ChunkRunner, _copy_tree, _same_leaves
 from .checkpoint import (
     latest_checkpoint,
     load_checkpoint,
@@ -197,6 +203,10 @@ class Trainer:
         self.solver = None  # built in init() when the spec exists
         # the chunk runner of the last carry trained (static carry, graphs)
         self.runner: ChunkRunner | None = None
+        # the eval step's graphs (eager over a mesh and on the CPU)
+        self.evals = GraphedCall(self.device, captures=mesh is None,
+                                 name="eval step")
+        self._eval_carry = None   # evaluate's static copies
 
     # ------------------------------------------------------------------ init
     def init(self, *, pretrained=None):
@@ -258,8 +268,17 @@ class Trainer:
         params, opt_state = self.solver.apply(params, grads, opt_state, step)
         return params, state, opt_state, loss
 
-    @torch.no_grad()
     def _eval_step(self, params, state, batch):
+        """Forward and metrics of one full split: on the card one replay of
+        the graph of this batch's shapes, reading ``params`` and ``state``
+        in place (their addresses join the key: the runner's static carry,
+        or ``evaluate``'s copies) and ``batch`` from its static copy.
+        Returns fresh tensors."""
+        return self.evals(("eval",), lambda b: self._eval_body(
+            params, state, b), batch, fixed=(params, state))
+
+    @torch.no_grad()
+    def _eval_body(self, params, state, batch):
         out, _ = self.apply_fn(params, state, batch, self.model_cfg,
                                train=False)
         scores = out["prob"][:, 1]
@@ -299,6 +318,7 @@ class Trainer:
             self.runner.load(carry)
         else:
             self.runner = ChunkRunner(self, carry)
+            self.evals.drop()   # graphs keyed on the old carry's addresses
         return self.runner
 
     @staticmethod
@@ -737,6 +757,18 @@ class Trainer:
     # ------------------------------------------------------------- inference
     def evaluate(self, params, state, data: dict):
         """Full-split eval (the `caffe test` path): one batch, on-device
-        metrics, probabilities and metrics back to the host as numpy."""
-        out = self._eval_step(params, state, self._full_batch(data))
+        metrics, probabilities and metrics back to the host as numpy.
+        ``params`` and ``state`` are copied into the trainer's static
+        buffers first (one eval graph per split shape)."""
+        carry = tree_map(lambda t: torch.as_tensor(t).to(self.device),
+                         {"params": params, "state": state})
+        if self._eval_carry is None \
+                or not _same_leaves(self._eval_carry, carry):
+            self._eval_carry = tree_map(torch.clone, carry)
+            self.evals.drop()   # graphs keyed on the old copies' addresses
+        else:
+            _copy_tree(self._eval_carry, carry)
+        out = self._eval_step(self._eval_carry["params"],
+                              self._eval_carry["state"],
+                              self._full_batch(data))
         return {k: v.cpu().numpy() for k, v in out.items() if v is not None}

@@ -1404,3 +1404,209 @@ def test_caption_model_chunk_captures_and_matches_eager():
             else:
                 assert diff <= 1e-4 * max(float(w.abs().max()), 1e-30), \
                     (name, k, diff)
+
+
+# ------------------------------------------------- one-dispatch serving
+# (utils/graphs.py): query's chunk scan, query_rerank, query_ivf,
+# query_coarse and the eval step, each one CUDA graph replay; the same
+# kernels as the eager calls, so the same bits
+def _engine_pair(pool_dtype, chunk=700, **build):
+    dev = _cuda()
+    cfg, params, state, cand, g = _v4_engine_inputs()
+    queries = torch.randint(0, 500, (6, 40), generator=g)
+    graphed, eager = (QueryEngine(params, cfg, pool_dtype=pool_dtype,
+                                  chunk_size=chunk, scan_chunks=scan,
+                                  device=dev).build_index(cand, **build)
+                      for scan in (True, False))
+    return graphed, eager, state, queries, cand
+
+
+def _paths(eng, state, q):
+    out = {"query": eng.query(q, k=10), "query 1": eng.query(q[:1], k=10),
+           "rerank": eng.query_rerank(state, q, k=5, shortlist=20)}
+    if eng.ivf is not None:
+        out["ivf"] = eng.query_ivf(q, k=10, nprobe=4)
+        out["coarse"] = eng.ivf.query_coarse(q, k=10, shortlist=256)
+    return out
+
+
+def _assert_same_paths(got, want):
+    assert got.keys() == want.keys()
+    for name in want:
+        for a, b in zip(got[name], want[name], strict=True):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8", "int4"])
+def test_served_paths_replay_the_eager_calls_bit_for_bit(pool_dtype):
+    graphed, eager, state, q, _ = _engine_pair(pool_dtype)
+    if pool_dtype != "int4":
+        for eng in (graphed, eager):
+            eng.build_ivf(n_clusters=16, seed=0, coarse_tokens=4)
+    want = _paths(eager, state, q)
+    for _ in range(2):                        # the capture, then a replay
+        _assert_same_paths(_paths(graphed, state, q), want)
+    assert graphed._calls.captures and not eager._calls.keys()
+    assert all(s["replays"] == 2 for s in graphed._calls.stats())
+
+
+def test_keys_replayed_out_of_capture_order_equal_eager():
+    graphed, eager, state, q, _ = _engine_pair("int8")
+    for eng in (graphed, eager):
+        eng.build_ivf(n_clusters=16, seed=0, coarse_tokens=4)
+    calls = [("q6", lambda e: e.query(q, k=10)),
+             ("q1", lambda e: e.query(q[:1], k=10)),
+             ("k3", lambda e: e.query(q[:3], k=3)),
+             ("rr", lambda e: e.query_rerank(state, q[:2], k=4,
+                                             shortlist=12)),
+             ("ivf", lambda e: e.query_ivf(q[:2], k=10, nprobe=4)),
+             ("coarse", lambda e: e.ivf.query_coarse(q[:2], k=10,
+                                                     shortlist=256))]
+    want = {n: fn(eager) for n, fn in calls}
+    for n, fn in calls:                        # captured in this order
+        fn(graphed)
+    for i in (5, 3, 1, 4, 0, 2, 1, 5):
+        n, fn = calls[i]
+        assert all(torch.equal(a, b) for a, b in zip(fn(graphed), want[n])), n
+
+
+def test_query_launches_are_replays_times_the_tally():
+    graphed, _, state, q, _ = _engine_pair("bf16")
+    graphed.build_ivf(n_clusters=16, seed=0, coarse_tokens=4)
+    paths = [lambda: graphed.query(q, k=10),
+             lambda: graphed.query_rerank(state, q, k=5, shortlist=20),
+             lambda: graphed.query_ivf(q, k=10, nprobe=4),
+             lambda: graphed.ivf.query_coarse(q, k=10, shortlist=256)]
+    for path in paths:                         # captures
+        path()
+    tallies = {s["key"][0]: s["tally"] for s in graphed._calls.stats()}
+    assert tallies == {"query": {"maxsim_bf16": 5},   # 3,000 in 700s
+                       "rerank": {"maxsim_bf16": 5, "pair_maps_fwd": 1},
+                       "ivf": {"maxsim_bf16": 6},     # one a query
+                       "coarse": {"maxsim_bf16": 7}}  # + the mini pool
+    before = dict(T.LAUNCH_COUNTS)
+    for _ in range(3):
+        for path in paths:
+            path()
+    assert {k: T.LAUNCH_COUNTS[k] - before[k] for k in before} == {
+        k: 3 * sum(t.get(k, 0) for t in tallies.values()) for k in before}
+
+
+def test_a_host_copy_in_a_captured_query_raises_naming_the_line():
+    graphed, eager, _, q, _ = _engine_pair("int8")
+    tokens = graphed._tokens
+
+    def copying(query):
+        shift = torch.tensor([0.0], device=query.device)   # host -> device
+        return tokens(query) + shift
+
+    graphed._tokens = copying
+    for _ in range(2):                         # nothing is cached
+        with pytest.raises(RuntimeError, match=r"capturing engine "
+                           r"(.|\n)*torch\.tensor\(\[0\.0\]"):
+            graphed.query(q, k=10)
+    assert graphed._calls.keys() == []
+    graphed._tokens = tokens
+    assert all(torch.equal(a, b) for a, b in zip(graphed.query(q, k=10),
+                                                 eager.query(q, k=10)))
+
+
+def test_a_host_copy_in_a_captured_eval_raises_naming_the_line():
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch.models.mms_qa import mms_qa_apply
+
+    def copying(params, state, batch, cfg, **kw):
+        out, state = mms_qa_apply(params, state, batch, cfg, **kw)
+        shift = torch.tensor([0.0], device=out["prob"].device)   # a copy
+        return {**out, "prob": out["prob"] + shift}, state
+
+    dev = _cuda()
+    tr = _graph_trainer(dev)
+    p, s, _ = tr.init()
+    tr.apply_fn = copying
+    rng = np.random.default_rng(2)
+    batch = tr._full_batch({
+        "question": rng.integers(0, 500, (40, 40)).astype(np.int32),
+        "answer": rng.integers(0, 500, (40, 40)).astype(np.int32),
+        "overlap_feat": rng.random((40, 2)).astype(np.float32),
+        "label": (rng.random(40) < 0.3).astype(np.int32),
+        "group": np.repeat(np.arange(4), 10)})
+    with pytest.raises(RuntimeError, match=r"capturing eval step "
+                       r"(.|\n)*torch\.tensor\(\[0\.0\]"):
+        tr._eval_step(p, s, batch)
+    assert tr.evals.keys() == []
+    tr.apply_fn = mms_qa_apply
+    assert torch.isfinite(tr._eval_step(p, s, batch)["map"])
+
+
+def test_graphs_follow_the_lifecycle_and_tombstones_never_surface():
+    graphed, eager, state, q, cand = _engine_pair("int8", reserve=50)
+    dead = sorted(set(eager.query(q, k=3)[1].flatten().tolist()) | {0, 7})
+    steps = [("add past the reserve", lambda e: e.add_candidates(
+                  cand[:80].to(e.device))),
+             ("remove", lambda e: e.remove_candidates(dead)),
+             ("compact", lambda e: e.compact())]
+    for what, op in steps:
+        for eng in (graphed, eager):
+            op(eng)
+        got, want = _paths(graphed, state, q), _paths(eager, state, q)
+        _assert_same_paths(got, want)
+        if what == "remove":
+            assert not set(got["query"][1].flatten().tolist()) & set(dead)
+            assert not set(got["rerank"][1].flatten().tolist()) & set(dead)
+
+
+def test_server_buckets_bound_the_graphs_and_keep_the_replies():
+    from mms_answer_selection_tpu_torch.serve import QAServer
+
+    graphed, eager, state, _, _ = _engine_pair("int8")
+    g = torch.Generator().manual_seed(9)
+    rows = torch.randint(0, 500, (33, 40), generator=g)
+    for pad, graphs in ((True, 7), (False, 33)):
+        graphed._calls.drop()
+        srv = QAServer(graphed, state=state, pad_buckets=pad)
+        try:
+            for n in range(1, 34):
+                vals, idx = srv._dispatch_group((10, 0, 0), rows[:n].numpy())
+                want = eager.query(rows[:n], k=10)
+                assert (vals == want[0].cpu().numpy()).all() \
+                    and (idx == want[1].cpu().numpy()).all(), (pad, n)
+        finally:
+            srv.close()
+        assert len(graphed._calls.keys()) == graphs, pad
+
+
+def test_eval_step_replays_bit_for_bit_and_fit_evals_are_replays():
+    import numpy as np
+
+    dev = _cuda()
+    tr = _graph_trainer(dev)
+    p, s, _ = tr.init()
+    rng = np.random.default_rng(8)
+
+    def split(n):
+        return {"question": rng.integers(0, 500, (n, 40)).astype(np.int32),
+                "answer": rng.integers(0, 500, (n, 40)).astype(np.int32),
+                "overlap_feat": rng.random((n, 2)).astype(np.float32),
+                "label": (rng.random(n) < 0.3).astype(np.int32),
+                "group": np.repeat(np.arange(n // 10 + 1), 10)[:n]}
+
+    for n in (120, 2100):                      # pairwise, sorted metrics
+        batch = tr._full_batch(split(n))
+        want = tr._eval_body(p, s, batch)
+        for _ in range(2):
+            got = tr._eval_step(p, s, batch)
+            for k in ("prob", "mrr", "auc", "loss"):
+                assert (got[k] is want[k] is None) \
+                    or torch.equal(got[k], want[k]), (n, k)
+            # the sorted MAP sums each group's precisions with index_add_,
+            # whose float atomics land in any order: held to 1e-6
+            assert abs(float(got["map"]) - float(want["map"])) <= (
+                0.0 if n <= 2048 else 1e-6), n
+    assert tr.evals.replays == 4 and len(tr.evals.keys()) == 2
+    tr = _graph_trainer(dev)
+    tr.cfg = dataclasses.replace(tr.cfg, max_iter=16)
+    tr.fit(split(300), split(60), test_data=split(70), steps_per_dispatch=4)
+    # evals at steps 0, 5, 10, 15 on dev and test: two keys, 8 replays
+    assert tr.evals.replays == 8 and len(tr.evals.keys()) == 2

@@ -209,3 +209,26 @@ def test_int8_error_analysis_card_artifact_keys():
     for key in ("per_pair_error", "pool_262144", "pool_1048576",
                 "guidance"):
         assert set(got[key]) == set(want[key]), key
+
+
+def test_full_budget_eval_graphs_card_artifact():
+    """The recipe's 40,001 steps with its chunks and its evals as CUDA
+    graph replays (``docs/runs_torch/recipe_full_budget_eval_graphs/
+    README.md``): two replays an eval (dev and test) of two graphs, every
+    planned chunk a replay, the curve the summary's, and truth / result
+    scoring to its trec_eval fields."""
+    from mms_answer_selection_tpu_torch.metrics import trec_eval
+
+    d = RUNS / "recipe_full_budget_eval_graphs"
+    s = json.loads((d / "summary.json").read_text())
+    h = json.loads((d / "history.json").read_text())
+    assert s["max_iter"] == 40001 and s["backend"] == "cuda"
+    assert s["dispatch"]["graph_replays"] == 801
+    assert s["eval_dispatch"]["graph_replays"] == 2 * len(h["steps"]) == 802
+    assert len(s["eval_dispatch"]["captures"]) == 2
+    assert s["best_dev_map"] > s["chance_dev_map_step0"] + 0.25
+    assert max(h["dev_map"]) == s["best_dev_map"]
+    assert h["steps"][int(np.argmax(h["dev_map"]))] == s["best_step"]
+    ev = trec_eval(str(d / "truth"), str(d / "result"))
+    assert abs(ev["map"] - s["test_map"]) < 1e-9
+    assert abs(ev["recip_rank"] - s["test_mrr"]) < 1e-9

@@ -28,6 +28,7 @@ import mms_answer_selection_tpu_torch.training
 import mms_answer_selection_tpu_torch.training.trainer
 import mms_answer_selection_tpu_torch.training.checkpoint
 import mms_answer_selection_tpu_torch.training.dispatch
+import mms_answer_selection_tpu_torch.utils.graphs
 import mms_answer_selection_tpu_torch.utils.config
 import mms_answer_selection_tpu_torch.utils.msgpack_codec
 import mms_answer_selection_tpu_torch.data.loader

@@ -2,7 +2,10 @@
 defaults and compute what it computes: one case per row of the table of
 narrower signatures that ROADMAP.md's Queue 3 logged, on the same seeded
 numpy inputs.  Tolerance: shapes exactly, values rtol 1e-5 (atol 1e-6):
-float32 sums in another order."""
+float32 sums in another order.  ``QueryEngine(scan_chunks=)`` and
+``QAServer(pad_buckets=)``: top-k as ``test_torch_engine_scale.py`` holds
+it (scores within 1e-5 of the row's max, indices where the scores are
+further apart), the servers' replies and padded row counts equal."""
 
 import inspect
 
@@ -13,9 +16,13 @@ import torch
 
 from mms_answer_selection_tpu import ops as jops
 from mms_answer_selection_tpu.ops import batch_norm as j_bn
+from mms_answer_selection_tpu.serve import QAServer as JServer
+from mms_answer_selection_tpu.serve import QueryEngine as JEngine
 from mms_answer_selection_tpu.utils import caffemodel as JCM
 from mms_answer_selection_tpu_torch import ops as tops
+from mms_answer_selection_tpu_torch.convert import params_from_numpy
 from mms_answer_selection_tpu_torch.ops import batch_norm as t_bn
+from mms_answer_selection_tpu_torch.serve import QAServer, QueryEngine
 from mms_answer_selection_tpu_torch.utils import caffemodel as TCM
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -184,3 +191,60 @@ def test_keywords_cover_the_reference(name):
     assert set(jkw) <= set(tkw)
     for k, v in jkw.items():
         assert tkw[k] == v, k
+
+
+# -- QueryEngine(scan_chunks=True), QAServer(pad_buckets=True) -----------------
+
+@pytest.mark.parametrize("cls,jcls,name", [
+    (QueryEngine, JEngine, "scan_chunks"), (QAServer, JServer, "pad_buckets")])
+def test_dispatch_keywords_and_defaults_are_jax(cls, jcls, name):
+    tp = inspect.signature(cls.__init__).parameters[name]
+    jp = inspect.signature(jcls.__init__).parameters[name]
+    assert tp.default is jp.default is True
+    assert tp.kind == jp.kind == inspect.Parameter.KEYWORD_ONLY
+
+
+def _serving_pair(scan=True):
+    from tests.test_torch_engine_scale import (
+        CAND_IDS, CHUNK, JCFG, STATE_NP, PARAMS_NP, TCFG)
+    import jax.numpy as jnp
+
+    jeng = JEngine(PARAMS_NP, JCFG, pool_dtype=jnp.bfloat16, interpret=True,
+                   chunk_size=CHUNK, scan_chunks=scan).build_index(CAND_IDS)
+    params, state = params_from_numpy(PARAMS_NP, STATE_NP, "cpu")
+    teng = QueryEngine(params, TCFG, chunk_size=CHUNK, scan_chunks=scan,
+                       device="cpu").build_index(CAND_IDS)
+    return jeng, teng, state
+
+
+@pytest.mark.parametrize("scan", [True, False])
+def test_query_engine_scan_chunks_matches_jax(scan):
+    from tests.test_torch_engine_scale import QUERY_IDS, _assert_topk_agrees
+
+    jeng, teng, _ = _serving_pair(scan)
+    _assert_topk_agrees(*teng.query(QUERY_IDS, k=10),
+                        *jeng.query(QUERY_IDS, k=10))
+    assert len(teng._calls.keys()) == int(scan)   # a graph key, or eager
+
+
+@pytest.mark.parametrize("pad", [True, False])
+def test_qaserver_pad_buckets_matches_jax(pad):
+    from tests.test_torch_engine_scale import QUERY_IDS, STATE_NP
+
+    jeng, teng, state = _serving_pair()
+    jsrv = JServer(jeng, state=STATE_NP, pad_buckets=pad)
+    tsrv = QAServer(teng, state=state, pad_buckets=pad)
+    try:
+        for req in ({"tokens": QUERY_IDS[:3].tolist(), "k": 5},
+                    {"tokens": QUERY_IDS[:3].tolist(), "k": 2, "rerank": 8}):
+            t, j = tsrv.handle_query(req), jsrv.handle_query(req)
+            assert [[i for i, _ in r["topk"]] for r in t["results"]] == \
+                [[i for i, _ in r["topk"]] for r in j["results"]]
+            np.testing.assert_allclose(
+                [[v for _, v in r["topk"]] for r in t["results"]],
+                [[v for _, v in r["topk"]] for r in j["results"]], **TOL)
+        assert tsrv.stats.snapshot()["device_dispatch_rows"] == \
+            jsrv.stats.snapshot()["device_dispatch_rows"] == (8 if pad else 6)
+    finally:
+        tsrv.close()
+        jsrv.close()
