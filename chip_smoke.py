@@ -79,7 +79,15 @@ at the V4 recipe's widths, after building the hand-written kernels from
   uninterrupted one (xavier W), ``nettest`` on the last ``.caffemodel``
   against the solver's last MAP and ``train --weights`` of it into the
   typed ``Trainer``; the generic step's p50 at batch 50 and 1024 in turns
-  with the typed one, a snapshot's and ``nettest``'s times;
+  with the typed one, a snapshot's and ``nettest``'s times; since PR 15
+  every solver iteration, test batch, ``nettest`` and ``extract_features``
+  iteration one CUDA graph replay: a replayed step against the eager
+  ``_train_step`` bit for bit (batch 50 at iter_size 1 and 2, 1,024;
+  dropout on; deterministic algorithms), the test pass, ``nettest``'s
+  and ``extract_features``' iterations against their eager calls bit for
+  bit, eager against replayed steps in turns at batch 50 and 1,024 with
+  the profiler's read of each, capture s, graph-pool MiB and launches a
+  replay;
 * the pycaffe path, the reference QA script's own flow (``pycaffe_phase``,
   through ``caffe_compat``): the V4 recipe's train and test nets written
   with ``caffe.NetSpec`` (they parse as ``net_prototxt_from_config``'s, and
@@ -97,7 +105,10 @@ at the V4 recipe's widths, after building the hand-written kernels from
   ``detect``, ``draw``, ``upgrade --binary`` and ``convert`` against
   their in-process counterparts; the pycaffe step's p50 at batch 50 and
   1024 in turns with GraphSolver's, the Data feeds' and ``classify``'s
-  images/s;
+  images/s; since PR 15 the pycaffe step (a replay) against the eager
+  step and GraphSolver's replay in turns, and ``solver.net.forward()``,
+  ``solver.test_nets[0].forward()`` and ``caffe.Net.forward`` replays
+  against their eager calls bit for bit, each timed;
 * V4_WIDE (D = 300) and long sentences: each MaxSim kernel against its
   plain version at D = 300 (rows past 256 bytes, the K-sliced plan) and
   at R = 800 query rows (W1 = 200, D = 50 and 300), a 262,144-candidate
@@ -170,6 +181,7 @@ included, peaking near 28 GiB of device memory.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -258,6 +270,10 @@ CLI_TRAIN_KERNELS = ("pair_maps_fwd", "pair_maps_bwd_w", "pair_maps_bwd_qa")
 # step timed at GRAPH_TIMED batches
 GRAPH_STEPS, GRAPH_EVERY, GRAPH_RESUME_AT, GRAPH_WARM_STEPS = 300, 100, 200, 5
 GRAPH_TIMED = (BATCH, 1024)
+# replayed GraphSolver steps held to eager ones, bit for bit: (batch,
+# iter_size) cells, GRAPH_CHECK_STEPS steps each
+GRAPH_CHECK = ((BATCH, 1), (BATCH, 2), (1024, 1))
+GRAPH_CHECK_STEPS = 3
 # the pycaffe path (caffe_compat: NetSpec nets, get_solver, caffe.Net): a
 # PYCAFFE_STEPS-step solve in solver.step(PYCAFFE_EVERY) calls, the step
 # timed at PYCAFFE_TIMED batches; the databases: DB_IMAGES synthetic
@@ -1015,12 +1031,13 @@ def graphed_vs_eager(label: str, calls, graphed, eager, reps: int,
     owner's ``GraphedCall``).  Fails unless a replay is one
     ``cudaGraphLaunch``.  Returns (eager result, a dict of the numbers)."""
     want = eager()
-    known = set(calls.keys())
+    known = {k for k, s in zip(calls.keys(), calls.stats()) if s["replays"]}
     for turn in ("capture", "replay"):
         if not same_tensors(graphed(), want):
             raise AssertionError(f"{label}: the graph's {turn} differs from "
                                  f"the eager call")
-    new = [s for k, s in zip(calls.keys(), calls.stats()) if k not in known]
+    new = [s for k, s in zip(calls.keys(), calls.stats())
+           if s["replays"] and k not in known]
     if len(new) != 1:
         raise AssertionError(f"{label}: {len(new)} graphs captured, not 1")
     (st,) = new
@@ -1052,6 +1069,46 @@ def graphed_vs_eager(label: str, calls, graphed, eager, reps: int,
         f"; capture {st['capture_s']:.3f} s, graph pool +"
         f"{st['pool_bytes'] / 2**20:.1f} MiB [{card}]")
     return want, out
+
+
+def capture_off(calls, call):
+    """``call`` with ``calls`` (a ``GraphedCall``) not capturing: the same
+    body run eagerly on the same static buffers."""
+    def eager():
+        calls.captures = False
+        try:
+            return call()
+        finally:
+            calls.captures = True
+    return eager
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic kernels: the embedding gradient's scatter then
+    sums in one order, so two runs of a step agree bit for bit (by default
+    two eager steps part in the last bits)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def solver_leaves(gs) -> dict:
+    """A GraphSolver's params, BN state and solver history by leaf name."""
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                out[prefix + k] = v
+
+    for name in ("params", "state", "opt_state"):
+        walk(getattr(gs, name), name + ".")
+    return out
 
 
 def engine_dispatch(eng, state, queries, label: str, card: str) -> dict:
@@ -2113,6 +2170,127 @@ def graph_params_close(got, want, band=None) -> tuple[float, str]:
     return worst, where
 
 
+def nettest_replays(dev, card: str, main_dir: Path, model_path: Path,
+                    dev_arrays, nt: dict) -> None:
+    """``nettest``'s and ``extract_features``' iterations (the CLI's
+    bodies, ``cli._nettest_forward`` / ``_features_forward``, on the last
+    snapshot and the dev split) as replays against direct calls: equal bit
+    for bit, timed in turns; the ``nettest`` CLI's MAP (``nt``, its
+    replays) = the eager call's, and ``extract_features`` through the CLI
+    (two iterations) = the eager body's blobs, bit for bit."""
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch import cli as tcli
+    from mms_answer_selection_tpu_torch.data import hdf5_compat
+    from mms_answer_selection_tpu_torch.models.graph_net import (
+        DATA_TYPES, GraphNet)
+    from mms_answer_selection_tpu_torch.utils.caffemodel import (
+        load_caffemodel_auto)
+    from mms_answer_selection_tpu_torch.utils.graphs import (
+        GraphedCall, on_device)
+    from mms_answer_selection_tpu_torch.utils.seed import derive_seed
+
+    model = main_dir / "nettest.prototxt"
+    net = GraphNet(model.read_text(), phase="test")
+    arrays = dev_arrays(None)
+    batch = {t: torch.as_tensor(arrays[t]) for n in net.layers
+             if n.type in DATA_TYPES for t in n.tops}
+    params, state = net.init(torch.Generator().manual_seed(0),
+                             on_device(batch, dev), device=dev)
+    params, state, _ = load_caffemodel_auto(
+        str(model_path), params, state,
+        specs=net.caffemodel_specs(params, state))
+    body = tcli._nettest_forward(net, params, state)
+    calls = GraphedCall(dev, name="nettest")
+    n = len(arrays["label"])
+    want, _ = graphed_vs_eager(
+        f"nettest iteration (V4 eval net, dev split {n} pairs)", calls,
+        lambda: calls(("nettest",), body, batch, fixed=(params, state)),
+        lambda: torch.no_grad()(body)(on_device(batch, dev)), 20, card)
+    if float(want["map"]) != nt["map"]:
+        raise AssertionError(f"the nettest CLI's MAP {nt['map']} differs "
+                             f"from the eager call's {float(want['map'])}")
+
+    blobs = ["prob", "sim_cross"]
+    fbody = tcli._features_forward(net, params, state, blobs)
+    fcalls = GraphedCall(dev, name="extract_features")
+    seed = derive_seed(0, 0xFEA7, 0)
+
+    @torch.no_grad()
+    def features_eager():
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return fbody(on_device(batch, dev), generators=[gen])
+
+    feats, _ = graphed_vs_eager(
+        f"extract_features iteration (V4 eval net, blobs {blobs}, dev "
+        f"split {n} pairs)", fcalls,
+        lambda: fcalls(("extract_features",), fbody, batch,
+                       fixed=(params, state), generators=(seed,)),
+        features_eager, 20, card)
+    real = hdf5_compat.load_hdf5_list
+    hdf5_compat.load_hdf5_list = dev_arrays
+    try:
+        run_cli(["extract_features", "--model", str(model), "--weights",
+                 str(model_path), "--blobs", ",".join(blobs),
+                 "--iterations", "2", "--out", str(main_dir / "feats"),
+                 "--device", "cuda"])
+    finally:
+        hdf5_compat.load_hdf5_list = real
+    for b in blobs:
+        got = np.load(main_dir / "feats" / f"{b}.npy")
+        one = feats[b].cpu().numpy()
+        if not np.array_equal(got, np.concatenate([one, one])):
+            raise AssertionError(f"extract_features' {b} differs from the "
+                                 f"eager body's")
+    log(f"cli extract_features --blobs {','.join(blobs)} --iterations 2 "
+        f"(two replays) = the eager body's blobs, bit for bit [{card}]")
+
+
+def generic_step_replays(dev, card: str, root: Path, vocab: int,
+                         splits) -> None:
+    """A GraphSolver step as one replay against the eager ``_train_step``,
+    bit for bit, at each GRAPH_CHECK (batch, iter_size): two solvers from
+    one solver prototxt (the recipe's nets with dropout, a xavier W),
+    GRAPH_CHECK_STEPS iterations each, the replayed one through ``step``,
+    under deterministic algorithms (two eager steps part in the last bits
+    otherwise).  Fails unless the losses and every leaf of the params, BN
+    state and solver history are equal and each iteration was one
+    replay."""
+    from mms_answer_selection_tpu_torch.training.graph_solver import (
+        GraphSolver)
+
+    for bsz, iter_size in GRAPH_CHECK:
+        pair = []
+        for side in ("replay", "eager"):
+            d = root / f"check_{bsz}_{iter_size}_{side}"
+            d.mkdir()
+            path = Path(graph_files(d, vocab, xavier=True, batch=bsz,
+                                    test=False))
+            path.write_text(path.read_text() + f"iter_size: {iter_size}\n")
+            pair.append(GraphSolver(str(path), feeds=graph_feeds(splits, bsz),
+                                    device=dev))
+        a, b = pair
+        got, want = [], []
+        with deterministic_algorithms():
+            for _ in range(GRAPH_CHECK_STEPS):
+                a.step(1)              # one iteration: _smoothed = its loss
+                got.append(a._smoothed)
+                want.append(float(b._train_step()[0]))
+                b.iter_ += 1
+        la, lb = solver_leaves(a), solver_leaves(b)
+        unequal = [k for k in lb if not torch.equal(la[k], lb[k])]
+        log(f"check GraphSolver step replay vs eager _train_step (V4 recipe "
+            f"nets with dropout, xavier W, batch {bsz}, iter_size "
+            f"{iter_size}, {GRAPH_CHECK_STEPS} iterations, deterministic "
+            f"algorithms): losses {got} vs {want}; {len(lb) - len(unequal)} "
+            f"of {len(lb)} leaves equal bit for bit; {a.runner.replays} "
+            f"replays, a replay launches {a.runner.stats()[0]['tally']}")
+        if got != want or unequal or a.runner.replays != GRAPH_CHECK_STEPS:
+            raise AssertionError(f"a replayed GraphSolver step differs from "
+                                 f"the eager one: {unequal}")
+        del a, b, pair
+
+
 def graph_phase(dev, card: str, splits, info) -> dict:
     """The reference's own workflow on the port: the V4 recipe's train and
     eval nets as NetParameter text, an AdaDelta solver prototxt beside
@@ -2136,7 +2314,6 @@ def graph_phase(dev, card: str, splits, info) -> dict:
     import tempfile
 
     import numpy as np
-    from torch.autograd import DeviceType
 
     from mms_answer_selection_tpu_torch.data import hdf5_compat
     from mms_answer_selection_tpu_torch.metrics import (
@@ -2288,6 +2465,30 @@ def graph_phase(dev, card: str, splits, info) -> dict:
             or abs(float(res["mrr"]) - np_mrr) > 1e-6:
         raise AssertionError("the MAP / MRR layers disagree with the "
                              "in-process metrics")
+    # every test batch was one replay; a pass through the graph = the
+    # eager pass, bit for bit, and one batch of each timed
+    passes = len(tests) + 1
+    (test_key,) = gs.forwards.stats()
+    got_t = gs._test_means(0, gs._test_outputs)
+    want_t = gs._test_means(0, gs._test_outputs_eager)
+    log(f"GraphSolver test passes: {test_key['replays']} replays of one "
+        f"graph over {passes} passes of {gs.test_iters[0]} batch; a pass "
+        f"replayed {({k: float(v) for k, v in got_t.items()})} = eager "
+        f"{({k: float(v) for k, v in want_t.items()})}")
+    if test_key["replays"] != passes * gs.test_iters[0] \
+            or got_t.keys() != want_t.keys() \
+            or any(not np.array_equal(got_t[k], want_t[k]) for k in want_t):
+        raise AssertionError("a GraphSolver test pass: not one replay a "
+                             "batch, or the replay differs from the eager "
+                             "pass")
+    tp_, ts_ = gs._shared_test_trees(0)
+    tbatch = gs._host_batch(gs._test_feeds[0])
+    gs.forwards.drop()
+    graphed_vs_eager(
+        f"GraphSolver test batch (V4 eval net, dev split "
+        f"{len(dev_split['label'])} pairs)", gs.forwards,
+        lambda: gs._test_outputs(0, tp_, ts_, tbatch, 7),
+        lambda: gs._test_outputs_eager(0, tp_, ts_, tbatch, 7), 20, card)
 
     # ------------------------------- (5) nettest and train --weights
     model_path = main_dir / f"v4_iter_{GRAPH_STEPS}.caffemodel"
@@ -2323,6 +2524,7 @@ def graph_phase(dev, card: str, splits, info) -> dict:
         f"{tests[-1]['map']:.6f} (tol 1e-6); {nettest_s:.3f} s [{card}]")
     if abs(nt["map"] - tests[-1]["map"]) > 1e-6:
         raise AssertionError("nettest's MAP differs from the solver's")
+    nettest_replays(dev, card, main_dir, model_path, dev_arrays, nt)
     tr = Trainer(dataclasses.replace(V4, vocab_size=vocab), recipe_trainer(),
                  device=dev)
     p0, s0, _ = tr.init()
@@ -2379,6 +2581,9 @@ def graph_phase(dev, card: str, splits, info) -> dict:
                              "uninterrupted one")
     del runs
 
+    # ------------------- (6) a replayed step = an eager one, bit for bit
+    generic_step_replays(dev, card, root, vocab, splits)
+
     # ------------------------------------------------ times, in turns
     log(f"time GraphSolver.snapshot (BINARYPROTO .caffemodel + .solverstate"
         f", {size / 2**20:.3f} MiB, card to files): p50 {snap_ms:.3f} ms "
@@ -2388,6 +2593,7 @@ def graph_phase(dev, card: str, splits, info) -> dict:
         g = GraphSolver(graph_files(root / f"t{bsz}", vocab, xavier=False,
                                     batch=bsz, test=False),
                         feeds=graph_feeds(splits, bsz), device=dev)
+        g.snapshot_every = 0                # no snapshot inside the timing
         tr = Trainer(dataclasses.replace(V4, vocab_size=vocab),
                      dataclasses.replace(recipe_trainer(), batch_size=bsz),
                      device=dev)
@@ -2396,41 +2602,44 @@ def graph_phase(dev, card: str, splits, info) -> dict:
                                 if k != "group"})
         tb = next(tr._epoch_batches(train, 0))
         reps = max(10, 1000 // bsz)
-        generic = lambda: g._train_step()                   # noqa: E731
-        typed = lambda: tr._train_step(p, s, o, tb, 0)      # noqa: E731
-        times = [sync_ms(generic, reps), sync_ms(typed, reps),
-                 sync_ms(typed, reps), sync_ms(generic, reps)]
-        before = dict(sk.LAUNCH_COUNTS)
-        generic()
-        torch.cuda.synchronize()
-        step_launch = {k: sk.LAUNCH_COUNTS[k] - before[k] for k in before
-                       if sk.LAUNCH_COUNTS[k] != before[k]}
-        prof = {}
-        for label, fn, wall in (("generic", generic, times[0]),
-                                ("typed", typed, times[1])):
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as pr:
-                fn()
-                torch.cuda.synchronize()
-            rows = [e for e in pr.key_averages()
-                    if e.device_type == DeviceType.CUDA]
-            busy = sum(e.self_device_time_total for e in rows) / 1e3
-            prof[label] = (sum(e.count for e in rows), busy,
-                           max(0.0, 1 - busy / wall))
-        (g_ops, g_ms, g_idle), (t_ops, t_ms, t_idle) = (prof["generic"],
-                                                        prof["typed"])
+        modes = {"eager": lambda: g._train_step(),
+                 "replay": lambda: g.step(1),
+                 "typed": lambda: tr._train_step(p, s, o, tb, 0)}
+        times = {m: [] for m in modes}
+        for m in [*modes, *reversed(modes)]:
+            times[m].append(sync_ms(modes[m], reps))
+        p50 = {m: sum(t) / 2 for m, t in times.items()}
+        step_launch = {}
+        for m in ("eager", "replay"):
+            before = dict(sk.LAUNCH_COUNTS)
+            modes[m]()
+            torch.cuda.synchronize()
+            step_launch[m] = {k: sk.LAUNCH_COUNTS[k] - before[k]
+                              for k in before
+                              if sk.LAUNCH_COUNTS[k] != before[k]}
+        prof = {m: profile_call(fn) for m, fn in modes.items()}
+        for m, pr in prof.items():
+            pr["idle"] = max(0.0, 1 - pr["device_ms"] / p50[m])
+        (st,) = g.runner.stats()
         log(f"time GraphSolver step (V4 recipe net, the feed's host batch "
-            f"copied in) vs the typed fit step, batch {bsz}: generic p50 "
-            f"{(times[0] + times[3]) / 2:.3f} ms, typed "
-            f"{(times[1] + times[2]) / 2:.3f} ms (means of each one's two "
-            f"turns: {[round(x, 3) for x in times]}, generic, typed, typed, "
-            f"generic); a generic step launched {step_launch}; profiler: "
-            f"generic {g_ops} device ops, {g_ms:.3f} ms device time, idle "
-            f"{g_idle:.1%}; typed {t_ops} device ops, {t_ms:.3f} ms, idle "
-            f"{t_idle:.1%} [{card}]")
-        if any(step_launch.get(k) != 1 for k in CLI_TRAIN_KERNELS):
-            raise AssertionError(f"a generic step launched {step_launch}")
+            f"copied in), eager _train_step vs one replay (step(1)) vs the "
+            f"typed fit step, batch {bsz}: eager p50 {p50['eager']:.3f} ms, "
+            f"replay {p50['replay']:.3f} ms ({p50['eager'] / p50['replay']:.3f}"
+            f"x), typed {p50['typed']:.3f} ms (means of each one's two turns"
+            f": {({m: [round(x, 3) for x in t] for m, t in times.items()})}, "
+            f"eager, replay, typed, typed, replay, eager); a step launched "
+            f"{step_launch}; profiler: " + "; ".join(
+                f"{m} {pr['device_ops']} device ops, {pr['device_ms']:.3f} ms"
+                f" device time, idle {pr['idle']:.1%}, host "
+                f"{pr['host_calls']}" for m, pr in prof.items())
+            + f"; capture {st['capture_s']:.3f} s, graph pool "
+            f"{st['pool_bytes'] / 2**20:.1f} MiB, a replay launches "
+            f"{st['tally']}, {st['replays']} replays [{card}]")
+        if any(step_launch[m].get(k) != 1 for m in step_launch
+               for k in CLI_TRAIN_KERNELS) \
+                or prof["replay"]["host_calls"].get("cudaGraphLaunch") != 1:
+            raise AssertionError(f"a generic step launched {step_launch}, "
+                                 f"a replay {prof['replay']}")
         del g, tr, p, s, o, train, tb
     del gs
     tmp.cleanup()
@@ -2627,6 +2836,64 @@ def db_net(caffe, source, *, batch: int, phase: str, head: str = "data",
     return str(n.to_proto())
 
 
+def pycaffe_forward_replays(caffe, card: str, root: Path, vocab: int,
+                            feeds: dict, solver, model_path: str,
+                            dev_batch: dict) -> None:
+    """The pycaffe forwards as replays against their eager calls (the
+    owner's ``GraphedCall`` with its capture off: the same body on the
+    same static buffers), bit for bit: ``caffe.Net(test, TEST,
+    weights=)`` and ``solver.test_nets[0]`` on the dev split, each timed
+    in turns; ``solver.net.forward()`` (train phase: dropout draws, the BN
+    statistics move into the solver's carry) twice on two fresh solvers,
+    one replaying, one eager: blobs and BN state equal."""
+    def tensors(out):
+        return {k: b.tensor for k, b in out.items()}
+
+    net = caffe.Net(str(root / "recipe" / "test.prototxt"), caffe.TEST,
+                    weights=model_path)
+    net.forward(**dev_batch)                # loads the weights
+    net.forwards.drop()
+
+    def net_forward():
+        return tensors(net.forward(**dev_batch))
+
+    n = len(dev_batch["label"])
+    graphed_vs_eager(f"caffe.Net.forward (NetSpec V4 test net, dev split {n}"
+                     f" pairs)", net.forwards, net_forward,
+                     capture_off(net.forwards, net_forward), 20, card)
+    calls = solver._gs.forwards
+    calls.drop()
+
+    def view_forward():
+        return tensors(solver.test_nets[0].forward())
+
+    graphed_vs_eager(f"solver.test_nets[0].forward() (NetSpec V4 test net, "
+                     f"dev split {n} pairs)", calls, view_forward,
+                     capture_off(calls, view_forward), 20, card)
+    pair = []
+    for side in ("replay", "eager"):
+        (root / f"view_{side}").mkdir()
+        pair.append(caffe.get_solver(pycaffe_files(
+            caffe, root / f"view_{side}", vocab, xavier=True), feeds=feeds))
+    pair[1]._gs.forwards.captures = False
+    outs = [tuple(tensors(sv.net.forward()) for _ in range(2))
+            for sv in pair]
+    la, lb = (solver_leaves(sv._gs) for sv in pair)
+    unequal = [k for k in lb if not torch.equal(la[k], lb[k])]
+    (st,) = pair[0]._gs.forwards.stats()
+    log(f"check solver.net.forward() x 2 (NetSpec V4 train net, dropout "
+        f"on, BN statistics into the solver's carry), replayed vs eager: "
+        f"blobs equal {same_tensors(outs[0], outs[1])}, "
+        f"{len(lb) - len(unequal)} of {len(lb)} carry leaves equal; "
+        f"{st['replays']} "
+        f"replays, a replay launches {st['tally']}, capture "
+        f"{st['capture_s']:.3f} s, graph pool +{st['pool_bytes'] / 2**20:.1f}"
+        f" MiB [{card}]")
+    if not same_tensors(outs[0], outs[1]) or unequal or st["replays"] != 2:
+        raise AssertionError(f"a replayed solver.net.forward() differs from "
+                             f"the eager one: {unequal}")
+
+
 def pycaffe_phase(dev, card: str, splits, info) -> dict:
     """The reference QA script's own flow through the pycaffe surface
     (``caffe_compat``) at V4's widths over the recipe-sized corpus, and the
@@ -2655,7 +2922,6 @@ def pycaffe_phase(dev, card: str, splits, info) -> dict:
     import tempfile
 
     import numpy as np
-    from torch.autograd import DeviceType
 
     from mms_answer_selection_tpu_torch import caffe_compat as caffe
     from mms_answer_selection_tpu_torch.metrics import (
@@ -2761,7 +3027,7 @@ def pycaffe_phase(dev, card: str, splits, info) -> dict:
     launches = dict.fromkeys(sk.LAUNCH_COUNTS, 0)
     reads, tests = [], []
     t_solve = 0.0
-    for _ in range(PYCAFFE_STEPS // PYCAFFE_EVERY):
+    for call in range(PYCAFFE_STEPS // PYCAFFE_EVERY):
         for name in sk.LAUNCH_COUNTS:
             sk.LAUNCH_COUNTS[name] = 0
         t0 = time.perf_counter()
@@ -2771,7 +3037,10 @@ def pycaffe_phase(dev, card: str, splits, info) -> dict:
         window = dict(sk.LAUNCH_COUNTS)
         for name, n in window.items():
             launches[name] += n
-        if any(window[k] != PYCAFFE_EVERY for k in CLI_TRAIN_KERNELS):
+        # the first call's first step captures the step's graph after a
+        # warm-up step run eagerly: one launch more of each kernel
+        want = PYCAFFE_EVERY + (call == 0)
+        if any(window[k] != want for k in CLI_TRAIN_KERNELS):
             raise AssertionError(f"{PYCAFFE_EVERY} pycaffe steps launched "
                                  f"{window}")
         reads.append(float(solver.net.blobs["loss"].data))
@@ -2833,6 +3102,8 @@ def pycaffe_phase(dev, card: str, splits, info) -> dict:
             or idiom["loss"] == got["loss"]:
         raise AssertionError("caffe.Net on the snapshot differs from the "
                              "solver's test net, or the .data idiom")
+    pycaffe_forward_replays(caffe, card, root, vocab, feeds, solver,
+                            model_path, dev_batch)
     del net, solver, tv
 
     # ------------------------------------------------ (4) the databases
@@ -3047,35 +3318,40 @@ def pycaffe_phase(dev, card: str, splits, info) -> dict:
                              feeds=graph_feeds(splits, bsz))
         gs = s._gs
         reps = max(10, 1000 // bsz)
-        pyc = lambda: s.step(1)                          # noqa: E731
-        gstep = lambda: gs._train_step()                 # noqa: E731
-        times = [sync_ms(pyc, reps), sync_ms(gstep, reps),
-                 sync_ms(gstep, reps), sync_ms(pyc, reps)]
+        modes = {"pycaffe": lambda: s.step(1),       # one replay
+                 "replay": lambda: gs.step(1),
+                 "eager": lambda: gs._train_step()}
+        times = {m: [] for m in modes}
+        for m in [*modes, *reversed(modes)]:
+            times[m].append(sync_ms(modes[m], reps))
+        p50 = {m: sum(t) / 2 for m, t in times.items()}
         before = dict(sk.LAUNCH_COUNTS)
-        pyc()
+        modes["pycaffe"]()
         torch.cuda.synchronize()
         step_launch = {k: sk.LAUNCH_COUNTS[k] - before[k] for k in before
                        if sk.LAUNCH_COUNTS[k] != before[k]}
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as pr:
-            pyc()
-            torch.cuda.synchronize()
-        rows_ = [e for e in pr.key_averages()
-                 if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in rows_) / 1e3
-        p_ms = (times[0] + times[3]) / 2
-        log(f"time pycaffe solver.step(1) (NetSpec V4 net) vs GraphSolver "
-            f"step (_train_step) on the same solver, batch {bsz}: pycaffe "
-            f"p50 {p_ms:.3f} ms, GraphSolver {(times[1] + times[2]) / 2:.3f} "
-            f"ms (means of each one's two turns: "
-            f"{[round(x, 3) for x in times]}, pycaffe, GraphSolver, "
-            f"GraphSolver, pycaffe); a pycaffe step launched {step_launch}; "
-            f"profiler: {sum(e.count for e in rows_)} device ops, "
-            f"{busy:.3f} ms device time, idle {max(0.0, 1 - busy / p_ms):.1%}"
-            f" [{card}]")
-        if any(step_launch.get(k) != 1 for k in CLI_TRAIN_KERNELS):
-            raise AssertionError(f"a pycaffe step launched {step_launch}")
+        prof = {m: profile_call(modes[m]) for m in ("pycaffe", "eager")}
+        for m, pr in prof.items():
+            pr["idle"] = max(0.0, 1 - pr["device_ms"] / p50[m])
+        (st,) = gs.runner.stats()
+        log(f"time pycaffe solver.step(1) (NetSpec V4 net; one replay) vs "
+            f"GraphSolver's replayed step(1) and eager _train_step on the "
+            f"same solver, batch {bsz}: pycaffe p50 {p50['pycaffe']:.3f} ms,"
+            f" GraphSolver replay {p50['replay']:.3f} ms, eager "
+            f"{p50['eager']:.3f} ms (means of each one's two turns: "
+            f"{({m: [round(x, 3) for x in t] for m, t in times.items()})}, "
+            f"pycaffe, replay, eager, eager, replay, pycaffe); a pycaffe "
+            f"step launched {step_launch}; profiler: " + "; ".join(
+                f"{m} {pr['device_ops']} device ops, {pr['device_ms']:.3f} ms"
+                f" device time, idle {pr['idle']:.1%}, host "
+                f"{pr['host_calls']}" for m, pr in prof.items())
+            + f"; capture {st['capture_s']:.3f} s, graph pool "
+            f"{st['pool_bytes'] / 2**20:.1f} MiB, a replay launches "
+            f"{st['tally']} [{card}]")
+        if any(step_launch.get(k) != 1 for k in CLI_TRAIN_KERNELS) \
+                or prof["pycaffe"]["host_calls"].get("cudaGraphLaunch") != 1:
+            raise AssertionError(f"a pycaffe step launched {step_launch}, "
+                                 f"{prof['pycaffe']}")
         del s, gs
     log(f"time Data feeds on the host ({DB_IMAGES} images in batches of "
         f"{DB_BATCH}, decode + transform): LMDB {feed_rate['lmdb']:.1f} "

@@ -635,14 +635,42 @@ def _next_batch(feeds, device) -> dict:
             for k, v in batch.items()}
 
 
+def _nettest_forward(net, params, state):
+    """One `caffe test` iteration's body: a batch -> the output blobs as
+    float32 (its plain version is a direct call)."""
+    import torch
+
+    names = net.output_blob_names()
+
+    def body(batch):
+        blobs, _ = net.apply(params, state, batch, train=False)
+        return {t: blobs[t].to(torch.float32) for t in names}
+
+    return body
+
+
+def _features_forward(net, params, state, blob_names):
+    """One `extract_features` iteration's body: (a batch, generators=[its
+    generator]) -> the named blobs."""
+    def body(batch, generators):
+        blobs, _ = net.apply(params, state, batch, train=False,
+                             generator=generators[0])
+        return {b: blobs[b] for b in blob_names}
+
+    return body
+
+
 def cmd_nettest(args):
     """The reference's `caffe test`: score any net prototxt in TEST phase
     for N iterations with given weights, averaging every output-blob
-    element; loss is the mean weighted loss over the iterations."""
+    element; loss is the mean weighted loss over the iterations.  On the
+    card each iteration is one CUDA graph replay (eager on the CPU); the
+    host reads its cloned outputs."""
     import torch
 
     from .device import resolve_device
     from .models.graph_net import GraphNet
+    from .utils.graphs import GraphedCall
 
     device = resolve_device(args.device)
     with open(args.model) as f:
@@ -660,17 +688,16 @@ def cmd_nettest(args):
         log.info("loaded weights: %s", report)
     names = net.output_blob_names()
     weights_map = net.blob_loss_weights()
+    calls = GraphedCall(device, name="nettest")
+    body = _nettest_forward(net, params, state)
     total, loss = None, 0.0
-    with torch.no_grad():
-        for _ in range(args.iterations):
-            blobs, _ = net.apply(params, state,
-                                 _next_batch(feeds, device),
-                                 train=False)
-            out = {t: blobs[t].to(torch.float32) for t in names}
-            loss += sum(w * float(torch.sum(out[t]))
-                        for t, w in weights_map.items())
-            total = out if total is None else \
-                {k: total[k] + v for k, v in out.items()}
+    for _ in range(args.iterations):
+        out = calls(("nettest",), body, _next_batch(feeds, "cpu"),
+                    fixed=(params, state))
+        loss += sum(w * float(torch.sum(out[t]))
+                    for t, w in weights_map.items())
+        total = out if total is None else \
+            {k: total[k] + v for k, v in out.items()}
     result = {}
     for name in names:
         mean = np.ravel(total[name].cpu().numpy()) / args.iterations
@@ -877,6 +904,7 @@ def cmd_extract_features(args):
     from .device import resolve_device
     from .models.graph_net import GraphNet
     from .training.trainer import derive_seed
+    from .utils.graphs import GraphedCall
 
     device = resolve_device(args.device)
     with open(args.model) as f:
@@ -901,15 +929,16 @@ def cmd_extract_features(args):
             specs=net.caffemodel_specs(params, state))
     # init only peeked for shapes: restart at batch 0
     feeds = _test_feeds(net, args.model, args.seed)
-    gen = torch.Generator(device=device)
+    calls = GraphedCall(device, name="extract_features")
+    body = _features_forward(net, params, state, blob_names)
     acc: dict = {b: [] for b in blob_names}
-    with torch.no_grad():
-        for i in range(args.iterations):
-            gen.manual_seed(derive_seed(args.seed, 0xFEA7, i))
-            blobs, _ = net.apply(params, state, _next_batch(feeds, device),
-                                 train=False, generator=gen)
-            for b in blob_names:
-                acc[b].append(blobs[b].cpu().numpy())
+    for i in range(args.iterations):
+        # one replay on the card; the host reads its cloned outputs
+        out = calls(("extract_features",), body, _next_batch(feeds, "cpu"),
+                    fixed=(params, state),
+                    generators=(derive_seed(args.seed, 0xFEA7, i),))
+        for b in blob_names:
+            acc[b].append(out[b].cpu().numpy())
     os.makedirs(args.out, exist_ok=True)
     for b in blob_names:
         stacked = np.concatenate(acc[b], axis=0)

@@ -7,10 +7,20 @@ state: ``net.blobs['ip'].data``, ``net.params['conv'][0].data``,
 that working style over `GraphNet`: ``Net`` keeps (params, state, last
 blobs) as attributes and re-exposes them the pycaffe way.
 
-* The net runs eagerly on one device: ``device=`` if given, else the one
+* The net runs on one device: ``device=`` if given, else the one
   ``caffe_compat.set_mode_*`` chose, else CUDA (which raises without a
-  card).  A forward builds no autograd graph; ``backward`` replays the
-  last forward under autograd with the same random draws.
+  card).  A forward builds no autograd graph: on the card it is one
+  replay of a CUDA graph (``utils/graphs.GraphedCall``) keyed by (phase,
+  start, end), the input shapes and the addresses of the params and
+  state it reads in place, as the JAX package's is one ``jax.jit`` call;
+  on the CPU the same function runs eagerly.  A train-phase forward
+  writes the BN statistics into ``state`` in place, after the replay.
+  Assigning ``params`` or ``state``, or ``copy_from``, drops the graphs;
+  an in-place write into a param tensor is read by the next replay.  A user ``Python``
+  layer runs inside the capture and must make no host sync: one that
+  does fails the capture, which raises naming its line.  ``backward``
+  stays eager: it replays the last forward under autograd with the same
+  random draws.
 * Random layers (Dropout, ...) draw from a ``torch.Generator`` on the
   device, seeded from (seed, call number) as ``GraphSolver`` seeds a step.
   Parameters are drawn by a CPU generator, so a seed gives the same
@@ -40,6 +50,7 @@ import numpy as np
 import torch
 
 from ..device import pycaffe_device
+from ..utils.graphs import GraphedCall
 from ..utils.seed import derive_seed
 from ..utils.tree import tree_leaves, tree_map
 from .graph_net import DATA_TYPES, GraphNet
@@ -52,6 +63,23 @@ _INIT, _FWD = 0xD0, 0xF0
 
 _NO_DIFF = ("this blob has no diff: net.backward(...) fills the diffs of "
             "the float input blobs it differentiates (and net.param_diffs)")
+
+
+def _moved(state: dict, new_state: dict) -> dict:
+    """The layers whose state a pass replaced (``apply`` keeps the others'
+    own dicts)."""
+    return {k: v for k, v in new_state.items() if v is not state.get(k)}
+
+
+def _update_in_place(state: dict, new_state: dict) -> None:
+    """The BN statistics (and other layer state) of ``new_state`` written
+    into the tensors of ``state``, layer by layer."""
+    for layer, sub in new_state.items():
+        old = state[layer]
+        if isinstance(old, dict):
+            _update_in_place(old, sub)
+        elif old is not sub:
+            old.copy_(sub)
 
 
 def _as_tensor(v, device):
@@ -198,6 +226,8 @@ class Net:
         self._last_inputs = None
         self._last_seed = None
         self._gen = torch.Generator(device=self.device)
+        # the forwards' graphs (eager on the CPU)
+        self.forwards = GraphedCall(self.device, name="pycaffe forward")
         self.blobs: OrderedDict = OrderedDict()
         self.param_diffs: dict = {}
 
@@ -271,8 +301,9 @@ class Net:
     def params(self, value):
         """Trees of tensors or numpy arrays (a JAX-initialised net's
         params as numpy go straight in); leaves land on the net's
-        device."""
+        device.  The forwards' graphs are dropped."""
         self._params = tree_map(lambda x: _as_tensor(x, self.device), value)
+        self.forwards.drop()
 
     @property
     def state(self):
@@ -282,8 +313,11 @@ class Net:
     @state.setter
     def state(self, value):
         """The BN running statistics (and other layer state), as
-        ``params``."""
-        self._state = tree_map(lambda x: _as_tensor(x, self.device), value)
+        ``params``; copies, since a train-phase forward updates them in
+        place."""
+        self._state = tree_map(
+            lambda x: _as_tensor(x, self.device).clone(), value)
+        self.forwards.drop()
 
     # -- lifecycle --------------------------------------------------------
     def _require_init(self):
@@ -405,19 +439,37 @@ class Net:
         inputs = self._feed_missing(inputs)
         self._maybe_init(inputs)
         seed = self._next_seed()
-        train = self._phase == "train"
-        with torch.no_grad():
-            blobs, new_state = self._net.apply(
-                self._params, self._state, inputs, train=train,
-                generator=self._generator(seed))
-        if train:
-            self._state = new_state  # BN EMA updates, like Forward would
+        blobs = self._apply(inputs, seed)
         self._last_inputs = inputs
         self._last_seed = seed
         self.blobs = OrderedDict((k, self._refresh_blob(k, v))
                                  for k, v in blobs.items())
         return OrderedDict((k, self.blobs[k]) for k in self.outputs
                            if k in self.blobs)
+
+    def _apply(self, inputs: dict, seed: int, start=None, end=None):
+        """The net over [start, end] on ``inputs``, its random layers
+        drawing from a generator seeded with ``seed``: one replay of the
+        graph of (phase, start, end) and the inputs' shapes on the card.
+        A train-phase pass writes the BN statistics into ``state`` in
+        place after it, as Forward would (the graph itself writes nothing
+        it reads: its capture's warm-up call runs it once more).  Returns
+        fresh blob tensors."""
+        train = self._phase == "train"
+        p, s = self._params, self._state
+
+        def body(batch, generators):
+            blobs, new_state = self._net.apply(
+                p, s, batch, train=train, generator=generators[0],
+                start=start, end=end)
+            return blobs, _moved(s, new_state)
+
+        blobs, moved = self.forwards(
+            ("forward", self._phase, start, end), body, inputs,
+            fixed=(p, s), generators=(seed,))
+        if train:
+            _update_in_place(s, moved)
+        return blobs
 
     def _refresh_blob(self, name, value):
         """New value for a named blob: REUSE the existing Blob object when
@@ -441,14 +493,8 @@ class Net:
         seeded.update(inputs)
         if self._params is None:
             self._maybe_init(seeded)
-        train = self._phase == "train"
         seed = self._next_seed()
-        with torch.no_grad():
-            blobs, new_state = self._net.apply(
-                self._params, self._state, seeded, train=train,
-                generator=self._generator(seed), start=start, end=end)
-        if train:
-            self._state = new_state
+        blobs = self._apply(seeded, seed, start, end)
         # keep backward()'s replay consistent with THIS forward: the seed
         # that drew this range's dropout masks, and any explicit inputs
         # the range consumed
@@ -563,4 +609,5 @@ class Net:
         specs = self._net.caffemodel_specs(self._params, self._state)
         self._params, self._state, report = load_caffemodel_auto(
             path, self._params, self._state, specs=specs)
+        self.forwards.drop()
         return report

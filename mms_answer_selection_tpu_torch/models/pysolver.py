@@ -15,7 +15,11 @@ weights, and assigning ``view.params`` writes through.
 
 The solver runs on ``device=`` if given, else the device
 ``caffe_compat.set_mode_*`` chose, else CUDA (which raises without a
-card).
+card).  On the card a ``step`` iteration is one CUDA graph replay
+(``GraphSolver``), and so is a view's ``forward``: one replay of the
+graph of the view and its batch's shapes (the solver's ``forwards``),
+reading the solver's static carry in place.  A train-net forward writes
+the BN statistics into that carry after the replay, as Forward would.
 
 Differences, by design (as in the JAX package):
 
@@ -33,12 +37,10 @@ import dataclasses
 import os
 from collections import OrderedDict
 
-import torch
-
 from ..device import pycaffe_device
 from ..utils.seed import derive_seed
 from ..utils.tree import tree_map
-from .pynet import Blob, _as_tensor
+from .pynet import Blob, _as_tensor, _moved, _update_in_place
 
 __all__ = ["Solver", "SGDSolver", "NesterovSolver", "AdaGradSolver",
            "RMSPropSolver", "AdaDeltaSolver", "AdamSolver", "get_solver"]
@@ -103,19 +105,24 @@ class _NetView:
         and fill ``self.blobs`` with EVERY top.  Returns {output blob:
         Blob}."""
         gs = self._owner._gs
-        batch = dict(gs._next_batch(self._feeds)) if self._feeds else {}
+        batch = dict(gs._host_batch(self._feeds)) if self._feeds else {}
         batch.update({k: _as_tensor(v, gs.device)
                       for k, v in overrides.items()})
         train = self._test_id is None
         self._calls += 1
-        gen = torch.Generator(device=gs.device).manual_seed(
-            derive_seed(gs.seed, _VIEW, self._calls))
+        gs._static_carry()      # weights assigned since: into the carry
         p, s = self._trees()
-        with torch.no_grad():
-            blobs, new_state = self._net.apply(p, s, batch, train=train,
-                                               generator=gen)
+
+        def body(b, generators):
+            blobs, new_state = self._net.apply(p, s, b, train=train,
+                                               generator=generators[0])
+            return blobs, _moved(s, new_state)
+
+        blobs, moved = gs.forwards(
+            ("view", self._test_id), body, batch, fixed=(p, s),
+            generators=(derive_seed(gs.seed, _VIEW, self._calls),))
         if train:
-            gs.state = new_state  # BN EMA moves on a train forward
+            _update_in_place(s, moved)      # the BN EMA moves
         self.blobs = OrderedDict((k, Blob(v)) for k, v in blobs.items())
         return OrderedDict((k, self.blobs[k]) for k in self.outputs
                            if k in self.blobs)

@@ -131,13 +131,13 @@ def pool2d_padded(x: torch.Tensor, kh: int, kw: int, *, stride_h: int,
                         divisor_override=1)
 
     def counts(size, k, s, p, pooled):
-        starts = np.arange(pooled) * s - p
-        ends = np.minimum(starts + k, size + p)
-        return (ends - starts).astype(np.float32)
+        # built on the device: a host copy cannot be captured in a graph
+        starts = torch.arange(pooled, device=x.device) * s - p
+        ends = torch.clamp(starts + k, max=size + p)
+        return (ends - starts).to(x.dtype)
 
-    count = np.outer(counts(h, kh, stride_h, pad_h, ph_out),
-                     counts(w, kw, stride_w, pad_w, pw_out))
-    count = torch.as_tensor(count, dtype=x.dtype, device=x.device)
+    count = torch.outer(counts(h, kh, stride_h, pad_h, ph_out),
+                        counts(w, kw, stride_w, pad_w, pw_out))
     return (sums / count).permute(0, 2, 3, 1)
 
 

@@ -1,10 +1,17 @@
 """Chunks of training steps as one dispatch (counterpart of the JAX
-trainer's ``_scan_steps_jit`` / ``_run_chunk``).
+trainer's ``_scan_steps_jit`` / ``_run_chunk`` and of the JAX
+``GraphSolver``'s jitted step).
 
 The JAX package runs a chunk of K steps as one compiled ``lax.scan``.
 Here a chunk of K steps is one replay of a CUDA graph captured around K
-calls of the trainer's own step code (``Trainer._train_step``), so the
-card runs the chunk's ~500 launches a step with no Python between them.
+calls of the owner's own step code (``Trainer._train_step``,
+``GraphSolver._graph_step``), so the card runs the chunk's ~500 launches
+a step with no Python between them.
+
+``StepRunner`` knows no trainer: it takes the step callable, ``iter_size``,
+the seed of each micro-batch's generator, the device and whether to
+capture.  ``ChunkRunner`` is the ``Trainer``'s runner built through that
+interface.
 
 The graph works on static buffers, which every replay reads and writes in
 place:
@@ -15,7 +22,8 @@ place:
 * per chunk length, the K batches (each field (K, [iter_size,] B, ...)),
   the first step as a 0-d int64 tensor (step ``step0 + i`` is computed on
   the device, so the learning rate and Adam's correction make no host
-  round trip) and the K losses;
+  round trip), the K losses and the last step's other outputs (for
+  ``GraphSolver``, the train net's output blobs);
 * per chunk length, K x iter_size dropout generators registered with the
   graph and re-seeded on the host before each replay with the seeds the
   eager step draws from, so a replay draws the eager step's masks.
@@ -42,6 +50,7 @@ import gc
 import logging
 import time
 import weakref
+from typing import Callable
 
 import torch
 
@@ -76,8 +85,26 @@ def _named(carry) -> dict:
     return {"params": params, "state": state, "opt_state": opt_state}
 
 
+def _is_view(static, tree) -> bool:
+    """Whether every leaf of ``tree`` is the leaf of ``static`` under the
+    same keys (nothing to load)."""
+    if isinstance(static, dict):
+        return isinstance(tree, dict) and static.keys() == tree.keys() \
+            and all(_is_view(static[k], tree[k]) for k in static)
+    return static is tree
+
+
+def _view(tree):
+    """New dicts over the leaves of ``tree``: entries rebound in them
+    leave ``tree`` as it is."""
+    if isinstance(tree, dict):
+        return {k: _view(v) for k, v in tree.items()}
+    return tree
+
+
 class _Chunk:
-    """The static buffers, generators and graph of one chunk length."""
+    """The static buffers, generators, outputs and graph of one chunk
+    length."""
 
     def __init__(self, batches: dict, k: int, iter_size: int,
                  device: torch.device):
@@ -87,6 +114,7 @@ class _Chunk:
                         for n, v in batches.items()}
         self.step0 = torch.zeros((), dtype=torch.int64, device=device)
         self.losses = torch.zeros((k,), dtype=torch.float32, device=device)
+        self.outputs = None
         self.generators = [[torch.Generator(device=device)
                             for _ in range(iter_size)] for _ in range(k)]
         self.graph = None
@@ -96,28 +124,38 @@ class _Chunk:
         self.replays = 0
 
 
-class ChunkRunner:
-    """Runs chunks of ``trainer``'s steps on a static carry, one CUDA graph
-    replay a chunk on the card (no mesh), eager steps otherwise.
+class StepRunner:
+    """Runs chunks of steps on a static carry, one CUDA graph replay a
+    chunk where ``captures`` (the card, no mesh), eager steps otherwise.
+
+    ``step(params, state, opt_state, batch, step, generators=)`` returns
+    (params, state, opt_state, loss[, outputs]): ``step`` is a 0-d int64
+    tensor on the device, ``generators`` the iter_size generators of its
+    micro-batches, ``outputs`` a tree of tensors the chunk's last step
+    leaves in ``outputs``.  ``seed(step, j)``: the seed of micro-batch
+    ``j``'s generator at ``step`` (an int).
 
     ``carry``: (params, state, opt_state), copied into the runner's own
     buffers (``load`` copies a later carry in); ``carry`` afterwards is the
     static carry itself, which the next chunk overwrites: clone what must
     outlive it (``snapshot``)."""
 
-    def __init__(self, trainer, carry):
-        # weak: the trainer keeps its runner, and a cycle would hold the
-        # graphs' pools until the garbage collector found it
-        self.trainer = weakref.proxy(trainer)
-        self.device = trainer.device
+    def __init__(self, step: Callable, carry, *, iter_size: int,
+                 seed: Callable[[int, int], int], device, captures: bool,
+                 name: str = "chunk"):
+        self.step = step
+        self.iter_size = iter_size
+        self.seed = seed
+        self.device = torch.device(device)
+        self.name = name
         self._carry = tree_map(torch.clone, _named(carry))
-        self.captures = trainer.device.type == "cuda" \
-            and trainer.mesh is None
-        if trainer.device.type == "cuda" and trainer.mesh is not None:
-            log.info("mesh: chunks run as eager steps (a collective inside "
-                     "the step is not captured)")
+        self.captures = captures and self.device.type == "cuda"
+        if self.device.type == "cuda" and not captures:
+            log.info("mesh: %ss run as eager steps (a collective inside "
+                     "the step is not captured)", name)
         self._chunks: dict = {}
         self._stream = None
+        self.outputs = None
 
     # ---------------------------------------------------------------- carry
     @property
@@ -133,6 +171,24 @@ class ChunkRunner:
 
     def load(self, carry) -> None:
         _copy_tree(self._carry, _named(carry))
+
+    def adopt(self, carry) -> bool:
+        """Load ``carry`` unless its leaves are the static carry's own;
+        False (nothing loaded) when it does not fit."""
+        named = _named(carry)
+        if _is_view(self._carry, named):
+            return True
+        if not self.fits(carry):
+            return False
+        self.load(carry)
+        return True
+
+    def view(self) -> tuple:
+        """(params, state, opt_state): new dicts over the static leaves,
+        for an owner to hand out (a user who rebinds an entry in them
+        leaves the static carry as it is, and ``adopt`` copies it in)."""
+        c = _view(self._carry)
+        return c["params"], c["state"], c["opt_state"]
 
     def snapshot(self) -> tuple:
         """Clones of the carry, which no later chunk overwrites."""
@@ -157,15 +213,16 @@ class ChunkRunner:
     # ----------------------------------------------------------------- run
     def run(self, batches, step0: int) -> torch.Tensor:
         """Steps ``step0`` .. ``step0 + K - 1`` on ``batches``: a list of K
-        batch dicts, or one dict of (K, ...) stacked tensors.  Returns the
-        static (K,) losses, which the next chunk of this length
-        overwrites."""
+        batch dicts (an empty dict each where the step takes no input), or
+        one dict of (K, ...) stacked tensors, on the device or the host.  Returns the static (K,) losses, which the
+        next chunk of this length overwrites; the last step's other
+        outputs are in ``outputs``, as static."""
         if isinstance(batches, dict):
             k = next(iter(batches.values())).shape[0]
             first = {n: v[0] for n, v in batches.items()}
         else:
             k, first = len(batches), batches[0]
-        iter_size = self.trainer.cfg.solver.iter_size
+        iter_size = self.iter_size
         key = (k, iter_size) + tuple(
             (n, tuple(v.shape), v.dtype) for n, v in sorted(first.items()))
         chunk = self._chunks.get(key)
@@ -174,8 +231,10 @@ class ChunkRunner:
         for n, buf in chunk.batches.items():
             if isinstance(batches, dict):
                 buf.copy_(batches[n])
-            else:
+            elif batches[0][n].device == buf.device:
                 torch.stack([b[n] for b in batches], out=buf)
+            else:                   # host batches: one copy to the device
+                buf.copy_(torch.stack([b[n] for b in batches]))
         chunk.step0.fill_(step0)
         if not self.captures:
             self._seed(chunk, step0)
@@ -188,27 +247,28 @@ class ChunkRunner:
             add_tally(sk.LAUNCH_COUNTS, chunk.tally)
             chunk.replays += 1
         self._chunks[key] = chunk
+        self.outputs = chunk.outputs
         return chunk.losses
 
     def _seed(self, chunk: _Chunk, step0: int) -> None:
         """Each generator re-seeded as the eager step seeds its own."""
-        seed = self.trainer._dropout_seed
         for i, row in enumerate(chunk.generators):
             for j, g in enumerate(row):
-                g.manual_seed(seed(step0 + i) if len(row) == 1
-                              else seed(step0 + i, j))
+                g.manual_seed(self.seed(step0 + i, j))
 
     def _step(self, chunk: _Chunk, i: int):
-        return self.trainer._train_step(
+        return self.step(
             *self.carry, {n: v[i] for n, v in chunk.batches.items()},
             chunk.step0 + i, generators=chunk.generators[i])
 
     def _body(self, chunk: _Chunk) -> None:
-        """The K steps, each writing its carry and loss in place."""
+        """The K steps, each writing its carry and loss in place; the last
+        step's outputs kept (static under a capture)."""
         for i in range(chunk.k):
-            *carry, loss = self._step(chunk, i)
-            _copy_tree(self._carry, _named(carry))
+            params, state, opt_state, loss, *outputs = self._step(chunk, i)
+            _copy_tree(self._carry, _named((params, state, opt_state)))
             chunk.losses[i].copy_(loss)
+            chunk.outputs = outputs[0] if outputs else None
 
     def _capture(self, chunk: _Chunk) -> None:
         dev = self.device
@@ -243,8 +303,8 @@ class ChunkRunner:
             chunk.tally = record_tally(sk.LAUNCH_COUNTS, capture)
         except RuntimeError as exc:
             raise RuntimeError(
-                f"capturing a {chunk.k}-step chunk as a CUDA graph failed "
-                f"at {_origin(exc)}") from exc
+                f"capturing a {chunk.k}-step {self.name} as a CUDA graph "
+                f"failed at {_origin(exc)}") from exc
         finally:
             if collecting:
                 gc.enable()
@@ -253,6 +313,29 @@ class ChunkRunner:
         chunk.capture_s = time.perf_counter() - t0
         chunk.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         chunk.graph = graph
-        log.info("captured a %d-step chunk in %.3f s (graph pool %.1f MiB; "
-                 "kernel launches a replay %s)", chunk.k, chunk.capture_s,
-                 chunk.pool_bytes / 2**20, chunk.tally)
+        log.info("captured a %d-step %s in %.3f s (graph pool %.1f MiB; "
+                 "kernel launches a replay %s)", chunk.k, self.name,
+                 chunk.capture_s, chunk.pool_bytes / 2**20, chunk.tally)
+
+
+class ChunkRunner(StepRunner):
+    """The ``Trainer``'s runner: its ``_train_step``, iter_size and dropout
+    seeds (``_dropout_seed(step)``, or ``(step, j)`` over micro-batches),
+    capturing on the card without a mesh."""
+
+    def __init__(self, trainer, carry):
+        # weak: the trainer keeps its runner, and a cycle would hold the
+        # graphs' pools until the garbage collector found it
+        owner = weakref.proxy(trainer)
+        iter_size = trainer.cfg.solver.iter_size
+
+        def step(*args, **kw):
+            return owner._train_step(*args, **kw)
+
+        def seed(it: int, j: int) -> int:
+            return owner._dropout_seed(it) if iter_size == 1 \
+                else owner._dropout_seed(it, j)
+
+        super().__init__(step, carry, iter_size=iter_size, seed=seed,
+                         device=trainer.device,
+                         captures=trainer.mesh is None)

@@ -9,11 +9,24 @@ over ``test_iter`` batches (solver.cpp:334-404), snapshots of the learned
 weights and the solver history in the reference's files
 (solver.cpp:406-457) and restore (solver.cpp:470-481).
 
-* The net is a ``GraphNet``; a step is eager PyTorch on one device:
-  forward, autograd backward, the solver update.  With ``iter_size`` > 1
-  the gradients of the micro-batches are summed in a Python loop (the
-  solver divides by ``iter_size``), the BN statistics threaded through
-  them in order.
+* The net is a ``GraphNet``; a step is forward, autograd backward and
+  the solver update.  With ``iter_size`` > 1 the gradients of the
+  micro-batches are summed (the solver divides by ``iter_size``), the BN
+  statistics threaded through them in order.
+* On the card (no mesh) each iteration is one replay of a CUDA graph
+  captured around one step (``training/dispatch.StepRunner``), as the JAX
+  package's is one ``jax.jit`` call: the iteration's micro-batches are
+  pulled on the host and copied into static (iter_size, B, ...) buffers,
+  the iteration is a 0-d int64 tensor on the device, the params, BN state
+  and solver history a static carry the replay updates in place.  Around
+  the replay everything stays on the host, in the reference's order.
+  ``params``, ``state`` and ``opt_state`` are then views of the static
+  carry: a later step overwrites them (clone what must outlive it), and
+  trees rebound in their place (``restore``, ``copy_weights``, an
+  assignment) are copied into it before the next step or test pass.
+  Each test batch is one replay too (``utils/graphs.GraphedCall``),
+  reading the static carry in place.  ``_train_step`` and
+  ``_test_outputs_eager`` are the plain versions, run eagerly.
 * Data layers declare inputs; the host-side feed of each is built from its
   prototxt message: ``feeds=`` arrays, HDF5Data through
   ``data/hdf5_compat.py`` (h5py), ImageData / PairImageData through
@@ -26,6 +39,11 @@ weights and the solver history in the reference's files
   consumed, so a resumed run repeats the uninterrupted one; dropout and
   the other random layers draw from a generator seeded by (seed, iter).
 
+* User ``Python`` layers run inside the capture: they must make no host
+  sync (``.item()``, ``float(tensor)``, a copy to the host).  A layer that
+  does fails the capture, which raises naming its line; nothing falls
+  back to eager steps.
+
 * ``mesh=``: data parallelism over a ``parallel.make_mesh`` mesh.  Every
   rank pulls the same global batches and takes its rows (each micro-batch
   split on its sample axis); BN / BatchNorm take the global batch's
@@ -33,13 +51,15 @@ weights and the solver history in the reference's files
   all-reduced to the global-batch mean.  The loss layers normalize over
   each rank's rows, so a layer whose count varies by rank (an
   ``ignore_label``) weighs the ranks' means equally.  Rank 0 writes the
-  snapshots.
+  snapshots.  Its steps and test passes run eagerly on the same static
+  buffers, as on the CPU (a collective is not captured here).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -47,10 +67,12 @@ import torch
 from ..device import resolve_device
 from ..models.graph_net import DATA_TYPES, GraphNet
 from ..utils.prototxt import parse_prototxt, solver_config_from_prototxt
+from ..utils.graphs import GraphedCall, on_device
 from ..utils.seed import derive_seed
 from ..utils.tree import tree_leaves, tree_map
 from ..parallel.mesh import mesh_device, shard_context
 from ..parallel.train_step import local_batch, reduce_grads
+from .dispatch import StepRunner
 from .optim import learning_rate, make_solver
 
 log = logging.getLogger("mms_tpu_torch.graph_solver")
@@ -359,7 +381,13 @@ class GraphSolver:
         # init consumed batches for shape inference; the reference's setup
         # only peeks at the prefetch queue, so iteration 0 trains on batch 0
         self._reset_feeds()
-        self._step_gen = torch.Generator(device=self.device)
+        # the step's runner (static carry, one graph a step shape; made at
+        # the first step or test pass) and the graphs of the test passes
+        # and pycaffe forwards; eager over a mesh and on the CPU
+        self.runner: StepRunner | None = None
+        self._runner_for = None
+        self.forwards = GraphedCall(self.device, captures=mesh is None,
+                                    name="solver forward")
         self.iter_ = 0
         self._losses: list[float] = []
         self._smoothed = 0.0
@@ -415,24 +443,27 @@ class GraphSolver:
         self._test_feeds = [self._phase_feeds(n, "test", salt=i + 1)
                             for i, n in enumerate(self.test_nets)]
 
-    def _next_batch(self, feed_list):
-        """Merge every data layer's next batch into one dict of tensors on
-        the device."""
+    def _host_batch(self, feed_list):
+        """Merge every data layer's next batch into one dict of host
+        tensors."""
         batch = {}
         for f in feed_list:
             batch.update(next(f))
-        return {k: torch.as_tensor(np.asarray(v), device=self.device)
-                for k, v in batch.items()}
+        return {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+
+    def _next_batch(self, feed_list):
+        """``_host_batch`` on the device."""
+        return on_device(self._host_batch(feed_list), self.device)
 
     # ------------------------------------------------------------------
-    def _loss_and_grads(self, batch, generator):
+    def _loss_and_grads(self, params, state, batch, generator):
         leaves = [p.detach().requires_grad_(True)
-                  for p in tree_leaves(self.params)]
+                  for p in tree_leaves(params)]
         it = iter(leaves)
-        params = tree_map(lambda _: next(it), self.params)
+        params = tree_map(lambda _: next(it), params)
         shards = self._shards if self._shards.dp_size > 1 else None
         loss, (blobs, state) = self.net.loss(
-            params, self.state, local_batch(batch, self._shards),
+            params, state, local_batch(batch, self._shards),
             generator=generator, shards=shards)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [g if g is not None else torch.zeros_like(x)
@@ -441,24 +472,87 @@ class GraphSolver:
         it = iter(grads)
         outs = {t: blobs[t].detach()
                 for t in self.net.output_blob_names()}
-        return loss, tree_map(lambda _: next(it), self.params), state, outs
+        return loss, tree_map(lambda _: next(it), params), state, outs
 
-    def _train_step(self):
-        """One solver iteration on the next batch(es): forward, backward
-        (summed over ``iter_size`` micro-batches), update.  Returns the
-        mean loss (0-d tensor) and the last micro-batch's output blobs."""
-        iter_size = self.cfg.iter_size
+    def _step_body(self, params, state, opt_state, batches, it, generators):
+        """One solver iteration on ``batches`` (a batch dict per
+        micro-batch, each drawing from its generator): forward, backward
+        summed over the micro-batches, update at iteration ``it`` (an int
+        or a 0-d integer tensor on the device).  Returns (params, state,
+        opt_state, mean loss (0-d tensor), the last micro-batch's output
+        blobs)."""
         total, grads = None, None
-        for i in range(iter_size):
-            self._step_gen.manual_seed(
-                derive_seed(self.seed, _STEP, self.iter_, i))
-            loss, g, self.state, outs = self._loss_and_grads(
-                self._next_batch(self._feeds), self._step_gen)
+        for batch, gen in zip(batches, generators):
+            loss, g, state, outs = self._loss_and_grads(params, state,
+                                                        batch, gen)
             total = loss if total is None else total + loss
             grads = g if grads is None else tree_map(torch.add, grads, g)
-        self.params, self.opt_state = self.solver.apply(
-            self.params, grads, self.opt_state, self.iter_)
-        return total / iter_size, outs
+        params, opt_state = self.solver.apply(params, grads, opt_state, it)
+        return params, state, opt_state, total / len(batches), outs
+
+    def _step_seed(self, it: int, i: int) -> int:
+        """The seed of micro-batch ``i``'s generator at iteration ``it``."""
+        return derive_seed(self.seed, _STEP, it, i)
+
+    def _train_step(self):
+        """One solver iteration on the next batch(es), eagerly (the plain
+        version of a step's replay): forward, backward (summed over
+        ``iter_size`` micro-batches), update.  Returns the mean loss (0-d
+        tensor) and the last micro-batch's output blobs."""
+        iter_size = self.cfg.iter_size
+        batches = [self._next_batch(self._feeds) for _ in range(iter_size)]
+        gens = [torch.Generator(device=self.device).manual_seed(
+            self._step_seed(self.iter_, i)) for i in range(iter_size)]
+        (self.params, self.state, self.opt_state, loss,
+         outs) = self._step_body(self.params, self.state, self.opt_state,
+                                 batches, self.iter_, gens)
+        return loss, outs
+
+    def _graph_step(self, params, state, opt_state, batch, it, generators):
+        """The runner's step: ``batch`` holds the iteration's micro-batches
+        stacked on a leading axis when iter_size > 1."""
+        micro = [batch] if self.cfg.iter_size == 1 else [
+            {k: v[i] for k, v in batch.items()}
+            for i in range(self.cfg.iter_size)]
+        return self._step_body(params, state, opt_state, micro, it,
+                               generators)
+
+    def _pull_train_batch(self) -> dict:
+        """The iteration's micro-batches on the host, stacked on a leading
+        axis when iter_size > 1."""
+        micro = [self._host_batch(self._feeds)
+                 for _ in range(self.cfg.iter_size)]
+        if len(micro) == 1:
+            return micro[0]
+        return {k: torch.stack([m[k] for m in micro]) for k in micro[0]}
+
+    def _static_carry(self) -> StepRunner:
+        """The step's runner with ``params``, ``state`` and ``opt_state``
+        loaded into its static carry (copied in where a tree was rebound
+        since), and those three rebound to views of it.  A carry that no
+        longer fits, or a new solver or iter_size, makes a new runner and
+        drops the forwards' graphs (they read the old carry)."""
+        carry = (self.params, self.state, self.opt_state)
+        key = (self.solver, self.cfg.iter_size)
+        runner = self.runner
+        if runner is None or self._runner_for != key \
+                or not runner.adopt(carry):
+            owner = weakref.proxy(self)  # the solver keeps its runner
+
+            def step(*args, **kw):
+                return owner._graph_step(*args, **kw)
+
+            def seed(it: int, i: int) -> int:
+                return owner._step_seed(it, i)
+
+            runner = self.runner = StepRunner(
+                step, carry, iter_size=self.cfg.iter_size, seed=seed,
+                device=self.device, captures=self.mesh is None,
+                name="solver step")
+            self._runner_for = key
+            self.forwards.drop()
+        self.params, self.state, self.opt_state = runner.view()
+        return runner
 
     def step(self, iters: int, *, action_fn=None):
         """Solver::Step (solver.cpp:193-290).  ``action_fn`` is the
@@ -488,8 +582,12 @@ class GraphSolver:
                 self.test_all()
             for cb in self.callbacks:
                 cb[0]()  # on_start
-            loss, outs = self._train_step()
-            self._update_smoothed(float(loss))
+            runner = self._static_carry()   # after what may rebind weights
+            batch = self._pull_train_batch()
+            losses = runner.run([batch], self.iter_)
+            # host copies: the next replay overwrites the static outputs
+            outs = {k: v.clone() for k, v in runner.outputs.items()}
+            self._update_smoothed(float(losses[0]))
             self.last_outs = outs
             for cb in self.callbacks:
                 cb[1]()  # on_gradients_ready
@@ -572,7 +670,44 @@ class GraphSolver:
     def test_all(self):
         return [self.test(i) for i in range(len(self.test_nets))]
 
+    def _test_forward(self, i, p, s, batch, generator):
+        """The plain version of one test batch: test net ``i``'s output
+        blobs as float32."""
+        blobs, _ = self.test_nets[i].apply(p, s, batch, train=False,
+                                           generator=generator)
+        return {t: blobs[t].to(torch.float32)
+                for t in self.test_nets[i].output_blob_names()}
+
+    def _test_outputs(self, i, p, s, batch, seed):
+        """One test batch (host tensors) as one replay of the graph of
+        test net ``i`` and the batch's shapes, reading ``p`` and ``s`` in
+        place; returns fresh tensors."""
+        return self.forwards(
+            ("test", i), lambda b, generators: self._test_forward(
+                i, p, s, b, generators[0]),
+            batch, fixed=(p, s), generators=(seed,))
+
     @torch.no_grad()
+    def _test_outputs_eager(self, i, p, s, batch, seed):
+        """``_test_outputs`` as an eager call."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return self._test_forward(i, p, s, on_device(batch, self.device),
+                                  gen)
+
+    def _test_means(self, i, outputs) -> dict:
+        """Every output-blob element of test net ``i`` averaged over its
+        test_iter batches, each through ``outputs`` (``_test_outputs`` or
+        its eager twin); the sum stays on the device, the means are host
+        arrays."""
+        p, s = self._shared_test_trees(i)
+        n = self.test_iters[i] if i < len(self.test_iters) else 1
+        total = None
+        for t_i in range(n):
+            out = outputs(i, p, s, self._host_batch(self._test_feeds[i]),
+                          derive_seed(self.seed, _TEST, self.iter_, i, t_i))
+            total = out if total is None else tree_map(torch.add, total, out)
+        return {k: v.cpu().numpy() / n for k, v in total.items()}
+
     def test(self, test_net_id: int = 0):
         """Solver::Test (solver.cpp:334-404): average every output-blob
         element over test_iter batches; returns {blob: mean array}.
@@ -580,18 +715,8 @@ class GraphSolver:
         DummyData refills each pass; Dropout is a no-op)."""
         i = test_net_id
         tnet = self.test_nets[i]
-        names = tnet.output_blob_names()
-        p, s = self._shared_test_trees(i)
-        gen = torch.Generator(device=self.device)
-        n = self.test_iters[i] if i < len(self.test_iters) else 1
-        total = None
-        for t_i in range(n):
-            gen.manual_seed(derive_seed(self.seed, _TEST, self.iter_, i, t_i))
-            blobs, _ = tnet.apply(p, s, self._next_batch(self._test_feeds[i]),
-                                  train=False, generator=gen)
-            out = {t: blobs[t].to(torch.float32) for t in names}
-            total = out if total is None else tree_map(torch.add, total, out)
-        mean = {k: v.cpu().numpy() / n for k, v in total.items()}
+        self._static_carry()
+        mean = self._test_means(i, self._test_outputs)
         # solver.cpp:330's announce line, so the log parses like caffe's
         log.info("Iteration %d, Testing net (#%d)", self.iter_, i)
         self._display_outputs(f"Test#{i}", mean, net=tnet,

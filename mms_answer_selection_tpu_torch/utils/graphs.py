@@ -16,14 +16,24 @@ state changes: a new version of it, which no old graph may read.
 A key is captured the first time it runs: one call of the function on a
 side stream first (outputs discarded; it loads the kernels' library,
 makes the kernels' first attribute calls and lets cuBLAS and cuDNN set
-up), then ``torch.cuda.graph`` around a second.  A capture that fails (a
-host sync, a copy from the host) raises, naming the line it started at;
-nothing falls back to eager calls.  The graphs of one ``GraphedCall``
+up), then ``torch.cuda.graph`` around a second, so a function must not
+write what it reads (the caller applies such updates to the outputs).
+A capture that fails (a host sync, a copy from the host) raises, naming
+the line it started at; nothing falls back to eager calls, and the next
+capture takes a fresh pool (the failed one stays marked as recording).  The graphs of one ``GraphedCall``
 share one memory pool, which is safe because its replays never overlap
 (callers serialise them) and every graph's static outputs stay referenced
 until the key is dropped: a replay rewrites only the memory its own
 capture allocated or freed, and each result is cloned before the next
 replay.
+
+A function with random layers takes ``generators=``: one seed a
+generator.  Each key keeps its own generators on the device, registered
+with its graph at capture and seeded on the host before every call (a
+replay, or an eager call), so a replay draws what an eager call on fresh
+generators seeded so would draw.  The function receives them as its
+keyword ``generators``.  Keys that pass none behave as if the argument
+did not exist.
 
 On the CPU, and where the caller asks for no capture (over a mesh, whose
 collectives are not captured), the same function runs eagerly on the same
@@ -117,6 +127,11 @@ def on_device(tree, device):
     return _map(lambda t: t.to(device), tree)
 
 
+def _seed(generators, seeds) -> None:
+    for g, s in zip(generators, seeds):
+        g.manual_seed(s)
+
+
 def _address(t: torch.Tensor) -> tuple:
     return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
 
@@ -124,9 +139,11 @@ def _address(t: torch.Tensor) -> tuple:
 class _Entry:
     """The static buffers, graph and outputs of one key."""
 
-    def __init__(self, leaves, device):
+    def __init__(self, leaves, device, n_generators: int = 0):
         self.inputs = [torch.empty(tuple(t.shape), dtype=t.dtype,
                                    device=device) for t in leaves]
+        self.generators = [torch.Generator(device=device)
+                           for _ in range(n_generators)]
         self.graph = None
         self.outputs = None
         self.tally: dict = {}
@@ -174,30 +191,46 @@ class GraphedCall:
                 for k, e in self._entries.items()]
 
     # ----------------------------------------------------------------- call
-    def __call__(self, key: tuple, fn: Callable, *args, fixed=()):
+    def __call__(self, key: tuple, fn: Callable, *args, fixed=(),
+                 generators=()):
         """``fn(*args)`` on static copies of ``args`` (dicts and tuples of
         tensors, numpy arrays or lists; None allowed): one replay of the
         graph of this key on the card, an eager call otherwise.  ``key``:
         what ``fn`` closes over that shapes its work; ``fixed``: a tree of
-        tensors ``fn`` reads in place (their addresses join the key)."""
+        tensors ``fn`` reads in place (their addresses join the key);
+        ``generators``: a seed for each generator ``fn`` draws from
+        (passed to it as ``generators=``, a list)."""
         leaves: list = []
         spec = _flatten(args, leaves)
         held: list = []
         _flatten(fixed, held)
+        seeds = tuple(int(s) for s in generators)
         full = (key, spec, tuple((tuple(t.shape), t.dtype) for t in leaves),
-                tuple(_address(t) for t in held))
+                tuple(_address(t) for t in held), len(seeds))
         entry = self._entries.get(full)
         if entry is None:
-            entry = _Entry(leaves, self.device)
+            entry = _Entry(leaves, self.device, len(seeds))
         for buf, t in zip(entry.inputs, leaves):
             buf.copy_(t)
         static = _unflatten(spec, iter(entry.inputs))
+        kw = {"generators": entry.generators} if seeds else {}
+
+        def call():
+            return fn(*static, **kw)
+
         if not self.captures:
+            _seed(entry.generators, seeds)
             with torch.no_grad():
-                out = fn(*static)
+                out = call()
+            # an output that is (a view of) a static input would change
+            # under the key's next call: a copy, as a replay's clone is
+            ins = {t.untyped_storage().data_ptr() for t in entry.inputs}
+            out = _map(lambda t: t.clone() if t.untyped_storage().data_ptr()
+                       in ins else t, out)
         else:
             if entry.graph is None:
-                self._capture(entry, key, fn, static)
+                self._capture(entry, key, call)
+            _seed(entry.generators, seeds)  # after the warm-up's draws
             entry.graph.replay()
             add_tally(sk.LAUNCH_COUNTS, entry.tally)
             entry.replays += 1
@@ -206,15 +239,16 @@ class GraphedCall:
         self._entries[full] = entry
         return out
 
-    def _capture(self, entry: _Entry, key, fn, static) -> None:
+    def _capture(self, entry: _Entry, key, call) -> None:
         dev = self.device
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
             self._pool = torch.cuda.graph_pool_handle()
         side, current = self._stream, torch.cuda.current_stream(dev)
         side.wait_stream(current)
+        _seed(entry.generators, [0] * len(entry.generators))
         with torch.no_grad(), torch.cuda.stream(side):
-            fn(*static)                     # warm-up, outputs discarded
+            call()                          # warm-up, outputs discarded
         current.wait_stream(side)
         # no garbage collection inside the capture: a collected cycle that
         # holds another graph destroys it mid-capture, a call the capture
@@ -224,6 +258,8 @@ class GraphedCall:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
+        for g in entry.generators:
+            graph.register_generator_state(g)
         held = []
 
         def capture():
@@ -231,7 +267,7 @@ class GraphedCall:
             with torch.no_grad(), torch.cuda.graph(
                     graph, pool=self._pool, stream=side,
                     capture_error_mode="thread_local"):
-                held.append(fn(*static))
+                held.append(call())
 
         collecting = gc.isenabled()
         gc.disable()
@@ -239,6 +275,7 @@ class GraphedCall:
         try:
             entry.tally = record_tally(sk.LAUNCH_COUNTS, capture)
         except RuntimeError as exc:
+            self._pool = torch.cuda.graph_pool_handle()
             raise RuntimeError(
                 f"capturing {self.name} {key} as a CUDA graph failed at "
                 f"{_origin(exc)}") from exc

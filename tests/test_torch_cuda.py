@@ -14,6 +14,7 @@ probe-all and a reloaded index the unchunked engine's bits (each pair's
 score is computed alone, whatever the launch shape).
 """
 
+import contextlib
 import dataclasses
 
 import pytest
@@ -875,8 +876,9 @@ def test_graph_net_v4_on_cuda_matches_cpu():
 
 def test_generic_step_launches_the_pair_map_kernels(tmp_path):
     """One GraphSolver step on the V4 recipe's net launches the forward
-    once and each backward kernel once; a test pass launches only the
-    forward."""
+    once and each backward kernel once (the first step captures its graph
+    after a warm-up step run eagerly, so it launches each twice); a test
+    pass launches only the forward."""
     dev = _cuda()
     from mms_answer_selection_tpu_torch.training.graph_solver import \
         GraphSolver
@@ -891,11 +893,13 @@ def test_generic_step_launches_the_pair_map_kernels(tmp_path):
     gs = GraphSolver(str(tmp_path / "solver.prototxt"),
                      feeds={"data": {**batch, "batch_size": 50}},
                      device=dev)
-    n0 = dict(T.LAUNCH_COUNTS)
-    gs.step(1)
-    torch.cuda.synchronize()
-    for name in ("pair_maps_fwd", "pair_maps_bwd_qa", "pair_maps_bwd_w"):
-        assert T.LAUNCH_COUNTS[name] == n0[name] + 1, name
+    for extra in (1, 0):                 # the capture's warm-up, then none
+        n0 = dict(T.LAUNCH_COUNTS)
+        gs.step(1)
+        torch.cuda.synchronize()
+        for name in ("pair_maps_fwd", "pair_maps_bwd_qa",
+                     "pair_maps_bwd_w"):
+            assert T.LAUNCH_COUNTS[name] == n0[name] + 1 + extra, name
     assert gs.params["sim_cross"]["w"].is_cuda
 
 
@@ -929,24 +933,30 @@ def gpu_mode():
 def test_pycaffe_step_launches_the_pair_map_kernels(tmp_path, gpu_mode):
     """One ``solver.step(1)`` through ``caffe.get_solver`` under
     ``set_mode_gpu()`` launches the forward once and each backward kernel
-    once; a forward of ``solver.test_nets[0]`` launches only the
-    forward."""
+    once; a forward of ``solver.test_nets[0]`` launches only the forward
+    (the first of each captures its graph after a warm-up call run
+    eagerly, so it launches its kernels twice)."""
     dev = _cuda()
     caffe = gpu_mode
     path, feeds, _ = _pycaffe_files(tmp_path)
     solver = caffe.get_solver(path, feeds=feeds)
     assert solver._gs.device.type == dev.type
-    n0 = dict(T.LAUNCH_COUNTS)
-    solver.step(1)
-    torch.cuda.synchronize()
-    for name in ("pair_maps_fwd", "pair_maps_bwd_qa", "pair_maps_bwd_w"):
-        assert T.LAUNCH_COUNTS[name] == n0[name] + 1, name
-    n1 = dict(T.LAUNCH_COUNTS)
-    out = solver.test_nets[0].forward()
-    torch.cuda.synchronize()
-    assert T.LAUNCH_COUNTS["pair_maps_fwd"] == n1["pair_maps_fwd"] + 1
-    assert T.LAUNCH_COUNTS["pair_maps_bwd_w"] == n1["pair_maps_bwd_w"]
-    assert T.LAUNCH_COUNTS["pair_maps_bwd_qa"] == n1["pair_maps_bwd_qa"]
+    for extra in (1, 0):
+        n0 = dict(T.LAUNCH_COUNTS)
+        solver.step(1)
+        torch.cuda.synchronize()
+        for name in ("pair_maps_fwd", "pair_maps_bwd_qa",
+                     "pair_maps_bwd_w"):
+            assert T.LAUNCH_COUNTS[name] == n0[name] + 1 + extra, name
+    for extra in (1, 0):
+        n1 = dict(T.LAUNCH_COUNTS)
+        out = solver.test_nets[0].forward()
+        torch.cuda.synchronize()
+        assert T.LAUNCH_COUNTS["pair_maps_fwd"] == \
+            n1["pair_maps_fwd"] + 1 + extra
+        assert T.LAUNCH_COUNTS["pair_maps_bwd_w"] == n1["pair_maps_bwd_w"]
+        assert T.LAUNCH_COUNTS["pair_maps_bwd_qa"] == \
+            n1["pair_maps_bwd_qa"]
     assert 0 <= float(out["map"]) <= 1
     assert float(solver.net.blobs["loss"].data) > 0
 
@@ -1610,3 +1620,248 @@ def test_eval_step_replays_bit_for_bit_and_fit_evals_are_replays():
     tr.fit(split(300), split(60), test_data=split(70), steps_per_dispatch=4)
     # evals at steps 0, 5, 10, 15 on dev and test: two keys, 8 replays
     assert tr.evals.replays == 8 and len(tr.evals.keys()) == 2
+
+
+# ------------------------------------------------ the generic path's graphs
+# Every GraphSolver iteration, test batch, pycaffe forward, ``nettest`` and
+# ``extract_features`` iteration is one CUDA graph replay
+# (``training/dispatch.StepRunner``, ``utils/graphs.GraphedCall``).  Held
+# to the eager code bit for bit: a step under torch's deterministic
+# algorithms (by default the embedding gradient's scatter sums in the order
+# its atomics land, so two eager steps part in the last bits), the
+# forwards as they are.
+GENERIC_SOLVER = """net: "train.prototxt"
+type: "AdaDelta" base_lr: 1.0 momentum: 0.95 delta: 5e-7
+weight_decay: 5e-4 lr_policy: "fixed" max_iter: 100 random_seed: 3
+display: 0 average_loss: 1 snapshot_prefix: "{prefix}" iter_size: {iter_size}
+"""
+
+
+@contextlib.contextmanager
+def _deterministic():
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _generic_feeds(n=200, batch=50, seed=5):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"data": {
+        "question": rng.integers(0, 500, (n, 40)).astype(np.int32),
+        "answer": rng.integers(0, 500, (n, 40)).astype(np.int32),
+        "overlap_feat": rng.random((n, 2)).astype(np.float32),
+        "label": (rng.random(n) < 0.3).astype(np.int32),
+        "group": np.repeat(np.arange(n // 10), 10).astype(np.int32),
+        "batch_size": batch, "shuffle": False}}
+
+
+def _generic_solver(tmp_path, dev, *, iter_size=1, batch=50, test=False):
+    """The V4 recipe's train net (dropout on, a xavier W) at vocab 500 under
+    an AdaDelta solver; with ``test`` its eval net as the test net."""
+    from mms_answer_selection_tpu_torch.training.graph_solver import (
+        GraphSolver)
+    from mms_answer_selection_tpu_torch.utils.prototxt import (
+        net_prototxt_from_config)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(TM.V4, vocab_size=500,
+                              sim_weight_init="xavier")
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    (tmp_path / "train.prototxt").write_text(
+        net_prototxt_from_config(cfg, batch_size=batch))
+    text = GENERIC_SOLVER.format(prefix=tmp_path / "g", iter_size=iter_size)
+    if test:
+        (tmp_path / "eval.prototxt").write_text(
+            net_prototxt_from_config(cfg, phase="eval", batch_size=batch))
+        text += 'test_net: "eval.prototxt" test_iter: 2\n'
+    (tmp_path / "solver.prototxt").write_text(text)
+    return GraphSolver(str(tmp_path / "solver.prototxt"),
+                       feeds=_generic_feeds(batch=batch), device=dev)
+
+
+def _solver_leaves(gs):
+    from mms_answer_selection_tpu_torch.utils.tree import tree_leaves
+
+    return tree_leaves({"p": gs.params, "s": gs.state, "o": gs.opt_state})
+
+
+def _replay_and_eager(a, b, steps):
+    """``steps`` iterations of ``a`` through ``step`` (replays) and of ``b``
+    through the eager ``_train_step``: their losses."""
+    got, want = [], []
+    for _ in range(steps):
+        a.step(1)
+        got.append(a._smoothed)
+        want.append(float(b._train_step()[0]))
+        b.iter_ += 1
+    return got, want
+
+
+@pytest.mark.parametrize("iter_size", [1, 2])
+def test_generic_step_replays_the_eager_step_bit_for_bit(tmp_path,
+                                                         iter_size):
+    dev = _cuda()
+    a = _generic_solver(tmp_path / "a", dev, iter_size=iter_size)
+    b = _generic_solver(tmp_path / "b", dev, iter_size=iter_size)
+    with _deterministic():
+        got, want = _replay_and_eager(a, b, 3)
+    assert got == want
+    assert all(torch.equal(x, y) for x, y in zip(_solver_leaves(a),
+                                                 _solver_leaves(b)))
+    assert a.runner.captures and a.runner.replays == 3
+
+
+def test_generic_launches_are_replays_times_the_tally(tmp_path):
+    dev = _cuda()
+    gs = _generic_solver(tmp_path, dev, iter_size=2)
+    gs.step(1)                                       # captures
+    (stats,) = gs.runner.stats()
+    assert stats["tally"] == {"pair_maps_fwd": 2, "pair_maps_bwd_qa": 2,
+                              "pair_maps_bwd_w": 2}
+    before = dict(T.LAUNCH_COUNTS)
+    gs.step(4)
+    assert {k: T.LAUNCH_COUNTS[k] - before[k] for k in before} == {
+        k: 4 * stats["tally"].get(k, 0) for k in before}
+    assert gs.runner.replays == 5
+
+
+def test_test_pass_replays_its_eager_pass(tmp_path):
+    dev = _cuda()
+    a = _generic_solver(tmp_path / "a", dev, test=True)
+    b = _generic_solver(tmp_path / "b", dev, test=True)
+    with _deterministic():
+        _replay_and_eager(a, b, 2)
+    got = a._test_means(0, a._test_outputs)
+    want = b._test_means(0, b._test_outputs_eager)
+    assert got.keys() == want.keys() == {"loss", "map", "mrr", "auc"}
+    assert all((got[k] == want[k]).all() for k in want)
+    (stats,) = a.forwards.stats()                    # test_iter 2
+    assert stats["replays"] == 2 and stats["tally"] == {"pair_maps_fwd": 1}
+
+
+def test_pycaffe_forwards_replay_the_eager_forwards(tmp_path):
+    from mms_answer_selection_tpu_torch.models.pynet import Net
+
+    dev = _cuda()
+    _generic_solver(tmp_path, dev)                   # writes the net
+    text = (tmp_path / "train.prototxt").read_text()
+    feeds = _generic_feeds()["data"]
+    batch = {k: torch.as_tensor(feeds[k][:50]) for k in
+             ("question", "answer", "overlap_feat", "label")}
+    graphed, eager = Net(text, phase="train", device=dev), \
+        Net(text, phase="train", device=dev)
+    eager.forwards.captures = False
+    for net in (graphed, eager):                     # same seed: same init
+        net.forward(**batch)
+    got, want = [], []
+    for net, out in ((graphed, got), (eager, want)):
+        for _ in range(2):                           # dropout, BN moving
+            out.append({k: b.tensor for k, b in net.forward(**batch).items()})
+        out.append({k: b.tensor for k, b in net.forward(
+            start="conv0", end="fc2").items()})
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        assert all(torch.equal(g[k], w[k]) for k in w)
+    for layer, sub in eager.state.items():
+        for k, v in sub.items():
+            assert torch.equal(graphed.state[layer][k], v), (layer, k)
+    assert graphed.forwards.replays == 4 and len(graphed.forwards.keys()) == 2
+
+
+def test_nettest_and_extract_features_replay_their_eager_calls(tmp_path,
+                                                               capsys):
+    import json
+
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch import cli as tcli
+    from mms_answer_selection_tpu_torch.models.graph_net import GraphNet
+    from mms_answer_selection_tpu_torch.utils.graphs import on_device
+    from mms_answer_selection_tpu_torch.utils.seed import derive_seed
+
+    dev = _cuda()
+    gs = _generic_solver(tmp_path, dev, test=True)
+    gs.step(3)
+    model, _ = gs.snapshot()
+    eval_path = tmp_path / "eval.prototxt"
+    feeds = _generic_feeds()["data"]
+    keys = ("question", "answer", "label", "group", "overlap_feat")
+    batches = [{k: feeds[k][i:i + 50] for k in keys} for i in (0, 50)]
+    real = tcli._test_feeds
+    tcli._test_feeds = lambda *_: [iter(batches * 2)]
+    try:
+        tcli.main(["nettest", "--model", str(eval_path), "--weights", model,
+                   "--iterations", "2", "--device", "cuda"])
+        nt = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        tcli.main(["extract_features", "--model", str(eval_path),
+                   "--weights", model, "--blobs", "prob,fc2",
+                   "--iterations", "2", "--out", str(tmp_path / "f"),
+                   "--device", "cuda"])
+    finally:
+        tcli._test_feeds = real
+    net = GraphNet(eval_path.read_text(), phase="test")
+    p, s = gs._shared_test_trees(0)
+    body = tcli._nettest_forward(net, p, s)
+    fbody = tcli._features_forward(net, p, s, ["prob", "fc2"])
+    with torch.no_grad():
+        outs = [body(on_device(b, dev)) for b in batches]
+        feats = [fbody(on_device(b, dev), generators=[
+            torch.Generator(device=dev).manual_seed(
+                derive_seed(0, 0xFEA7, i))]) for i, b in enumerate(batches)]
+    for k in ("map", "mrr", "auc"):             # the CLI's arithmetic
+        want = np.ravel((outs[0][k] + outs[1][k]).cpu().numpy()) / 2
+        assert nt[k] == float(want[0]), k
+    for b in ("prob", "fc2"):
+        got = np.load(tmp_path / "f" / f"{b}.npy")
+        assert np.array_equal(got, np.concatenate(
+            [f[b].cpu().numpy() for f in feats])), b
+
+
+def test_a_syncing_python_layer_fails_to_capture_naming_its_line(
+        tmp_path, monkeypatch):
+    from mms_answer_selection_tpu_torch.models.pynet import Net
+
+    dev = _cuda()
+    (tmp_path / "syncing_layer.py").write_text(
+        "def forward(x):\n"
+        "    if float(x.sum()) < -1e30:   # a host sync\n"
+        "        raise ValueError('huge')\n"
+        "    return x * 2\n")
+    monkeypatch.syspath_prepend(str(tmp_path))
+    net = Net("""
+    input: "data" input_shape { dim: 4 dim: 8 }
+    layer { name: "py" type: "Python" bottom: "data" top: "out"
+      python_param { module: "syncing_layer" layer: "forward" } }
+    """, device=dev)
+    for _ in range(2):                               # nothing is cached
+        with pytest.raises(RuntimeError, match=r"capturing pycaffe forward"
+                           r"(.|\n)*syncing_layer.py:2 \(if float"):
+            net.forward(data=torch.ones(4, 8))
+    assert net.forwards.keys() == [] and net.forwards.replays == 0
+    assert torch.equal(net._net.apply({}, {}, {"data": torch.ones(
+        4, 8, device=dev)})[0]["out"], torch.full((4, 8), 2.0, device=dev))
+
+
+def test_weights_replaced_mid_run_then_steps_equal_eager(tmp_path):
+    dev = _cuda()
+    a = _generic_solver(tmp_path / "a", dev)
+    b = _generic_solver(tmp_path / "b", dev)
+    other = _generic_solver(tmp_path / "o", dev)
+    other.step(4)
+    model, _ = other.snapshot()
+    with _deterministic():
+        _replay_and_eager(a, b, 2)
+        runner = a.runner
+        for gs in (a, b):
+            gs.copy_weights(model)
+            gs.params["fc1"]["w"].mul_(0.5)          # a write in place
+        got, want = _replay_and_eager(a, b, 2)
+    assert got == want
+    assert all(torch.equal(x, y) for x, y in zip(_solver_leaves(a),
+                                                 _solver_leaves(b)))
+    assert a.runner is runner and a.runner.replays == 4
