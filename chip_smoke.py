@@ -143,6 +143,19 @@ at the V4 recipe's widths, after building the hand-written kernels from
   and its pool's MaxSim kernel); ``cli matbridge`` in its own process
   driven over its socket and held to in-process pycaffe; ``plot`` (or its refusal without
   matplotlib);
+* the meshed programs over one NCCL rank (``mesh_phase``), under
+  deterministic algorithms: 20 recipe steps of ``Trainer(mesh=)`` in two
+  replayed chunks, 20 ``GraphSolver(mesh=)`` iterations and one
+  ``build_sharded_train_step`` step, each equal bit for bit to the same
+  meshed run eager and to the unmeshed run (the chunks' tallies holding
+  the three pair-map kernels, launches = replays x tally + the warm-up
+  step), the meshed eval steps and ``build_sharded_eval_step`` against
+  their eager calls, a 262,144-candidate int8 and bf16
+  ``QueryEngine(mesh=)`` whose top-10 of 1 and 256 queries and rerank of
+  32 equal its eager calls and the unmeshed engine's, ids and values bit
+  for bit (its MaxSim kernel launching); the meshed step at batch 50 and
+  1,024 and the meshed query eager against replayed in turns, with the
+  profiler's device time and idle share;
 * the examples (``examples_phase``): the JAX package's example scripts as
   the port's twins (``mms_answer_selection_tpu_torch/examples``), each
   through its ``main`` on the card: the recipe rehearsal with ``--hard``
@@ -175,7 +188,7 @@ its error against the plain version, its time, the plain version's, the
 bound and what sets it, and the one-call library time (null where no
 single PyTorch call computes the function); lines before it, the
 launches of the dispatch, the generic, the pycaffe, the multimodal, the
-tail and the examples' paths.  About 320-420 s on an H100, build
+tail, the meshed and the examples' paths.  About 320-470 s on an H100, build
 included, peaking near 28 GiB of device memory.
 """
 
@@ -4347,6 +4360,395 @@ def tail_phase(dev, card: str, splits) -> dict:
 
 
 
+
+# the meshed programs (mesh_phase) over one NCCL rank (make_mesh(1,
+# devices="cuda")), under deterministic algorithms: MESH_STEPS recipe
+# steps of Trainer(mesh=) in chunks of MESH_K, as many GraphSolver(mesh=)
+# iterations and one build_sharded_train_step step, each replayed against
+# the same meshed run eager and against the plain (unmeshed) run, bit for
+# bit; the meshed eval steps against their eager calls; a POOL-candidate
+# int8 and bf16 QueryEngine(mesh=) at MESH_NQ queries (and its rerank)
+# against its eager calls and the unmeshed engine, bit for bit; eager
+# against replay in turns for the meshed step at MESH_TIMED batches and
+# the meshed query at MESH_NQ queries
+MESH_STEPS, MESH_K = 20, 10
+MESH_TIMED = (BATCH, 1024)
+MESH_NQ = (1, N_QUERIES)
+MESH_ENGINES = ("int8", "bf16")
+
+
+def zero_counts() -> None:
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+
+    for name in sk.LAUNCH_COUNTS:
+        sk.LAUNCH_COUNTS[name] = 0
+
+
+def launched() -> dict:
+    from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
+
+    torch.cuda.synchronize()
+    return {k: v for k, v in sk.LAUNCH_COUNTS.items() if v}
+
+
+def mesh_trainer_check(model, tcfg, splits, info, mesh, dev,
+                       card: str) -> dict:
+    """MESH_STEPS steps in chunks of MESH_K through the plain Trainer (its
+    chunks replayed), Trainer(mesh=) replayed and Trainer(mesh=) eager
+    (``captures`` off): the three carries and losses bit for bit, each
+    meshed chunk one replay whose tally holds the three pair-map kernels
+    MESH_K times; returns the meshed replays' launches."""
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    runs = {}
+    for name in ("plain", "replay", "eager"):
+        tr = Trainer(model, tcfg, device=dev,
+                     mesh=None if name == "plain" else mesh)
+        if name == "eager":
+            tr.captures = False
+        p, s, o = tr.init(pretrained=info["pretrained"])
+        batches = corpus_batches(tr, splits, MESH_STEPS)
+        zero_counts()
+        losses = []
+        for c in range(0, MESH_STEPS, MESH_K):
+            chunk = {k: torch.stack([b[k] for b in batches[c:c + MESH_K]])
+                     for k in batches[0]}
+            p, s, o, loss = tr.scan_train_steps(p, s, o, chunk, c)
+            losses.append(loss)
+        runs[name] = (tr, (p, s, o), torch.cat(losses), launched())
+    tr, carry, losses, counts = runs["replay"]
+    chunks = MESH_STEPS // MESH_K
+    stats = tr.runner.stats()
+    tally = stats[0]["tally"]
+    if not (tr.captures and tr.runner.captures and tr.runner.mesh is mesh
+            and tr.runner.replays == chunks
+            and runs["plain"][0].runner.replays == chunks
+            and not runs["eager"][0].runner.captures
+            and runs["eager"][0].runner.replays == 0):
+        raise AssertionError(f"Trainer(mesh=): not {chunks} replays: "
+                             f"{stats}")
+    # the launches: each replay's tally, and the capture's warm-up step,
+    # which runs eagerly
+    if any(tally.get(n, 0) < MESH_K for n in CLI_TRAIN_KERNELS) or any(
+            counts.get(n, 0) != chunks * tally[n] + tally[n] // MESH_K
+            for n in tally):
+        raise AssertionError(f"Trainer(mesh=): a replay's tally {tally}, "
+                             f"launches {counts}")
+    for name in ("eager", "plain"):
+        if not (same_tensors(carry, runs[name][1])
+                and torch.equal(losses, runs[name][2])):
+            raise AssertionError(f"Trainer(mesh=) replayed is not the "
+                                 f"{name} run bit for bit")
+    log(f"mesh: Trainer(mesh=make_mesh(1)) over one NCCL rank, {MESH_STEPS} "
+        f"recipe steps (xavier W, dropout on) in {chunks} chunks of "
+        f"{MESH_K}: each chunk one replay (a replay launches {tally}), the "
+        f"params, BN state, history and losses = the meshed eager run = "
+        f"the plain Trainer's, bit for bit (losses {float(losses[0]):.6f} "
+        f"-> {float(losses[-1]):.6f}); capture {stats[0]['capture_s']:.3f} "
+        f"s, graph pool {stats[0]['pool_bytes'] / 2**20:.1f} MiB [{card}]")
+    return counts
+
+
+def mesh_eval_check(model, tcfg, splits, info, mesh, dev, card: str) -> None:
+    """The meshed Trainer's eval step on the dev and test splits and
+    ``build_sharded_eval_step`` on a dev batch: each replay = its eager
+    call bit for bit (the first timed in turns)."""
+    from mms_answer_selection_tpu_torch.parallel import (
+        build_sharded_eval_step)
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    tr = Trainer(model, tcfg, device=dev, mesh=mesh)
+    p, s, _ = tr.init(pretrained=info["pretrained"])
+    # the eval runs no collective: it takes no mesh (rank 0 may call it
+    # alone) and keys on the carry's addresses
+    if not tr.evals.captures or tr.evals.mesh is not None:
+        raise AssertionError("the meshed eval step does not capture alone")
+    for name in ("dev", "test"):
+        batch = tr._full_batch(splits[name])
+        graphed_vs_eager(
+            f"meshed eval step {name} ({len(splits[name]['label'])} pairs, "
+            f"one NCCL rank)", tr.evals, lambda: tr._eval_step(p, s, batch),
+            capture_off(tr.evals, lambda: tr._eval_step(p, s, batch)), 20,
+            card)
+    batch = {k: v[:BATCH] for k, v in tr._full_batch(splits["dev"]).items()
+             if k != "group"}
+    replay = build_sharded_eval_step(model, mesh)
+    eager = build_sharded_eval_step(model, mesh, captures=False)
+    want = eager(p, s, batch)
+    for turn in ("capture", "replay"):
+        if not torch.equal(replay(p, s, batch), want):
+            raise AssertionError(f"build_sharded_eval_step: the {turn} "
+                                 f"differs from the eager step")
+    log(f"mesh: build_sharded_eval_step over one NCCL rank, {BATCH} dev "
+        f"pairs: capture and replay = the eager step bit for bit")
+
+
+def mesh_solver_check(splits, info, mesh, dev, root: Path,
+                      card: str) -> dict:
+    """MESH_STEPS GraphSolver iterations on the recipe's nets (xavier W,
+    dropout on): plain (replayed), GraphSolver(mesh=) replayed and eager;
+    the losses and every leaf of the params, BN state and history bit for
+    bit, each meshed iteration one replay; returns the meshed replays'
+    launches."""
+    from mms_answer_selection_tpu_torch.training.graph_solver import (
+        GraphSolver)
+
+    runs = {}
+    for name in ("plain", "replay", "eager"):
+        d = root / f"mesh_solver_{name}"
+        d.mkdir()
+        gs = GraphSolver(graph_files(d, info["vocab_size"], xavier=True,
+                                     test=False),
+                         feeds=graph_feeds(splits), device=dev,
+                         mesh=None if name == "plain" else mesh)
+        if name == "eager":
+            gs.captures = gs.forwards.captures = False
+        zero_counts()
+        losses = []
+        for _ in range(MESH_STEPS):
+            gs.step(1)               # one iteration: _smoothed = its loss
+            losses.append(gs._smoothed)
+        runs[name] = (gs, losses, launched())
+    gs, losses, counts = runs["replay"]
+    tally = gs.runner.stats()[0]["tally"]
+    if not (gs.runner.captures and gs.runner.replays == MESH_STEPS
+            and runs["plain"][0].runner.replays == MESH_STEPS
+            and runs["eager"][0].runner.replays == 0) or any(
+                tally.get(n, 0) < 1 for n in CLI_TRAIN_KERNELS):
+        raise AssertionError(f"GraphSolver(mesh=): {gs.runner.stats()}")
+    leaves = solver_leaves(gs)
+    for name in ("eager", "plain"):
+        other = solver_leaves(runs[name][0])
+        unequal = [k for k in other if not torch.equal(leaves[k], other[k])]
+        if unequal or losses != runs[name][1]:
+            raise AssertionError(f"GraphSolver(mesh=) replayed is not the "
+                                 f"{name} run bit for bit: {unequal}")
+    log(f"mesh: GraphSolver(mesh=make_mesh(1)), the recipe's nets, "
+        f"{MESH_STEPS} iterations each one replay (a replay launches "
+        f"{tally}): losses and all {len(leaves)} leaves = the meshed eager "
+        f"run = the plain GraphSolver's, bit for bit (loss {losses[0]:.6f} "
+        f"-> {losses[-1]:.6f}) [{card}]")
+    return counts
+
+
+def mesh_sharded_check(model, tcfg, splits, info, mesh, dev,
+                       card: str) -> dict:
+    """One ``build_sharded_train_step`` step over the one-rank mesh,
+    replayed and eager, against the plain Trainer's ``_train_step`` on the
+    same batch and dropout seed: params, BN state, history and loss bit
+    for bit; the replay one ``cudaGraphLaunch`` running the pair-map
+    kernels.  Returns the replay's launches."""
+    from mms_answer_selection_tpu_torch.parallel import (
+        build_sharded_train_step, params_pspec, shard_pytree)
+    from mms_answer_selection_tpu_torch.training import Trainer
+    from mms_answer_selection_tpu_torch.utils.tree import tree_map
+
+    tr = Trainer(model, tcfg, device=dev)
+    p, s, o = tr.init(pretrained=info["pretrained"])
+    batch = corpus_batches(tr, splits, 1)[0]
+
+    def copies():
+        return tuple(tree_map(torch.clone, t) for t in (p, s, o))
+
+    want = tr._train_step(*copies(), batch, 0)
+    got, counts = {}, {}
+    for mode in ("replay", "eager"):
+        sp, ss, so = copies()
+        sp = shard_pytree(sp, mesh, params_pspec(sp, mesh))
+        step = build_sharded_train_step(model, tr.solver, mesh, donate=False,
+                                        captures=mode == "replay")(sp, ss, so)
+        gen = torch.Generator(device=dev).manual_seed(tr._dropout_seed(0))
+        zero_counts()
+        got[mode] = step(sp, ss, so, batch, 0, gen)
+        counts[mode] = launched()
+        if mode == "replay":
+            prof = profile_call(lambda: step(sp, ss, so, batch, 0, torch.
+                                             Generator(device=dev)))
+    for mode, out in got.items():
+        if not same_tensors(tuple(out), tuple(want)):
+            raise AssertionError(f"build_sharded_train_step ({mode}) is not "
+                                 f"the plain Trainer step bit for bit")
+    if prof["host_calls"].get("cudaGraphLaunch") != 1 or any(
+            counts["replay"].get(n, 0) < 1 for n in CLI_TRAIN_KERNELS):
+        raise AssertionError(f"the sharded step is not one replay running "
+                             f"the pair maps: {prof}, {counts}")
+    log(f"mesh: build_sharded_train_step over one NCCL rank, one step at "
+        f"batch {BATCH} (dropout on): replayed and eager = the plain "
+        f"Trainer step bit for bit (loss {float(want[3]):.6f}); a replay "
+        f"is {prof['host_calls']} on the host, launching "
+        f"{counts['replay']} [{card}]")
+    return counts["replay"]
+
+
+def mesh_step_times(model, tcfg, splits, info, mesh, dev, b: int,
+                    card: str) -> None:
+    """The meshed Trainer's one-step chunk at batch ``b``: eager (its
+    runner's ``captures`` off), replayed, and the unmeshed Trainer's
+    replay of the same batch, in turns (each the median of calls ended by
+    a sync); the profiler's read of the meshed two (device time; idle
+    share against the p50)."""
+    import dataclasses
+
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    cfg = dataclasses.replace(tcfg, batch_size=b)
+    tr = Trainer(model, cfg, device=dev, mesh=mesh)
+    p, s, o = tr.init(pretrained=info["pretrained"])
+    one = corpus_batches(tr, splits, 1)
+    runner = tr._runner_for((p, s, o))
+    twin = Trainer(model, cfg, device=dev)
+    plain = twin._runner_for(twin.init(pretrained=info["pretrained"]))
+
+    def run(flag):
+        def call():
+            runner.captures = flag
+            runner.run(one, 0)
+        return call
+
+    reps = max(5, 1000 // b)
+    times = {"eager": [], "replay": [], "unmeshed": []}
+    for mode in ("eager", "replay", "unmeshed", "unmeshed", "replay",
+                 "eager"):
+        times[mode].append(sync_ms(
+            (lambda: plain.run(one, 0)) if mode == "unmeshed"
+            else run(mode == "replay"), reps))
+    p50 = {m: sum(t) / 2 for m, t in times.items()}
+    prof = {m: profile_call(run(m == "replay")) for m in ("eager", "replay")}
+    for m, pr in prof.items():
+        pr["idle"] = max(0.0, 1 - pr["device_ms"] / p50[m])
+    if prof["replay"]["host_calls"].get("cudaGraphLaunch") != 1:
+        raise AssertionError(f"the meshed step is not one graph launch: "
+                             f"{prof['replay']}")
+    log(f"time meshed train step (Trainer(mesh=), one NCCL rank) V4 batch "
+        f"{b}: eager p50 {p50['eager']:.3f} ms, replay p50 "
+        f"{p50['replay']:.3f} ms ({p50['eager'] / p50['replay']:.3f}x), "
+        f"unmeshed replay p50 {p50['unmeshed']:.3f} ms (turns "
+        f"{({m: [round(x, 3) for x in t] for m, t in times.items()})}); "
+        f"profiler: eager "
+        f"{prof['eager']['device_ops']} device ops, "
+        f"{prof['eager']['device_ms']:.3f} ms device time, idle "
+        f"{prof['eager']['idle']:.1%}; replay {prof['replay']['device_ops']}"
+        f" device ops, {prof['replay']['device_ms']:.3f} ms, idle "
+        f"{prof['replay']['idle']:.1%}, host {prof['replay']['host_calls']}"
+        f" [{card}]")
+
+
+def mesh_engine_check(cfg, mesh, dev, card: str) -> dict:
+    """A POOL-candidate QueryEngine(mesh=) of each MESH_ENGINES dtype over
+    one NCCL rank beside the unmeshed engine on the same candidates: the
+    top-K of MESH_NQ queries replayed = its eager call (timed in turns,
+    ``graphed_vs_eager``) = the unmeshed engine's, and the rerank's too,
+    ids and values bit for bit; each launches its MaxSim kernel.  Returns
+    the meshed engines' launches."""
+    from mms_answer_selection_tpu_torch.serve import QueryEngine
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    params, state = random_model(cfg, lambda *s, scale=1.0: torch.randn(
+        s, generator=gen, device=dev) * scale, gen, dev)
+    cand = torch.randint(0, VOCAB, (POOL, W2), generator=gen, device=dev)
+    queries = torch.randint(0, VOCAB, (N_QUERIES, W1), generator=gen,
+                            device=dev)
+    counts = {}
+    for pd in MESH_ENGINES:
+        plain = QueryEngine(params, cfg, pool_dtype=pd, chunk_size=CHUNK,
+                            device=dev).build_index(cand)
+        meshed = QueryEngine(params, cfg, pool_dtype=pd, chunk_size=CHUNK,
+                             mesh=mesh).build_index(cand)
+        calls = meshed._calls
+        if not calls.captures or calls.mesh is not mesh:
+            raise AssertionError("the meshed engine does not capture")
+        zero_counts()
+        for nq in MESH_NQ:
+            q = queries[:nq]
+            got, _ = graphed_vs_eager(
+                f"meshed query {pd} at {POOL} {nq} q (one NCCL rank)", calls,
+                lambda: meshed.query(q, k=K),
+                capture_off(calls, lambda: meshed.query(q, k=K)),
+                max(3, 40 // nq), card)
+            if not same_tensors(got, plain.query(q, k=K)):
+                raise AssertionError(f"meshed query {pd} {nq} q: not the "
+                                     f"unmeshed engine's top-{K}")
+            turns = {"meshed": [], "unmeshed": []}
+            for m in ("meshed", "unmeshed", "unmeshed", "meshed"):
+                eng = meshed if m == "meshed" else plain
+                turns[m].append(sync_ms(lambda: eng.query(q, k=K),
+                                        max(3, 40 // nq)))
+            log(f"time meshed query {pd} at {POOL} {nq} q (one NCCL rank) "
+                f"against the unmeshed engine, replays in turns: p50 "
+                f"{sum(turns['meshed']) / 2:.3f} against "
+                f"{sum(turns['unmeshed']) / 2:.3f} ms (turns "
+                f"{({m: [round(x, 3) for x in t] for m, t in turns.items()})}"
+                f") [{card}]")
+        q = queries[:N_RERANK]
+        want = plain.query_rerank(state, q, k=K, shortlist=SHORTLIST)
+        for turn in ("capture", "replay"):
+            if not same_tensors(meshed.query_rerank(
+                    state, q, k=K, shortlist=SHORTLIST), want):
+                raise AssertionError(f"meshed rerank {pd}: the {turn} is "
+                                     f"not the unmeshed engine's")
+        counts[pd] = launched()
+        if counts[pd].get(f"maxsim_{pd}", 0) < 1:
+            raise AssertionError(f"the meshed {pd} engine never launched "
+                                 f"maxsim_{pd}")
+        log(f"mesh: QueryEngine(mesh=make_mesh(1)) {pd} at {POOL}: the top-"
+            f"{K} of {list(MESH_NQ)} queries and the rerank of {N_RERANK} "
+            f"(S={SHORTLIST}) replayed = eager = the unmeshed engine, ids "
+            f"and values bit for bit; {calls.replays} replays of "
+            f"{len(calls.keys())} graphs, launches {counts[pd]} [{card}]")
+        del plain, meshed, calls
+        torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_phase(dev, card: str, splits, info) -> dict:
+    """The meshed programs as CUDA graph replays over one NCCL rank (see
+    MESH_STEPS): the Trainer's chunks and evals, GraphSolver's iterations,
+    the sharded train and eval steps and the split-pool engine, each
+    against its eager meshed run and the unmeshed one; the meshed step
+    and query timed eager against replay.  Returns the launches, part by
+    part, counted from 0 in each."""
+    import dataclasses
+    import tempfile
+    import threading
+
+    import torch.distributed as dist
+
+    from mms_answer_selection_tpu_torch.models.mms_qa import (V4,
+                                                              MMSQAConfig)
+    from mms_answer_selection_tpu_torch.parallel import make_mesh
+    from mms_answer_selection_tpu_torch.parallel.mesh import mesh_captures
+
+    t0 = time.perf_counter()
+    tcfg = recipe_trainer()
+    model = dataclasses.replace(V4, vocab_size=info["vocab_size"],
+                                sim_weight_init="xavier")
+    mesh = make_mesh(1, devices="cuda")
+    launches = {}
+    log(f"mesh phase: threads alive "
+        f"{sorted(t.name for t in threading.enumerate())}")
+    try:
+        if dist.get_backend() != "nccl" or not mesh_captures(mesh):
+            raise AssertionError("the one-rank mesh is not an NCCL mesh "
+                                 "that captures")
+        with deterministic_algorithms(), torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=True,
+                allow_tf32=False), tempfile.TemporaryDirectory() as td:
+            launches["trainer"] = mesh_trainer_check(
+                model, tcfg, splits, info, mesh, dev, card)
+            launches["solver"] = mesh_solver_check(splits, info, mesh, dev,
+                                                   Path(td), card)
+            launches["sharded"] = mesh_sharded_check(
+                model, tcfg, splits, info, mesh, dev, card)
+            mesh_eval_check(model, tcfg, splits, info, mesh, dev, card)
+        for b in MESH_TIMED:
+            mesh_step_times(model, tcfg, splits, info, mesh, dev, b, card)
+        launches["query"] = mesh_engine_check(MMSQAConfig(vocab_size=VOCAB),
+                                              mesh, dev, card)
+    finally:
+        dist.destroy_process_group()
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
 # the examples' twins (mms_answer_selection_tpu_torch/examples), each called
 # through its main() at the JAX script's defaults but where noted, and the
 # kernels each must launch.  ``retrieval_1m`` also runs IVF and the coarse
@@ -4603,6 +5005,7 @@ def main() -> int:
     graph = graph_phase(dev, card, splits, info)
     pycaffe = pycaffe_phase(dev, card, splits, info)
     tail = tail_phase(dev, card, splits)
+    meshed = mesh_phase(dev, card, splits, info)
     del splits, info
 
     # ---------------------------------------------------------------- times
@@ -4656,6 +5059,7 @@ def main() -> int:
     log(f"launches on the pycaffe path: {json.dumps(pycaffe)}")
     log(f"launches on the multimodal path: {json.dumps(mm)}")
     log(f"launches on the tail path: {json.dumps(tail)}")
+    log(f"launches on the meshed path: {json.dumps(meshed)}")
     log(f"launches on the examples' paths: {json.dumps(examples)}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
         f"GiB; run {time.perf_counter() - started:.1f} s, build included")

@@ -1132,13 +1132,19 @@ def cmd_export(args):
     artifact (``deploy.py``); the reference's analog is the frozen
     .caffemodel + deploy-prototxt pair C++ caffe consumes
     (tools/caffe.cpp:229-296).  The program is the one for the device it
-    was exported on; ``deploy.load_scorer`` moves it to another."""
-    from .deploy import save_scorer
+    was exported on; ``deploy.load_scorer`` moves it to another among
+    ``--platforms``, and refuses a device the artifact does not name."""
+    from .deploy import check_platforms, save_scorer
 
+    try:
+        platforms = check_platforms(args.platforms.split(","))
+    except ValueError as exc:
+        raise SystemExit(f"export: {exc}") from None
     _, meta, _ = _load_prepped(args.data)
     model_cfg, _ = _experiment_configs(args, meta)
     params, state = _load_model(_best_checkpoint(args), args.device)
-    header = save_scorer(args.out, params, state, model_cfg, batch=args.batch)
+    header = save_scorer(args.out, params, state, model_cfg, batch=args.batch,
+                         platforms=platforms)
     print(json.dumps({"out": args.out, **header}))
 
 
@@ -1569,6 +1575,9 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=None,
                    help="pin the batch dimension (default: symbolic — "
                         "one program, any request size)")
+    p.add_argument("--platforms", default="cpu,cuda",
+                   help="comma-separated devices the artifact may be "
+                        "loaded on (cpu, cuda)")
     p.add_argument("--max-iter", type=int, default=40001)
     _device_flag(p)
     p.set_defaults(fn=cmd_export)

@@ -17,7 +17,13 @@ File layout, as the JAX package's: ``MAGIC | uint64 header_len | header
 json | program bytes``, the program bytes being ``torch.export.save``'s.
 The header carries the shape facts a server needs without reading the
 program, the writer's torch version (a program is loaded by the torch
-minor version that wrote it) and the pair-map route.
+minor version that wrote it), the pair-map route and the platforms the
+artifact may be loaded on (``platforms``, as the JAX package's lowering
+targets).  The JAX package lowers for ("cpu", "tpu") by default; this
+package runs on the CPU and on CUDA cards, so its default is ("cpu",
+"cuda"), and a platform it cannot run ("tpu", say) is refused when the
+artifact is written.  ``load_scorer`` refuses a device the header does not
+name.
 """
 
 from __future__ import annotations
@@ -35,6 +41,19 @@ from .utils.tree import tree_leaves
 MAGIC = b"MMSTPRT1"
 FORMAT = 1
 PAIR_MAP_ROUTE = "custom_op"
+PLATFORMS = ("cpu", "cuda")  # the devices its programs run on
+
+
+def check_platforms(platforms) -> tuple:
+    """``platforms`` checked: at least one, each a device type this
+    package runs on."""
+    names = tuple(str(p) for p in platforms)
+    bad = [p for p in names if p not in PLATFORMS]
+    if bad or not names:
+        raise ValueError(
+            f"cannot export for platform(s) {bad or list(names)}: this "
+            f"package's programs run on {list(PLATFORMS)}")
+    return names
 
 
 def _flat(tree, prefix=()):
@@ -81,11 +100,14 @@ class _Scorer(torch.nn.Module):
         return out["logits"], out["prob"]
 
 
-def export_scorer(params, state, cfg, *, batch: int | None = None):
+def export_scorer(params, state, cfg, *, batch: int | None = None,
+                  platforms=PLATFORMS):
     """``torch.export`` of the inference forward with the weights baked
     in, on the device the parameters lie on.  batch: None exports a
     symbolic batch dimension (one program for every request size); an int
-    pins it."""
+    pins it.  platforms: the device types the program is for (checked; one
+    program serves each, moved at load)."""
+    check_platforms(platforms)
     dev = tree_leaves(params)[0].device
     module = _Scorer(params, state, cfg).eval()
     n = 2 if batch is None else int(batch)
@@ -102,9 +124,12 @@ def export_scorer(params, state, cfg, *, batch: int | None = None):
 
 
 def save_scorer(path: str, params, state, cfg, *,
-                batch: int | None = None) -> dict:
-    """Export and write the artifact; returns the header dict."""
-    program = export_scorer(params, state, cfg, batch=batch)
+                batch: int | None = None, platforms=PLATFORMS) -> dict:
+    """Export and write the artifact; returns the header dict, whose
+    ``platforms`` lists the devices ``load_scorer`` will load it on."""
+    platforms = check_platforms(platforms)
+    program = export_scorer(params, state, cfg, batch=batch,
+                            platforms=platforms)
     buf = io.BytesIO()
     torch.export.save(program, buf)
     blob = buf.getvalue()
@@ -115,6 +140,7 @@ def save_scorer(path: str, params, state, cfg, *,
         "overlap_features": int(cfg.overlap_features),
         "vocab_size": int(cfg.vocab_size),
         "batch": batch,
+        "platforms": list(platforms),
         "device": tree_leaves(params)[0].device.type,
         "torch": torch.__version__,
         "pair_maps": PAIR_MAP_ROUTE,
@@ -191,10 +217,15 @@ def read_header(path: str) -> tuple[dict, bytes]:
 
 def load_scorer(path: str, *, device=None) -> LoadedScorer:
     """Read an artifact written by ``save_scorer``.  Refuses a bad magic,
-    format or length, and a program written by another torch minor
-    version."""
+    format or length, a device type the header's ``platforms`` do not
+    name, and a program written by another torch minor version."""
     from .ops import sim_cross_kernels  # noqa: F401  registers the operator
     header, blob = read_header(path)
+    named = header.get("platforms", list(PLATFORMS))
+    kind = torch.device("cuda" if device is None else device).type
+    if kind not in named:
+        raise ValueError(f"{path} was exported for {named}, not {kind!r}: "
+                         f"export it again with --platforms")
     if _minor(header.get("torch", "")) != _minor(torch.__version__):
         raise ValueError(
             f"artifact was written by torch {header.get('torch')}; this is "

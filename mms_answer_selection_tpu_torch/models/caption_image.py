@@ -61,25 +61,27 @@ class CaptionImageConfig:
 
 def caption_image_init(cfg: CaptionImageConfig, *,
                        generator: torch.Generator, pretrained=None,
-                       device=None):
-    """float32 (params, state), drawn from ``generator`` in the order
+                       dtype=torch.float32, device=None):
+    """(params, state) of ``dtype``, drawn from ``generator`` in the order
     embed, conv blocks, proj, sim.  The metric W is xavier: unlike the QA
     recipe no conv stack follows the map to bootstrap a zero W."""
     params: dict = {"embed": embed_init(generator, cfg.vocab_size,
                                         cfg.embed_dim, pretrained=pretrained,
-                                        device=device)}
+                                        dtype=dtype, device=device)}
     convs, state, in_ch = conv_blocks_init(generator, cfg.blocks,
-                                           cfg.channels, device=device)
+                                           cfg.channels, dtype=dtype,
+                                           device=device)
+    kw = {"dtype": dtype, "device": device}
     params.update(convs)
     # project patch channels into the shared D-dim token space
     params["proj"] = {
         "w": fillers.xavier(generator, (in_ch, cfg.embed_dim), fan_in=in_ch,
-                            device=device),
-        "b": torch.zeros((cfg.embed_dim,), device=device),
+                            **kw),
+        "b": torch.zeros((cfg.embed_dim,), **kw),
     }
     m, d = cfg.sim_measures, cfg.embed_dim
     params["sim"] = {"w": fillers.xavier(generator, (m, d, d), fan_in=d * d,
-                                         device=device)}
+                                         **kw)}
     return params, state
 
 

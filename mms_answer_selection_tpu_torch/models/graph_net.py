@@ -117,31 +117,32 @@ def _pool_mode(v) -> str:
     return str(v).lower()
 
 
-def _filler(spec, generator, shape, *, device, fan_in=None):
-    """FillerParameter message -> float32 tensor (filler.hpp's registry)."""
+def _filler(spec, generator, shape, *, device, fan_in=None,
+            dtype=torch.float32):
+    """FillerParameter message -> tensor of ``dtype`` (filler.hpp's
+    registry)."""
     spec = spec or {}
     t = str(_one(spec.get("type"), "constant")).lower()
+    kw = {"device": device, "dtype": dtype}
     if t == "constant":
         return fillers.constant(shape, float(_one(spec.get("value"), 0.0)),
-                                device=device)
+                                **kw)
     if t == "xavier":
-        return fillers.xavier(generator, shape, fan_in=fan_in, device=device)
+        return fillers.xavier(generator, shape, fan_in=fan_in, **kw)
     if t == "uniform":
         return fillers.uniform(generator, shape,
                                float(_one(spec.get("min"), 0.0)),
-                               float(_one(spec.get("max"), 1.0)),
-                               device=device)
+                               float(_one(spec.get("max"), 1.0)), **kw)
     if t == "gaussian":
         return fillers.gaussian(generator, shape,
                                 float(_one(spec.get("mean"), 0.0)),
-                                float(_one(spec.get("std"), 1.0)),
-                                device=device)
+                                float(_one(spec.get("std"), 1.0)), **kw)
     if t == "msra":
-        return fillers.msra(generator, shape, fan_in=fan_in, device=device)
+        return fillers.msra(generator, shape, fan_in=fan_in, **kw)
     if t == "positive_unitball":
-        return fillers.positive_unitball(generator, shape, device=device)
+        return fillers.positive_unitball(generator, shape, **kw)
     if t == "bilinear":
-        return fillers.bilinear(shape, device=device)
+        return fillers.bilinear(shape, **kw)
     raise ValueError(f"unknown filler type {t!r}")
 
 
@@ -184,7 +185,7 @@ class _Ctx:
     """Per-walk context handed to layer handlers."""
 
     def __init__(self, net, params, state, *, train, generator,
-                 initializing, device, shards=None):
+                 initializing, device, shards=None, dtype=torch.float32):
         self.net = net
         # a dp split of the batch: BN's statistics and dropout's masks are
         # the global batch's (``parallel.ShardContext``)
@@ -198,6 +199,7 @@ class _Ctx:
         self.generator = generator
         self.initializing = initializing
         self.device = device
+        self.dtype = dtype          # of the parameters and state made
         self.layer_index = 0
 
     def init_key(self) -> torch.Generator:
@@ -368,17 +370,17 @@ class GraphNet:
 
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator, example_inputs: dict, *,
-             device=None):
-        """Create (params, state) on ``device`` (``None`` means CUDA, and
-        raises without it) by walking the graph over ``example_inputs``
-        (shapes matter, values don't).  Draws come from ``generator``,
-        on its own device, so a CPU generator gives the same weights
-        whichever device they land on."""
+             dtype=torch.float32, device=None):
+        """Create (params, state) of ``dtype`` on ``device`` (``None``
+        means CUDA, and raises without it) by walking the graph over
+        ``example_inputs`` (shapes matter, values don't).  Draws come from
+        ``generator``, on its own device, so a CPU generator gives the
+        same weights whichever device they land on."""
         self.device = resolve_device(device)
         params: dict = {}
         state: dict = {}
         ctx = _Ctx(self, params, state, train=True, generator=generator,
-                   initializing=True, device=self.device)
+                   initializing=True, device=self.device, dtype=dtype)
         with torch.no_grad():
             self._walk(ctx, example_inputs)
         return params, state
@@ -694,10 +696,12 @@ def _dummy_data(ctx, node, bottoms):
         f = fill[i] if i < len(fill) else (fill[0] if fill else None)
         t = str(_one((f or {}).get("type"), "constant")).lower()
         if t == "constant":
-            outs.append(_filler(f, None, sh, device=ctx.device))
+            outs.append(_filler(f, None, sh, device=ctx.device,
+                                dtype=ctx.dtype))
         else:  # random fillers draw fresh each pass (dummy_data_layer.cpp:19)
             gen = ctx.init_key() if ctx.initializing else ctx.step_key()
-            outs.append(_filler(f, gen, sh, device=ctx.device))
+            outs.append(_filler(f, gen, sh, device=ctx.device,
+                                dtype=ctx.dtype))
     return outs
 
 
@@ -744,7 +748,8 @@ def _parameter(ctx, node, bottoms):
     sh = _one(p.get("shape"), {})
     shape = tuple(int(d) for d in _as_list(sh.get("dim"))) if sh else ()
     return ctx.param(node, "w", lambda g: _filler(None, g, shape,
-                                                  device=ctx.device))
+                                                  device=ctx.device,
+                                                  dtype=ctx.dtype))
 
 
 @_register("Silence")
@@ -787,12 +792,13 @@ def _convolution(ctx, node, bottoms):
     fan_in = (cin // group) * kh * kw
     w = ctx.param(node, "w", lambda g: _filler(
         p.get("weight_filler"), g, (kh, kw, cin // group, cout),
-        fan_in=fan_in, device=ctx.device))
+        fan_in=fan_in, device=ctx.device, dtype=ctx.dtype))
     y = _conv_nhwc(x, w.permute(3, 2, 0, 1), stride=(sh_, sw),
                    padding=(ph, pw), dilation=(dh, dw), groups=group)
     if bias_term:
         b = ctx.param(node, "b", lambda g: _filler(
-            p.get("bias_filler"), g, (cout,), device=ctx.device))
+            p.get("bias_filler"), g, (cout,), device=ctx.device,
+            dtype=ctx.dtype))
         y = y + b
     return y
 
@@ -817,9 +823,10 @@ def _deconvolution(ctx, node, bottoms):
     fan_in = (cin // group) * kh * kw
     w = ctx.param(node, "w", lambda g: _filler(
         p.get("weight_filler"), g, (cin, cout // group, kh, kw),
-        fan_in=fan_in, device=ctx.device))
+        fan_in=fan_in, device=ctx.device, dtype=ctx.dtype))
     b = ctx.param(node, "b", lambda g: _filler(
-        p.get("bias_filler"), g, (cout,), device=ctx.device)) \
+        p.get("bias_filler"), g, (cout,), device=ctx.device,
+            dtype=ctx.dtype)) \
         if bias_term else None
     return zoo.deconv2d(x, w, b, stride=st, pad=pd, dilation=dil,
                         group=group)
@@ -838,11 +845,12 @@ def _inner_product(ctx, node, bottoms):
     d_in = int(math.prod(x.shape[ax:]))
     w = ctx.param(node, "w", lambda g: _filler(
         p.get("weight_filler"), g, (d_in, n_out), fan_in=d_in,
-        device=ctx.device))
+        device=ctx.device, dtype=ctx.dtype))
     y = x.reshape(-1, d_in) @ w
     if bias_term:
         b = ctx.param(node, "b", lambda g: _filler(
-            p.get("bias_filler"), g, (n_out,), device=ctx.device))
+            p.get("bias_filler"), g, (n_out,), device=ctx.device,
+            dtype=ctx.dtype))
         y = y + b
     return y.reshape(lead + (n_out,))
 
@@ -860,7 +868,7 @@ def _embed(ctx, node, bottoms):
 
     def make_w(g):
         w = _filler(p.get("weight_filler"), g, (vocab, dim), fan_in=vocab,
-                    device=ctx.device)
+                    device=ctx.device, dtype=ctx.dtype)
         if source:
             _, vecs = load_pretrained_vectors(str(source), dim)
             if vecs.shape[0] > vocab:
@@ -874,7 +882,8 @@ def _embed(ctx, node, bottoms):
     params = {"w": ctx.param(node, "w", make_w)}
     if bias_term:
         params["b"] = ctx.param(node, "b", lambda g: _filler(
-            p.get("bias_filler"), g, (dim,), device=ctx.device))
+            p.get("bias_filler"), g, (dim,), device=ctx.device,
+            dtype=ctx.dtype))
     if ids.is_floating_point():
         # the reference static_casts float id blobs (embed_layer.cpp:107)
         ids = ids.to(torch.int32)
@@ -888,7 +897,8 @@ def _prelu(ctx, node, bottoms):
     n = 1 if bool(_one(p.get("channel_shared"), False)) else x.shape[-1]
     filler = p.get("filler") or {"type": "constant", "value": 0.25}
     s = ctx.param(node, "slopes",
-                  lambda g: _filler(filler, g, (n,), device=ctx.device))
+                  lambda g: _filler(filler, g, (n,), device=ctx.device,
+                                    dtype=ctx.dtype))
     return zoo.prelu(x, s)
 
 
@@ -926,11 +936,12 @@ def _scale(ctx, node, bottoms):
     else:
         filler = p.get("filler") or {"type": "constant", "value": 1.0}
         s = ctx.param(node, "scale", lambda g: _filler(
-            filler, g, (x.shape[-1],), device=ctx.device))
+            filler, g, (x.shape[-1],), device=ctx.device, dtype=ctx.dtype))
     b = None
     if bias_term:
         b = ctx.param(node, "bias", lambda g: _filler(
-            p.get("bias_filler"), g, (x.shape[-1],), device=ctx.device))
+            p.get("bias_filler"), g, (x.shape[-1],), device=ctx.device,
+            dtype=ctx.dtype))
     axis = int(_one(p.get("axis"), 1))
     y = x * _caffe_axis_broadcast(x, s, axis)
     if b is not None:
@@ -946,7 +957,8 @@ def _bias(ctx, node, bottoms):
         b = bottoms[1]
     else:
         b = ctx.param(node, "bias", lambda g: _filler(
-            p.get("filler"), g, (x.shape[-1],), device=ctx.device))
+            p.get("filler"), g, (x.shape[-1],), device=ctx.device,
+            dtype=ctx.dtype))
     return x + _caffe_axis_broadcast(x, b, int(_one(p.get("axis"), 1)))
 
 
@@ -960,13 +972,13 @@ def _bn(ctx, node, bottoms):
     c = x.shape[-1]
     scale = ctx.param(node, "scale", lambda g: _filler(
         p.get("scale_filler") or {"type": "constant", "value": 1.0},
-        g, (c,), device=ctx.device))
+        g, (c,), device=ctx.device, dtype=ctx.dtype))
     shift = ctx.param(node, "shift", lambda g: _filler(
         p.get("shift_filler") or {"type": "constant", "value": 0.0},
-        g, (c,), device=ctx.device))
+        g, (c,), device=ctx.device, dtype=ctx.dtype))
     st = ctx.layer_state(node, lambda: {
-        "mean": torch.zeros((c,), device=ctx.device),
-        "var": torch.zeros((c,), device=ctx.device)})
+        "mean": torch.zeros((c,), device=ctx.device, dtype=ctx.dtype),
+        "var": torch.zeros((c,), device=ctx.device, dtype=ctx.dtype)})
     y, ctx.new_state[node.name] = bn_apply(
         {"scale": scale, "shift": shift}, st, x, train=ctx.train,
         momentum=float(_one(p.get("bn_memory"), 0.9)), group=ctx.dp_group)
@@ -986,9 +998,9 @@ def _batch_norm(ctx, node, bottoms):
     use_global = _one(p.get("use_global_stats"))
     use_global = (not ctx.train) if use_global is None else bool(use_global)
     st = ctx.layer_state(node, lambda: {
-        "mean": torch.zeros((c,), device=ctx.device),
-        "var": torch.zeros((c,), device=ctx.device),
-        "factor": torch.zeros((), device=ctx.device)})
+        "mean": torch.zeros((c,), device=ctx.device, dtype=ctx.dtype),
+        "var": torch.zeros((c,), device=ctx.device, dtype=ctx.dtype),
+        "factor": torch.zeros((), device=ctx.device, dtype=ctx.dtype)})
     dims = tuple(range(x.ndim - 1))
     if use_global:
         f = 1.0 / torch.clamp(st["factor"], min=1e-30)
@@ -1029,12 +1041,13 @@ def _sim_cross(ctx, node, bottoms):
     d = q.shape[-1]
     w = ctx.param(node, "w", lambda g: _filler(
         p.get("weight_filler"), g, (m, d, d), fan_in=d * d,
-        device=ctx.device))
+        device=ctx.device, dtype=ctx.dtype))
     b = None
     if bool(_one(p.get("bias_term"), True)):
         w1, w2 = q.shape[1], a.shape[1]
         b = ctx.param(node, "b", lambda g: _filler(
-            p.get("bias_filler"), g, (m, w1, w2), device=ctx.device))
+            p.get("bias_filler"), g, (m, w1, w2), device=ctx.device,
+            dtype=ctx.dtype))
     return sim_cross_bilinear(q, a, w, b)
 
 
@@ -1045,7 +1058,8 @@ def _sim_matrix(ctx, node, bottoms):
     x, y = bottoms
     k1, k2 = x.shape[-1], y.shape[-1]
     w = ctx.param(node, "w", lambda g: _filler(
-        p.get("weight_filler"), g, (k1, k2), fan_in=k1, device=ctx.device))
+        p.get("weight_filler"), g, (k1, k2), fan_in=k1, device=ctx.device,
+        dtype=ctx.dtype))
     return sim_matrix(x, y, w)
 
 
@@ -1056,7 +1070,8 @@ def _fm(ctx, node, bottoms):
     b = None
     if bool(_one(p.get("bias_term"), True)):
         b = ctx.param(node, "b",
-                      lambda g: _filler(None, g, (), device=ctx.device))
+                      lambda g: _filler(None, g, (), device=ctx.device,
+                                        dtype=ctx.dtype))
     return fm_pool(x, b)
 
 
@@ -1071,11 +1086,11 @@ def _lstm(ctx, node, bottoms):
     d = x.shape[-1]
     wf = p.get("weight_filler")
     wx = ctx.param(node, "wx", lambda g: _filler(
-        wf, g, (d, 4 * h), fan_in=d, device=ctx.device))
+        wf, g, (d, 4 * h), fan_in=d, device=ctx.device, dtype=ctx.dtype))
     wh = ctx.param(node, "wh", lambda g: _filler(
-        wf, g, (h, 4 * h), fan_in=h, device=ctx.device))
+        wf, g, (h, 4 * h), fan_in=h, device=ctx.device, dtype=ctx.dtype))
     b = ctx.param(node, "b", lambda g: _filler(
-        p.get("bias_filler"), g, (4 * h,), device=ctx.device))
+        p.get("bias_filler"), g, (4 * h,), device=ctx.device, dtype=ctx.dtype))
     out, _ = lstm_apply({"wx": wx, "wh": wh, "b": b}, x, cont=cont)
     return out
 
@@ -1107,15 +1122,17 @@ def _rnn(ctx, node, bottoms):
     d = x.shape[-1]
     wf, bf = p.get("weight_filler"), p.get("bias_filler")
     wx = ctx.param(node, "wx", lambda g: _filler(
-        wf, g, (d, h), fan_in=d, device=ctx.device))
+        wf, g, (d, h), fan_in=d, device=ctx.device, dtype=ctx.dtype))
     wh = ctx.param(node, "wh", lambda g: _filler(
-        wf, g, (h, h), fan_in=h, device=ctx.device))
+        wf, g, (h, h), fan_in=h, device=ctx.device, dtype=ctx.dtype))
     b = ctx.param(node, "b", lambda g: _filler(bf, g, (h,),
-                                               device=ctx.device))
+                                               device=ctx.device,
+                                               dtype=ctx.dtype))
     wo = ctx.param(node, "wo", lambda g: _filler(
-        wf, g, (h, h), fan_in=h, device=ctx.device))
+        wf, g, (h, h), fan_in=h, device=ctx.device, dtype=ctx.dtype))
     bo = ctx.param(node, "bo", lambda g: _filler(bf, g, (h,),
-                                                 device=ctx.device))
+                                                 device=ctx.device,
+                                                 dtype=ctx.dtype))
     out, _ = rnn_apply({"wx": wx, "wh": wh, "b": b, "wo": wo, "bo": bo},
                        x, cont=cont)
     return out

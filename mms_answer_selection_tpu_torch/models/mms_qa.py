@@ -107,47 +107,47 @@ def _spatial_after_blocks(cfg: MMSQAConfig) -> tuple[int, int, int]:
 
 
 def mms_qa_init(cfg: MMSQAConfig, *, generator: torch.Generator,
-                pretrained=None, device=None):
-    """Build float32 (params, state), drawing from ``generator`` in the
-    order embed, sim (xavier only), conv blocks, fc1, fc2.  ``pretrained``
-    (n, D) vectors overwrite embedding rows [0, n) (``embed_init``)."""
+                pretrained=None, dtype=torch.float32, device=None):
+    """Build (params, state) of ``dtype`` (every leaf, as the JAX
+    package's), drawing from ``generator`` in the order embed, sim (xavier
+    only), conv blocks, fc1, fc2.  ``pretrained`` (n, D) vectors overwrite
+    embedding rows [0, n) (``embed_init``)."""
     params: dict = {}
     state: dict = {}
+    kw = {"dtype": dtype, "device": device}
     params["embed"] = embed_init(
         generator, cfg.vocab_size, cfg.embed_dim, pretrained=pretrained,
-        minval=-cfg.embed_init_range, maxval=cfg.embed_init_range,
-        device=device)
+        minval=-cfg.embed_init_range, maxval=cfg.embed_init_range, **kw)
     if cfg.sim_mode == 2:
         m, d = cfg.sim_measures, cfg.embed_dim
         if cfg.sim_weight_init == "zeros":
-            w = torch.zeros((m, d, d), device=device)
+            w = torch.zeros((m, d, d), **kw)
         elif cfg.sim_weight_init == "xavier":
-            w = fillers.xavier(generator, (m, d, d), fan_in=d * d,
-                               device=device)
+            w = fillers.xavier(generator, (m, d, d), fan_in=d * d, **kw)
         else:
             raise ValueError(cfg.sim_weight_init)
         params["sim"] = {"w": w}
         if cfg.sim_bias:
             params["sim"]["b"] = torch.zeros(
-                (m, cfg.question_len, cfg.answer_len), device=device)
+                (m, cfg.question_len, cfg.answer_len), **kw)
     in_ch = cfg.sim_channels()
     for i, b in enumerate(cfg.blocks):
         params[f"conv{i}"] = conv_init(generator, in_ch, b.out_channels,
-                                       b.kh, b.kw, device=device)
+                                       b.kh, b.kw, **kw)
         params[f"bn{i}"], state[f"bn{i}"] = bn_init(
-            b.out_channels, shift_value=cfg.bn_shift_init, device=device)
+            b.out_channels, shift_value=cfg.bn_shift_init, **kw)
         in_ch = b.out_channels
     h, w, c = _spatial_after_blocks(cfg)
     feat_dim = h * w * c + cfg.overlap_features
     params["fc1"] = {
         "w": fillers.xavier(generator, (feat_dim, cfg.fc1_dim),
-                            fan_in=feat_dim, device=device),
-        "b": torch.zeros((cfg.fc1_dim,), device=device),
+                            fan_in=feat_dim, **kw),
+        "b": torch.zeros((cfg.fc1_dim,), **kw),
     }
     params["fc2"] = {
         "w": fillers.xavier(generator, (cfg.fc1_dim, cfg.num_classes),
-                            fan_in=cfg.fc1_dim, device=device),
-        "b": torch.zeros((cfg.num_classes,), device=device),
+                            fan_in=cfg.fc1_dim, **kw),
+        "b": torch.zeros((cfg.num_classes,), **kw),
     }
     return params, state
 

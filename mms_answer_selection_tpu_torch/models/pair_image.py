@@ -49,15 +49,17 @@ def _spatial(cfg: PairImageConfig):
 
 
 def conv_blocks_init(generator: torch.Generator, blocks, in_ch: int, *,
-                     device=None):
+                     dtype=torch.float32, device=None):
     """xavier conv weights and BN (scale 1, shift 1e-3) for each block, in
     block order: (params, state, channels out)."""
     params, state = {}, {}
     for i, b in enumerate(blocks):
         params[f"conv{i}"] = conv_init(generator, in_ch, b.out_channels,
-                                       b.kh, b.kw, device=device)
+                                       b.kh, b.kw, dtype=dtype,
+                                       device=device)
         params[f"bn{i}"], state[f"bn{i}"] = bn_init(
-            b.out_channels, shift_value=BN_SHIFT_INIT, device=device)
+            b.out_channels, shift_value=BN_SHIFT_INIT, dtype=dtype,
+            device=device)
         in_ch = b.out_channels
     return params, state, in_ch
 
@@ -76,19 +78,20 @@ def conv_blocks_apply(params, state, x, blocks, *, train: bool):
 
 
 def pair_image_init(cfg: PairImageConfig, *, generator: torch.Generator,
-                    device=None):
-    """float32 (params, state), drawn from ``generator`` in the order conv
-    blocks, fc, score."""
+                    dtype=torch.float32, device=None):
+    """(params, state) of ``dtype``, drawn from ``generator`` in the order
+    conv blocks, fc, score."""
     params, state, _ = conv_blocks_init(generator, cfg.blocks, cfg.channels,
-                                        device=device)
+                                        dtype=dtype, device=device)
+    kw = {"dtype": dtype, "device": device}
     h, w, c = _spatial(cfg)
     flat = h * w * c
     params["fc"] = {"w": fillers.xavier(generator, (flat, cfg.fc_dim),
-                                        fan_in=flat, device=device),
-                    "b": torch.zeros((cfg.fc_dim,), device=device)}
+                                        fan_in=flat, **kw),
+                    "b": torch.zeros((cfg.fc_dim,), **kw)}
     params["score"] = {"w": fillers.xavier(generator, (cfg.fc_dim, 1),
-                                           fan_in=cfg.fc_dim, device=device),
-                       "b": torch.zeros((1,), device=device)}
+                                           fan_in=cfg.fc_dim, **kw),
+                       "b": torch.zeros((1,), **kw)}
     return params, state
 
 

@@ -16,14 +16,15 @@ MOMENTUM = DEFAULT_MOMENTUM  # the name this package used first
 
 
 def bn_init(channels: int, *, scale_value: float = 1.0,
-            shift_value: float = 1e-3, device=None):
+            shift_value: float = 1e-3, dtype=torch.float32, device=None):
     """Returns (params, state) for one BN layer: the given scale and shift
     (the QA recipe's fillers by default: scale 1, shift 1e-3), running mean
     and variance 0."""
-    params = {"scale": torch.full((channels,), scale_value, device=device),
-              "shift": torch.full((channels,), shift_value, device=device)}
-    state = {"mean": torch.zeros((channels,), device=device),
-             "var": torch.zeros((channels,), device=device)}
+    kw = {"dtype": dtype, "device": device}
+    params = {"scale": torch.full((channels,), scale_value, **kw),
+              "shift": torch.full((channels,), shift_value, **kw)}
+    state = {"mean": torch.zeros((channels,), **kw),
+             "var": torch.zeros((channels,), **kw)}
     return params, state
 
 

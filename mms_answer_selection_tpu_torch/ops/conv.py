@@ -9,11 +9,15 @@ from ..utils import fillers
 
 
 def conv_init(generator: torch.Generator, in_channels: int,
-              out_channels: int, kh: int, kw: int, *, device=None):
-    """Returns {'w': (kh, kw, Cin, Cout) HWIO xavier, 'b': (Cout,) zeros}."""
+              out_channels: int, kh: int, kw: int, *,
+              bias_value: float = 0.0, dtype=torch.float32, device=None):
+    """Returns {'w': (kh, kw, Cin, Cout) HWIO xavier, 'b': (Cout,) filled
+    with ``bias_value``}."""
     w = fillers.xavier(generator, (kh, kw, in_channels, out_channels),
-                       fan_in=in_channels * kh * kw, device=device)
-    return {"w": w, "b": torch.zeros((out_channels,), device=w.device)}
+                       fan_in=in_channels * kh * kw, device=device,
+                       dtype=dtype)
+    return {"w": w, "b": torch.full((out_channels,), float(bias_value),
+                                    dtype=dtype, device=w.device)}
 
 
 def _f32():

@@ -11,7 +11,7 @@ from ..utils import fillers
 
 def embed_init(generator: torch.Generator, vocab_size: int, dim: int, *,
                pretrained=None, minval: float = -0.08, maxval: float = 0.08,
-               bias_term: bool = True, device=None):
+               bias_term: bool = True, dtype=torch.float32, device=None):
     """Returns {'w': (V, D) uniform(minval, maxval)[, 'b': (D,) zeros]}.
 
     ``pretrained``: optional (n, D) array written into rows [0, n), the
@@ -19,7 +19,7 @@ def embed_init(generator: torch.Generator, vocab_size: int, dim: int, *,
     vectors first, in vocab order; the unknown and pad rows stay random).
     """
     w = fillers.uniform(generator, (vocab_size, dim), minval, maxval,
-                        device=device)
+                        device=device, dtype=dtype)
     if pretrained is not None:
         pretrained = torch.as_tensor(pretrained, dtype=w.dtype)
         if pretrained.ndim != 2 or pretrained.shape[1] != dim:
@@ -30,7 +30,7 @@ def embed_init(generator: torch.Generator, vocab_size: int, dim: int, *,
         w[: pretrained.shape[0]] = pretrained.to(w.device)
     params = {"w": w}
     if bias_term:
-        params["b"] = torch.zeros((dim,), device=w.device)
+        params["b"] = torch.zeros((dim,), dtype=dtype, device=w.device)
     return params
 
 

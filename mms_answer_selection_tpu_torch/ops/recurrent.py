@@ -21,14 +21,14 @@ from ..utils import fillers
 
 
 def lstm_init(generator: torch.Generator, input_dim: int, hidden_dim: int,
-              *, device=None):
+              *, dtype=torch.float32, device=None):
     """{'wx': (D, 4H), 'wh': (H, 4H), 'b': (4H,)}; gate order i, f, o, g."""
     return {
         "wx": fillers.xavier(generator, (input_dim, 4 * hidden_dim),
-                             fan_in=input_dim, device=device),
+                             fan_in=input_dim, device=device, dtype=dtype),
         "wh": fillers.xavier(generator, (hidden_dim, 4 * hidden_dim),
-                             fan_in=hidden_dim, device=device),
-        "b": torch.zeros((4 * hidden_dim,), device=device),
+                             fan_in=hidden_dim, device=device, dtype=dtype),
+        "b": torch.zeros((4 * hidden_dim,), device=device, dtype=dtype),
     }
 
 
@@ -56,18 +56,18 @@ def lstm_apply(params, x, *, cont=None, h0=None, c0=None):
 
 
 def rnn_init(generator: torch.Generator, input_dim: int, hidden_dim: int,
-             *, device=None):
+             *, dtype=torch.float32, device=None):
     """{'wx': (D, H), 'b': (H,), 'wh': (H, H), 'wo': (H, H), 'bo': (H,)},
     the reference RNN's five blobs W_xh, b_h, W_hh, W_ho, b_o."""
     return {
         "wx": fillers.xavier(generator, (input_dim, hidden_dim),
-                             fan_in=input_dim, device=device),
+                             fan_in=input_dim, device=device, dtype=dtype),
         "wh": fillers.xavier(generator, (hidden_dim, hidden_dim),
-                             fan_in=hidden_dim, device=device),
-        "b": torch.zeros((hidden_dim,), device=device),
+                             fan_in=hidden_dim, device=device, dtype=dtype),
+        "b": torch.zeros((hidden_dim,), device=device, dtype=dtype),
         "wo": fillers.xavier(generator, (hidden_dim, hidden_dim),
-                             fan_in=hidden_dim, device=device),
-        "bo": torch.zeros((hidden_dim,), device=device),
+                             fan_in=hidden_dim, device=device, dtype=dtype),
+        "bo": torch.zeros((hidden_dim,), device=device, dtype=dtype),
     }
 
 

@@ -6,7 +6,8 @@ file store in a scratch directory (no TCP port to collide with), calls
 ``function(**kwargs)`` and saves what it returns (``torch.save``; tensors
 are moved to the CPU).  The caller gets the results in rank order, or a
 ``RuntimeError`` with the failed ranks' error output.  Every process is
-given ``timeout`` seconds and killed past it.
+given ``timeout`` seconds and killed past it, and so is each collective
+of its group (a rank left waiting on a peer fails instead of hanging).
 
 Where cards are visible, rank r drives card r modulo their count (its
 ``LOCAL_RANK``).  More ranks than cards share them only when the caller
@@ -60,7 +61,8 @@ def spawn(target: str, world_size: int, *, kwargs: dict | None = None,
     with tempfile.TemporaryDirectory(prefix="mms_ranks_") as work:
         with open(os.path.join(work, "job.pkl"), "wb") as f:
             pickle.dump({"target": target, "kwargs": kwargs or {},
-                         "world_size": world_size, "backend": backend}, f)
+                         "world_size": world_size, "backend": backend,
+                         "timeout": timeout}, f)
         paths = [root] + list(pythonpath or []) + [
             os.environ.get("PYTHONPATH", "")]
         child_env = {**os.environ,
@@ -105,6 +107,7 @@ def spawn(target: str, world_size: int, *, kwargs: dict | None = None,
 
 
 def _main(work: str, rank: int) -> None:
+    import datetime
     import importlib
 
     import torch.distributed as dist
@@ -116,7 +119,9 @@ def _main(work: str, rank: int) -> None:
     bind_device(rank)
     dist.init_process_group(job["backend"],
                             init_method=f"file://{work}/store",
-                            world_size=job["world_size"], rank=rank)
+                            world_size=job["world_size"], rank=rank,
+                            timeout=datetime.timedelta(
+                                seconds=job["timeout"]))
     try:
         mod, fn = job["target"].split(":")
         result = getattr(importlib.import_module(mod), fn)(**job["kwargs"])

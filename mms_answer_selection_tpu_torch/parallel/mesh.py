@@ -18,6 +18,20 @@ device before the first collective.  ``multihost.initialize``,
 A spec is a tuple of axis names, as ``tuple(PartitionSpec(...))`` gives
 it: ``("tp",)`` splits a leaf's first axis over tp, ``()`` replicates it.
 ``shard_pytree`` hands each rank its slice; there is no global array.
+
+Programs over a mesh run as CUDA graph replays where ``mesh_captures``
+holds: the mesh is on the card and every group its collectives use (the
+whole mesh's, dp and tp) is NCCL, whose collectives a graph records.  A
+gloo collective on a CUDA tensor waits on the host, which no capture
+allows, so gloo meshes (the CPU's, or ranks sharing one card) run the same
+programs eagerly.  A capture records a collective without running it:
+every rank must capture, and later replay, the same program at the same
+call, or the ranks' collectives stop matching and the run hangs; the
+owners key such programs on nothing rank-local, so every rank captures
+at the same call (``utils/graphs``).  An NCCL communicator is made at
+its group's first collective, which a capture cannot hold: the owners'
+warm-up call before each capture runs every collective of the program
+once, which makes them.
 """
 
 from __future__ import annotations
@@ -95,6 +109,28 @@ def make_mesh(dp: int | None = None, tp: int = 1, *,
         raise ValueError(f"dp*tp = {dp * tp} != device count {n}")
     return DeviceMesh(device_type, torch.arange(n).reshape(dp, tp),
                       mesh_dim_names=("dp", "tp"))
+
+
+def _cuda_backend(group) -> str:
+    """The backend ``group`` runs CUDA tensors' collectives on (a group
+    made as "cpu:gloo,cuda:nccl" names one per device type)."""
+    name = dist.get_backend(group)
+    for part in name.split(","):
+        dev, _, backend = part.rpartition(":")
+        if dev in ("", "cuda"):
+            return backend
+    return name
+
+
+def mesh_captures(mesh) -> bool:
+    """Whether programs over ``mesh`` may be captured as CUDA graphs: the
+    mesh is on "cuda" and every group its programs run collectives on is
+    NCCL: the whole mesh's (the default group: a mesh spans every rank)
+    and each axis'."""
+    groups = [dist.group.WORLD] + [mesh.get_group(a)
+                                   for a in mesh.mesh_dim_names]
+    return mesh.device_type == "cuda" and all(
+        _cuda_backend(g) == "nccl" for g in groups)
 
 
 def mesh_shape(mesh) -> dict:

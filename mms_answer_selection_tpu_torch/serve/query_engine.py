@@ -44,13 +44,16 @@ pool masked; each rank scores its rows with the MaxSim kernel chunk by
 chunk into a local top-k, and the local top-k's values and global indices
 are gathered bit for bit and merged in rank order, so ties still go to
 the lower global index.  The candidate ids stay whole on every rank, so
-``query_rerank`` rescores the merged shortlist on each.
+``query_rerank`` rescores the merged shortlist on each.  Every rank holds
+the same number of rows (the last ranks' tails masked), so the ranks' keys
+agree whatever the pool's size.  On an NCCL mesh ``query`` and
+``query_rerank`` are graph replays with that gather inside; on a gloo mesh
+they run eagerly.
 """
 
 from __future__ import annotations
 
 import hashlib
-import logging
 import os
 
 import numpy as np
@@ -64,8 +67,6 @@ from ..parallel.collectives import gather_exact
 from ..parallel.mesh import mesh_device
 from ..utils.graphs import GraphedCall, on_device
 from ..utils.tree import tree_map
-
-log = logging.getLogger("mms_tpu_torch.serve")
 
 POOL_DTYPES = ("bf16", "int8", "int4")
 INDEX_FORMAT = "mms_answer_selection_tpu_torch.index"
@@ -164,12 +165,9 @@ class QueryEngine:
         self.device = resolve_device(device)
         self.scan_chunks = bool(scan_chunks)
         self.version = 0          # bumped by every change the graphs read
-        # over a mesh the scan's collectives are not captured: eager
-        self._calls = GraphedCall(self.device, captures=mesh is None,
-                                  name="engine")
-        if mesh is not None and self.device.type == "cuda":
-            log.info("mesh: queries run as eager launches (a collective "
-                     "inside the scan is not captured)")
+        # over an NCCL mesh the scan's gather is captured with it; over
+        # gloo the queries run eagerly
+        self._calls = GraphedCall(self.device, name="engine", mesh=mesh)
         self.params = params
         self.cfg = cfg
         self.pool_dtype = pool_dtype
@@ -553,7 +551,8 @@ class QueryEngine:
 
     def _dispatch(self, key: tuple, body, *args):
         """``body(*args)`` on the device: with ``scan_chunks`` one graph
-        replay (eager on the CPU and over a mesh), else eager launches.
+        replay (eager on the CPU and over a gloo mesh), else eager
+        launches.
         ``key``: the path and the ints ``body`` closes over."""
         if not self.scan_chunks:
             return body(*on_device(args, self.device))

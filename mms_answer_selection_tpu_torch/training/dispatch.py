@@ -39,9 +39,14 @@ The pair-map kernels' wrappers count their launches in Python, which a
 replay never runs: a capture's increments are taken back (nothing ran),
 kept as the graph's tally, and added once per replay.
 
-On the CPU, and on the card over a mesh (a gloo or NCCL collective inside
-the step is not captured here), the same body runs as eager steps on the
-same static buffers.
+On the CPU, and on the card over a gloo mesh (a gloo collective waits
+on the host), the same body runs as eager steps on the same static
+buffers.  Over an NCCL mesh (``mesh=``) the step's collectives are
+captured with it.  Every rank must capture a chunk length at the same
+run, and does: a chunk's key (K, iter_size and the global batch's shapes)
+holds nothing rank-local.
+Captures run in ``thread_local`` mode, so the NCCL watchdog thread's
+event queries during a capture do not invalidate it.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from typing import Callable
 import torch
 
 from ..ops import sim_cross_kernels as sk
-from ..utils.graphs import _origin, add_tally, record_tally
+from ..utils.graphs import _origin, add_tally, captures_on, record_tally
 from ..utils.tree import tree_map
 
 log = logging.getLogger("mms_tpu_torch.dispatch")
@@ -126,7 +131,9 @@ class _Chunk:
 
 class StepRunner:
     """Runs chunks of steps on a static carry, one CUDA graph replay a
-    chunk where ``captures`` (the card, no mesh), eager steps otherwise.
+    chunk where ``captures`` (the card, over no mesh or an NCCL ``mesh``:
+    ``utils/graphs.captures_on``), eager steps otherwise.  ``mesh``: the mesh whose collectives ``step``
+    runs.
 
     ``step(params, state, opt_state, batch, step, generators=)`` returns
     (params, state, opt_state, loss[, outputs]): ``step`` is a 0-d int64
@@ -142,17 +149,15 @@ class StepRunner:
 
     def __init__(self, step: Callable, carry, *, iter_size: int,
                  seed: Callable[[int, int], int], device, captures: bool,
-                 name: str = "chunk"):
+                 name: str = "chunk", mesh=None):
         self.step = step
         self.iter_size = iter_size
         self.seed = seed
         self.device = torch.device(device)
         self.name = name
         self._carry = tree_map(torch.clone, _named(carry))
-        self.captures = captures and self.device.type == "cuda"
-        if self.device.type == "cuda" and not captures:
-            log.info("mesh: %ss run as eager steps (a collective inside "
-                     "the step is not captured)", name)
+        self.captures = captures and captures_on(self.device, mesh, name)
+        self.mesh = mesh if self.captures else None
         self._chunks: dict = {}
         self._stream = None
         self.outputs = None
@@ -211,12 +216,18 @@ class StepRunner:
                 for c in self._chunks.values()]
 
     # ----------------------------------------------------------------- run
-    def run(self, batches, step0: int) -> torch.Tensor:
+    def run(self, batches, step0, *, generators=None) -> torch.Tensor:
         """Steps ``step0`` .. ``step0 + K - 1`` on ``batches``: a list of K
         batch dicts (an empty dict each where the step takes no input), or
-        one dict of (K, ...) stacked tensors, on the device or the host.  Returns the static (K,) losses, which the
-        next chunk of this length overwrites; the last step's other
-        outputs are in ``outputs``, as static."""
+        one dict of (K, ...) stacked tensors, on the device or the host.
+        ``step0``: an int, or a 0-d integer tensor.  Returns the static
+        (K,) losses, which the next chunk of this length overwrites; the
+        last step's other outputs are in ``outputs``, as static.
+
+        ``generators``: K lists of iter_size generators of the caller's to
+        draw from in place of ``seed``'s: each step's own generators take
+        their states first, and give them back advanced after the run, as
+        if the steps had drawn from the caller's."""
         if isinstance(batches, dict):
             k = next(iter(batches.values())).shape[0]
             first = {n: v[0] for n, v in batches.items()}
@@ -237,24 +248,32 @@ class StepRunner:
                 buf.copy_(torch.stack([b[n] for b in batches]))
         chunk.step0.fill_(step0)
         if not self.captures:
-            self._seed(chunk, step0)
+            self._seed(chunk, step0, generators)
             self._body(chunk)
         else:
             if chunk.graph is None:
                 self._capture(chunk)
-            self._seed(chunk, step0)    # after the warm-up's draws
+            self._seed(chunk, step0, generators)  # after the warm-up's draws
             chunk.graph.replay()
             add_tally(sk.LAUNCH_COUNTS, chunk.tally)
             chunk.replays += 1
+        if generators is not None:
+            for mine, theirs in zip(chunk.generators, generators):
+                for g, t in zip(mine, theirs):
+                    t.set_state(g.get_state())
         self._chunks[key] = chunk
         self.outputs = chunk.outputs
         return chunk.losses
 
-    def _seed(self, chunk: _Chunk, step0: int) -> None:
-        """Each generator re-seeded as the eager step seeds its own."""
+    def _seed(self, chunk: _Chunk, step0, generators=None) -> None:
+        """Each generator re-seeded as the eager step seeds its own, or
+        given the state of the caller's generator in its place."""
         for i, row in enumerate(chunk.generators):
             for j, g in enumerate(row):
-                g.manual_seed(self.seed(step0 + i, j))
+                if generators is not None:
+                    g.set_state(generators[i][j].get_state())
+                else:
+                    g.manual_seed(self.seed(step0 + i, j))
 
     def _step(self, chunk: _Chunk, i: int):
         return self.step(
@@ -271,6 +290,7 @@ class StepRunner:
             chunk.outputs = outputs[0] if outputs else None
 
     def _capture(self, chunk: _Chunk) -> None:
+        chunk.graph = None                   # a recapture frees the old
         dev = self.device
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
@@ -293,7 +313,8 @@ class StepRunner:
                 graph.register_generator_state(g)
 
         def capture():
-            with torch.cuda.graph(graph, stream=side):
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
                 self._body(chunk)
 
         collecting = gc.isenabled()
@@ -321,7 +342,7 @@ class StepRunner:
 class ChunkRunner(StepRunner):
     """The ``Trainer``'s runner: its ``_train_step``, iter_size and dropout
     seeds (``_dropout_seed(step)``, or ``(step, j)`` over micro-batches),
-    capturing on the card without a mesh."""
+    capturing where the trainer does (``Trainer.captures``)."""
 
     def __init__(self, trainer, carry):
         # weak: the trainer keeps its runner, and a cycle would hold the
@@ -338,4 +359,4 @@ class ChunkRunner(StepRunner):
 
         super().__init__(step, carry, iter_size=iter_size, seed=seed,
                          device=trainer.device,
-                         captures=trainer.mesh is None)
+                         captures=trainer.captures, mesh=trainer.mesh)

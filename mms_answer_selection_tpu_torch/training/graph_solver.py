@@ -13,7 +13,8 @@ weights and the solver history in the reference's files
   the solver update.  With ``iter_size`` > 1 the gradients of the
   micro-batches are summed (the solver divides by ``iter_size``), the BN
   statistics threaded through them in order.
-* On the card (no mesh) each iteration is one replay of a CUDA graph
+* On the card (over no mesh or an NCCL one) each iteration is one
+  replay of a CUDA graph
   captured around one step (``training/dispatch.StepRunner``), as the JAX
   package's is one ``jax.jit`` call: the iteration's micro-batches are
   pulled on the host and copied into static (iter_size, B, ...) buffers,
@@ -51,8 +52,11 @@ weights and the solver history in the reference's files
   all-reduced to the global-batch mean.  The loss layers normalize over
   each rank's rows, so a layer whose count varies by rank (an
   ``ignore_label``) weighs the ranks' means equally.  Rank 0 writes the
-  snapshots.  Its steps and test passes run eagerly on the same static
-  buffers, as on the CPU (a collective is not captured here).
+  snapshots.  On an NCCL mesh its steps and test passes are graph
+  replays: a step's collectives are captured with it, every rank capturing
+  at the same call, and a test pass runs none.  On a gloo mesh they run
+  eagerly on the same static buffers, as on the CPU
+  (``utils/graphs.captures_on``).
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ import torch
 from ..device import resolve_device
 from ..models.graph_net import DATA_TYPES, GraphNet
 from ..utils.prototxt import parse_prototxt, solver_config_from_prototxt
-from ..utils.graphs import GraphedCall, on_device
+from ..utils.graphs import GraphedCall, captures_on, on_device
 from ..utils.seed import derive_seed
 from ..utils.tree import tree_leaves, tree_map
 from ..parallel.mesh import mesh_device, shard_context
@@ -383,10 +387,12 @@ class GraphSolver:
         self._reset_feeds()
         # the step's runner (static carry, one graph a step shape; made at
         # the first step or test pass) and the graphs of the test passes
-        # and pycaffe forwards; eager over a mesh and on the CPU
+        # and pycaffe forwards; eager over a gloo mesh and on the CPU
         self.runner: StepRunner | None = None
         self._runner_for = None
-        self.forwards = GraphedCall(self.device, captures=mesh is None,
+        self.captures = captures_on(self.device, mesh, "solver")
+        # the forwards run no collective: no mesh, keyed on addresses
+        self.forwards = GraphedCall(self.device, captures=self.captures,
                                     name="solver forward")
         self.iter_ = 0
         self._losses: list[float] = []
@@ -547,8 +553,8 @@ class GraphSolver:
 
             runner = self.runner = StepRunner(
                 step, carry, iter_size=self.cfg.iter_size, seed=seed,
-                device=self.device, captures=self.mesh is None,
-                name="solver step")
+                device=self.device, captures=self.captures,
+                name="solver step", mesh=self.mesh)
             self._runner_for = key
             self.forwards.drop()
         self.params, self.state, self.opt_state = runner.view()

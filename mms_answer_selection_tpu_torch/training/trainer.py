@@ -44,8 +44,12 @@ runs this loop on the same global batches and takes its rows of each (the
 sample axis, axis 1 under iter_size > 1); BN takes the global batch's
 statistics, dropout draws the global batch's masks, and the gradients are
 all-reduced to the global-batch mean, so the run is the one-device run's.
-Parameters are replicated; rank 0 writes the snapshots.  A mesh's chunks
-run as eager steps: its collectives are not captured.
+Parameters are replicated; rank 0 writes the snapshots.  On an NCCL mesh
+each chunk and each eval is one graph replay as without a mesh: a chunk's
+collectives (the BN sums and the gradient all-reduce) are captured with it,
+every rank capturing at the same call, and an eval runs none, so a rank
+may evaluate alone.  On a gloo mesh both run eagerly
+(``utils/graphs.captures_on``).
 """
 
 from __future__ import annotations
@@ -71,7 +75,7 @@ from ..metrics import (
 from ..models.mms_qa import MMSQAConfig, mms_qa_apply, mms_qa_init, param_spec
 from ..parallel.mesh import mesh_device, shard_context
 from ..parallel.train_step import local_batch, loss_and_grads, reduce_grads
-from ..utils.graphs import GraphedCall
+from ..utils.graphs import GraphedCall, captures_on
 from ..utils.seed import derive_seed
 from ..utils.tree import tree_map
 from .dispatch import ChunkRunner, _copy_tree, _same_leaves
@@ -186,13 +190,20 @@ class Trainer:
 
     ``mesh``: a ``parallel.make_mesh`` mesh whose 'dp' axis splits each
     batch (see the module docstring); the device is then this rank's.
-    Over more than one dp rank ``apply_fn`` must take ``shards=``."""
+    Over more than one dp rank ``apply_fn`` must take ``shards=``.
+
+    ``donate``: the JAX package's keyword, whose jitted steps take the
+    caller's params and solver state as buffers to overwrite.  This port
+    never consumes a caller's inputs: every chunk copies them into the
+    runner's own static carry and returns clones (``scan_train_steps``),
+    so both values give the same results and leave the inputs intact."""
 
     def __init__(self, model_cfg: MMSQAConfig, cfg: TrainerConfig, *,
                  device=None, mesh=None, apply_fn: Callable = mms_qa_apply,
-                 init_fn: Callable = mms_qa_init):
+                 init_fn: Callable = mms_qa_init, donate: bool = True):
         self.model_cfg = model_cfg
         self.cfg = cfg
+        del donate
         self.mesh = mesh
         self._shards = shard_context(mesh).without_tp()  # tp: replicas
         if mesh is not None and device is None:
@@ -203,8 +214,12 @@ class Trainer:
         self.solver = None  # built in init() when the spec exists
         # the chunk runner of the last carry trained (static carry, graphs)
         self.runner: ChunkRunner | None = None
-        # the eval step's graphs (eager over a mesh and on the CPU)
-        self.evals = GraphedCall(self.device, captures=mesh is None,
+        # chunks and evals as graph replays: on the card, over no mesh or
+        # an NCCL one (eager on the CPU and over gloo)
+        self.captures = captures_on(self.device, mesh, "trainer")
+        # the eval step runs no collective: no mesh, so that one rank may
+        # evaluate alone (the others gone, as after ``cli train``)
+        self.evals = GraphedCall(self.device, captures=self.captures,
                                  name="eval step")
         self._eval_carry = None   # evaluate's static copies
 
@@ -300,10 +315,11 @@ class Trainer:
     def scan_train_steps(self, params, state, opt_state, batches, step0):
         """Run K training steps over ``batches`` (dict of (K, ...) stacked
         tensors) in ONE dispatch, step ``step0 + i`` on slice i, as K
-        ``_train_step`` calls do: on the card (no mesh) one replay of the
-        CUDA graph of K-step chunks, captured the first time K runs
-        (``training/dispatch.py``); on the CPU, and over a mesh, the same
-        steps run eagerly and give the step loop's bits.  The inputs are
+        ``_train_step`` calls do: on the card (over no mesh or an NCCL one)
+        one replay of the CUDA graph of K-step chunks, captured the first
+        time K runs (``training/dispatch.py``); on the CPU, and over a
+        gloo mesh, the same steps run eagerly and give the step loop's
+        bits.  The inputs are
         left untouched.  Returns (params, state, opt_state, losses (K,)
         tensor), copies that no later chunk overwrites."""
         runner = self._runner_for((params, state, opt_state))

@@ -35,9 +35,25 @@ generators seeded so would draw.  The function receives them as its
 keyword ``generators``.  Keys that pass none behave as if the argument
 did not exist.
 
-On the CPU, and where the caller asks for no capture (over a mesh, whose
-collectives are not captured), the same function runs eagerly on the same
-static buffers, so the keying and invalidation run there too.
+On the CPU, over a gloo mesh (whose collectives wait on the host;
+``captures_on``), and where the caller asks for no capture, the same
+function runs eagerly on the same static buffers, so the keying and
+invalidation run there too.
+
+A function that runs collectives over an NCCL mesh is given it
+(``mesh=``): its collectives are captured with it, and every rank must
+warm up, capture and replay at the same call, since a rank that captured
+while another replayed would run a different sequence of collectives, and
+both would hang.  So a meshed call's key holds nothing rank-local: the
+caller's key and the inputs' structure, shapes and dtypes, which every
+rank gives alike, and no ``fixed`` addresses (refused).  Every rank then
+finds or misses each key at the same call and captures with the others,
+with no vote; the owner calls ``drop`` on every rank at the same point (on
+a change every rank makes).  A function without collectives takes no
+``mesh`` and may key on addresses, so one rank may call it alone.
+Captures run in ``thread_local`` mode, so the calls the NCCL watchdog
+thread makes on its events during a capture (and a server's other
+threads) do not invalidate it.
 
 The kernels' wrappers count their launches in Python, which a replay never
 runs: a capture's increments are taken back (nothing ran), kept as the
@@ -153,14 +169,35 @@ class _Entry:
         self.calls = 0
 
 
+def captures_on(device, mesh, what: str) -> bool:
+    """Whether programs (``what``, for the log) run as CUDA graph replays:
+    on the card, over no mesh or over a mesh whose groups are all NCCL
+    (``parallel.mesh.mesh_captures``).  A mesh that keeps them eager is
+    logged here."""
+    on_card = torch.device(device).type == "cuda"
+    if mesh is None:
+        return on_card
+    from ..parallel.mesh import mesh_captures
+    if on_card and mesh_captures(mesh):
+        return True
+    log.info("mesh: %s: eager calls (the mesh's %s collectives are not "
+             "captured)", what, "gloo" if on_card else mesh.device_type)
+    return False
+
+
 class GraphedCall:
     """Runs pure no-grad functions of static inputs, one CUDA graph replay
     a call on the card (``captures``), eagerly on the CPU.  ``name``: what
-    a failed capture and the log call the graphs."""
+    a failed capture and the log call the graphs.  ``mesh``: the mesh whose
+    collectives the functions run: eager over gloo, captured with them
+    over NCCL, keys free of rank-local values (module docstring)."""
 
-    def __init__(self, device, *, captures: bool = True, name: str = "call"):
+    def __init__(self, device, *, captures: bool = True, name: str = "call",
+                 mesh=None):
         self.device = torch.device(device)
-        self.captures = captures and self.device.type == "cuda"
+        self.captures = captures and captures_on(self.device, mesh, name)
+        self.mesh = mesh if self.captures else None
+        self._meshed = mesh is not None
         self.name = name
         self._entries: dict = {}
         self._stream = None
@@ -168,7 +205,8 @@ class GraphedCall:
 
     # ---------------------------------------------------------------- keys
     def drop(self) -> None:
-        """Drop every key: their graphs, buffers and outputs."""
+        """Drop every key: their graphs, buffers and outputs (over a mesh,
+        on every rank at the same point)."""
         self._entries.clear()
 
     def keys(self) -> list:
@@ -200,6 +238,9 @@ class GraphedCall:
         tensors ``fn`` reads in place (their addresses join the key);
         ``generators``: a seed for each generator ``fn`` draws from
         (passed to it as ``generators=``, a list)."""
+        if fixed and self._meshed:
+            raise ValueError(f"{self.name}: a meshed call's key holds "
+                             f"nothing rank-local, so no fixed= addresses")
         leaves: list = []
         spec = _flatten(args, leaves)
         held: list = []
@@ -241,6 +282,7 @@ class GraphedCall:
 
     def _capture(self, entry: _Entry, key, call) -> None:
         dev = self.device
+        entry.graph = entry.outputs = None    # a recapture frees the old
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
             self._pool = torch.cuda.graph_pool_handle()

@@ -707,6 +707,31 @@ def test_export_then_load_scorer_matches(run, capsys):
     np.testing.assert_allclose(prob, want["prob"].numpy(), atol=1e-6)
 
 
+def test_export_platforms_flag(run, capsys):
+    """``export --platforms`` as the JAX CLI takes it: the header names
+    the platforms; one the port cannot run exits 1 naming it, and writes
+    nothing."""
+    from mms_answer_selection_tpu_torch import deploy
+
+    root, exp = run
+    assert "--platforms" in _usage(JCLI.main, ["export"], capsys)
+    assert "--platforms" in _usage(cli.main, ["export"], capsys)
+    base = ["export", "--data", str(root / "prep"), "--exp", str(exp),
+            "--device", "cpu"]
+    out = root / "cpu_only.mmst"
+    cli.main([*base, "--out", str(out), "--platforms", "cpu"])
+    header = json.loads(_lines(capsys)[-1])
+    assert header["platforms"] == ["cpu"]
+    assert deploy.read_header(str(out))[0]["platforms"] == ["cpu"]
+    with pytest.raises(ValueError, match="exported for"):
+        deploy.load_scorer(str(out), device="cuda")
+    bad = root / "tpu.mmst"
+    with pytest.raises(SystemExit) as exc:
+        cli.main([*base, "--out", str(bad), "--platforms", "cpu,tpu"])
+    assert exc.value.code != 0 and "'tpu'" in str(exc.value.code)
+    assert not bad.exists()
+
+
 def _usage(main, argv, capsys):
     with pytest.raises(SystemExit):
         main([*argv, "--help"])

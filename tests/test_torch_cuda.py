@@ -17,6 +17,7 @@ score is computed alone, whatever the launch shape).
 import contextlib
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -1865,3 +1866,233 @@ def test_weights_replaced_mid_run_then_steps_equal_eager(tmp_path):
     assert all(torch.equal(x, y) for x, y in zip(_solver_leaves(a),
                                                  _solver_leaves(b)))
     assert a.runner is runner and a.runner.replays == 4
+
+
+# ------------------------------------- the meshed programs on two cards
+# Over an NCCL mesh a Trainer chunk, a sharded step and a split-pool
+# query are graph replays with their collectives captured.  Two ranks,
+# one card each (``parallel.launch.spawn``, NCCL), each rank's group and
+# process given TWO_CARD_TIMEOUT seconds, so a rank that hangs in a
+# collective fails the test.  Replay against eager on the same ranks: bit
+# for bit, under deterministic algorithms; the split pool's top-k against
+# one process's engine: bit for bit (each pair's score is computed alone,
+# and the merge keeps the lower global index first).  Each test prints one
+# JSON line of its times (p50 of calls ended by a device sync, eager and
+# replayed in turns) beside one process's on one card; on a host with two
+# cards or more, run with ``-s``:
+#
+#   python -m pytest --noconftest -p no:cacheprovider -s \
+#       tests/test_torch_cuda.py -k two_cards
+TWO_CARD_TIMEOUT = 120
+TWO_CARD_VOCAB = 5000
+PAIR_KERNELS = ("pair_maps_fwd", "pair_maps_bwd_w", "pair_maps_bwd_qa")
+
+
+def _two_cards():
+    """The ranks' import path, the library built here (the ranks load
+    it); skips with fewer than two cards."""
+    import os
+
+    from mms_answer_selection_tpu_torch.ops import _build
+
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    _build.load_library()
+    return [os.path.dirname(os.path.abspath(__file__))]
+
+
+def _card_name() -> str:
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _same_tree(a, b) -> bool:
+    if isinstance(b, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k])
+                                            for k in b)
+    if isinstance(b, (tuple, list)):
+        return len(a) == len(b) and all(_same_tree(x, y)
+                                        for x, y in zip(a, b))
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def _v4_batch(g, n):
+    """A V4 batch shaped as the corpus's: sentences of 5-25 (questions)
+    and 5-40 (answers) tokens, the rest the pad row (the vocabulary's
+    last), whose embedding gradient is most of a large step's device
+    time, so uniform ids would time another step."""
+    def sentences(longest):
+        ids = torch.randint(0, TWO_CARD_VOCAB - 1, (n, 40), generator=g)
+        lengths = torch.randint(5, longest + 1, (n, 1), generator=g)
+        return torch.where(torch.arange(40) < lengths, ids,
+                           TWO_CARD_VOCAB - 1).numpy()
+
+    return {"question": sentences(25), "answer": sentences(40),
+            "overlap_feat": torch.rand((n, 2), generator=g).numpy(),
+            "label": torch.randint(0, 2, (n,), generator=g).numpy()}
+
+
+def _recipe_trainer_cfg(batch):
+    from mms_answer_selection_tpu_torch.training import (SolverConfig,
+                                                         TrainerConfig)
+
+    return TrainerConfig(solver=SolverConfig(
+        solver_type="adadelta", base_lr=1.0, momentum=0.95, delta=5e-7,
+        weight_decay=5e-4), batch_size=batch)
+
+
+def test_two_cards_dp2_trainer_chunk_replays_the_eager_chunk():
+    """dp = 2: a 3-step chunk at global batch 50 replayed equals it run
+    eagerly on the same ranks, and the ranks hold one replica; the
+    one-step chunk's p50 at global batch 50 and 1,024 beside one
+    process's.  Then rank 0 evaluates alone, rank 1 gone, as ``cli train``
+    does on its test split: the eval replays (it runs no collective and
+    takes no mesh) and equals the eager eval."""
+    import json
+
+    from mms_answer_selection_tpu_torch.parallel.launch import spawn
+    from mms_answer_selection_tpu_torch.training import Trainer
+    from test_torch_parallel_ranks import p50_in_turns, serving_model
+
+    here = _two_cards()
+    cfg = dataclasses.replace(TM.MMSQAConfig(vocab_size=TWO_CARD_VOCAB),
+                              sim_weight_init="xavier")
+    params, state = serving_model(cfg)
+    g = torch.Generator().manual_seed(3)
+    batches = [_v4_batch(g, 50) for _ in range(3)]
+    timed = [_v4_batch(g, 50), _v4_batch(g, 1024)]
+    alone = {**_v4_batch(g, 60), "group": np.repeat(np.arange(6), 10)}
+    ranks = spawn("test_torch_parallel_ranks:nccl_trainer_chunk", 2,
+                  kwargs=dict(model_cfg=cfg, trainer_cfg=_recipe_trainer_cfg(
+                      50), batches=batches, params=params, state=state,
+                      timed=timed, alone=alone), backend="nccl",
+                  pythonpath=here, timeout=TWO_CARD_TIMEOUT)
+    for rank in ranks:
+        rep, eag = rank["replay"], rank["eager"]
+        assert rep["replays"] == 1 and eag["replays"] == 0
+        assert all(rep["tally"][0].get(n, 0) >= 3 for n in PAIR_KERNELS)
+        for key in ("params", "state", "opt", "losses"):
+            assert _same_tree(rep[key], eag[key]), key
+    assert _same_tree(ranks[0]["replay"]["params"],
+                      ranks[1]["replay"]["params"])
+    ev = ranks[0]["alone"]
+    assert ev["replays"] == 1 and "alone" not in ranks[1]
+    assert ev["replay"].keys() == ev["eager"].keys() >= {"prob", "map"}
+    for key, want in ev["eager"].items():
+        assert np.array_equal(ev["replay"][key], want), key
+
+    from mms_answer_selection_tpu_torch.convert import params_from_numpy
+    one = {}
+    for batch in timed:
+        n = len(batch["label"])
+        tr = Trainer(cfg, _recipe_trainer_cfg(n), device="cuda")
+        tr.init()
+        p, s = params_from_numpy(params, state, "cuda")
+        runner = tr._runner_for((p, s, tr.solver.init(p)))
+        b = [{k: torch.as_tensor(v, device="cuda") for k, v in
+              batch.items()}]
+
+        def run(flag):
+            def call():
+                runner.captures = flag
+                runner.run(b, 0)
+            return call
+
+        one[n] = p50_in_turns(run(False), run(True), 20)
+    print(json.dumps({"two_cards": "dp2 Trainer one-step chunk, V4",
+                      "card": _card_name(), "dp2_rank0": ranks[0]["times"],
+                      "dp2_rank1": ranks[1]["times"], "one_process": one}))
+
+
+def test_two_cards_tp2_sharded_step_replays_the_eager_step():
+    """tp = 2: two ``build_sharded_train_step`` steps (the embedding rows
+    and the metric's measures split) replayed equal them run eagerly on
+    the same ranks, and the ranks agree on the loss."""
+    from mms_answer_selection_tpu_torch.parallel.launch import spawn
+    from mms_answer_selection_tpu_torch.training import SolverConfig
+    from test_torch_parallel_ranks import serving_model
+
+    here = _two_cards()
+    cfg = TM.MMSQAConfig(vocab_size=TWO_CARD_VOCAB)
+    params, state = serving_model(cfg)
+    batch = _v4_batch(torch.Generator().manual_seed(4), 50)
+    ranks = spawn("test_torch_parallel_ranks:nccl_sharded_step", 2,
+                  kwargs=dict(model_cfg=cfg, solver_cfg=SolverConfig(
+                      solver_type="adadelta", base_lr=1.0, momentum=0.95,
+                      delta=5e-7), batch=batch, params=params, state=state,
+                      tp=2), backend="nccl", pythonpath=here,
+                  timeout=TWO_CARD_TIMEOUT)
+    assert sorted(r["tp_rank"] for r in ranks) == [0, 1]
+    for rank in ranks:
+        assert rank["replay"]["params"]["embed"]["w"].shape[0] * 2 \
+            == TWO_CARD_VOCAB
+        for key in ("params", "state", "opt", "losses"):
+            assert _same_tree(rank["replay"][key], rank["eager"][key]), key
+    assert torch.equal(ranks[0]["replay"]["losses"],
+                       ranks[1]["replay"]["losses"])
+
+
+def test_two_cards_split_pool_query_replays_eager_and_one_process():
+    """A 262,144-candidate int8 and bf16 pool and a 262,143-candidate int8
+    pool (rows that do not divide by 2) split over two ranks: the top-10
+    of 1 and 256 queries replayed equals the eager call on the same ranks
+    and one process's engine, ids and values bit for bit; the MaxSim
+    kernel launches; p50s beside one process's."""
+    import json
+
+    from mms_answer_selection_tpu_torch.convert import params_from_numpy
+    from mms_answer_selection_tpu_torch.parallel.launch import spawn
+    from test_torch_parallel_ranks import (candidates, p50_in_turns,
+                                           serving_model)
+
+    here = _two_cards()
+    cfg = TM.MMSQAConfig(vocab_size=TWO_CARD_VOCAB)
+    params, _ = serving_model(cfg)
+    pools = [("int8", 262_144, 1), ("int8", 262_143, 1), ("bf16", 262_144, 1)]
+    queries = candidates(256, 40, TWO_CARD_VOCAB, 9).numpy()
+    nqs, k, chunk = (1, 256), 10, 65_536
+    ranks = spawn("test_torch_parallel_ranks:nccl_engine", 2,
+                  kwargs=dict(model_cfg=cfg, params=params, pools=pools,
+                              queries=queries, k=k, chunk_size=chunk,
+                              timed_nq=nqs), backend="nccl", pythonpath=here,
+                  timeout=TWO_CARD_TIMEOUT)
+    p = params_from_numpy(params, {}, "cuda")[0]
+    q = torch.as_tensor(queries, device="cuda")
+    times = {}
+    for pool_dtype, rows, seed in pools:
+        eng = QueryEngine(p, cfg, pool_dtype=pool_dtype, chunk_size=chunk,
+                          device="cuda").build_index(
+            candidates(rows, 40, TWO_CARD_VOCAB, seed))
+        one = {nq: eng.query(q[:nq], k=k) for nq in nqs}
+        for rank in ranks:
+            res = rank[pool_dtype, rows]
+            assert res["captures"] and res["replays"] == 2 * len(nqs)
+            assert res["launches"].get(f"maxsim_{pool_dtype}", 0) >= 1
+            for nq in nqs:
+                want = tuple(t.cpu() for t in one[nq])
+                for got in (res[nq]["eager"], *res[nq]["replay"]):
+                    assert torch.equal(got[1], want[1]), (pool_dtype, rows)
+                    assert torch.equal(got[0].view(torch.int32),
+                                       want[0].view(torch.int32))
+
+        def query(nq, flag):
+            def call():
+                eng._calls.captures = flag
+                return eng.query(q[:nq], k=k)
+            return call
+
+        times[f"{pool_dtype} {rows}"] = {
+            "two_ranks": {nq: ranks[0][pool_dtype, rows]["times"][nq]
+                          for nq in nqs},
+            "one_process": {nq: p50_in_turns(query(nq, False),
+                                             query(nq, True), 10)
+                            for nq in nqs}}
+        del eng
+        torch.cuda.empty_cache()
+    print(json.dumps({"two_cards": "split-pool query, V4, top-10",
+                      "card": _card_name(), "times": times}))

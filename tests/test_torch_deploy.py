@@ -173,6 +173,48 @@ def test_header_readable_without_program(artifact):
     assert header == artifact[1]
 
 
+def test_platforms_default_and_header(artifact):
+    """``platforms`` as the JAX package's keyword: the port's default is
+    ("cpu", "cuda"), written into the header as the JAX header lists its
+    lowering targets."""
+    import inspect
+
+    from mms_answer_selection_tpu import deploy as jdeploy
+
+    assert artifact[1]["platforms"] == ["cpu", "cuda"]
+    for fn in ("export_scorer", "save_scorer"):
+        tp = inspect.signature(getattr(deploy, fn)).parameters["platforms"]
+        jp = inspect.signature(getattr(jdeploy, fn)).parameters["platforms"]
+        assert tp.kind == jp.kind == inspect.Parameter.KEYWORD_ONLY
+        assert tp.default == ("cpu", "cuda") and jp.default == ("cpu", "tpu")
+
+
+def test_load_refuses_a_device_the_header_does_not_name(model, tmp_path):
+    tp, ts = params_from_numpy(*model, "cpu")
+    path = str(tmp_path / "cuda_only.mmst")
+    header = deploy.save_scorer(path, tp, ts, TCFG, platforms=("cuda",))
+    assert header["platforms"] == ["cuda"]
+    with pytest.raises(ValueError, match="exported for \\[.cuda.\\]"):
+        deploy.load_scorer(path, device="cpu")
+    path = str(tmp_path / "cpu_only.mmst")
+    deploy.save_scorer(path, tp, ts, TCFG, platforms=["cpu"])
+    logits, _ = deploy.load_scorer(path, device="cpu")(*_batch(2))
+    assert logits.shape == (2, 2)
+
+
+@pytest.mark.parametrize("platforms", [("cpu", "tpu"), ("rocm",), ()])
+def test_a_platform_the_port_cannot_run_is_refused(model, tmp_path,
+                                                   platforms):
+    tp, ts = params_from_numpy(*model, "cpu")
+    path = tmp_path / "x.mmst"
+    name = platforms[-1] if platforms else "\\[\\]"
+    for fn, args in ((deploy.save_scorer, (str(path), tp, ts, TCFG)),
+                     (deploy.export_scorer, (tp, ts, TCFG))):
+        with pytest.raises(ValueError, match=name):
+            fn(*args, platforms=platforms)
+    assert not path.exists()
+
+
 def test_cuda_load_without_a_card_raises(artifact):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")

@@ -177,20 +177,179 @@ def test_register_model_family_takes_spec_builder():
 
 @pytest.mark.parametrize("name", ["bn_init", "bn_apply", "conv2d", "dropout",
                                   "sim_cross_cosine",
-                                  "sim_cross_inv_euclidean"])
+                                  "sim_cross_inv_euclidean", "conv_init",
+                                  "embed_init"])
 def test_keywords_cover_the_reference(name):
     def kw(fn):
         return {n: p.default for n, p in
                 inspect.signature(fn).parameters.items()
                 if p.kind == inspect.Parameter.KEYWORD_ONLY}
     jkw, tkw = kw(getattr(jops, name)), kw(getattr(tops, name))
-    # the JAX package's dtype / precision knobs have no torch counterpart
-    # here: operands carry their dtype, and float32 runs at full precision
-    jkw = {k: v for k, v in jkw.items()
-           if k not in ("dtype", "preferred_dtype", "precision")}
+    # an op's dtype / precision knobs have no torch counterpart here:
+    # operands carry their dtype, and float32 runs at full precision; an
+    # init takes dtype, whose default is float32 in both packages
+    skip = ("preferred_dtype", "precision") + (
+        () if name.endswith("_init") else ("dtype",))
+    jkw = {k: v for k, v in jkw.items() if k not in skip}
     assert set(jkw) <= set(tkw)
     for k, v in jkw.items():
-        assert tkw[k] == v, k
+        if k == "dtype":
+            assert str(tkw[k]) == f"torch.{jnp.dtype(v).name}", k
+        else:
+            assert tkw[k] == v, k
+
+
+# -- conv_init(bias_value=) fills the bias as JAX does --------------------------
+
+@pytest.mark.parametrize("kw", [{}, {"bias_value": 0.1}])
+def test_conv_init_bias_value(kw):
+    import jax
+
+    tp = tops.conv_init(torch.Generator().manual_seed(0), 3, 4, 3, 3, **kw)
+    jp = jops.conv_init(jax.random.PRNGKey(0), 3, 4, 3, 3, **kw)
+    _check(tp["b"], jp["b"])
+    assert tuple(tp["w"].shape) == jp["w"].shape
+    if kw:
+        np.testing.assert_array_equal(tp["b"].numpy(),
+                                      np.full(4, 0.1, np.float32))
+
+
+# -- dtype= on every init: each leaf's dtype and shape are JAX's ---------------
+# (the values are not compared: a torch.Generator is not a jax.random key)
+
+GRAPH_INIT_NET = """
+layer { name: "d" type: "Input" top: "x" top: "ids" }
+layer { name: "em" type: "Embed" bottom: "ids" top: "em"
+  embed_param { input_dim: 20 num_output: 6
+    weight_filler { type: "uniform" min: -0.1 max: 0.1 } } }
+layer { name: "cv" type: "Convolution" bottom: "x" top: "cv"
+  convolution_param { num_output: 4 kernel_size: 3
+    weight_filler { type: "msra" } bias_filler { type: "constant"
+    value: 0.5 } } }
+layer { name: "dc" type: "Deconvolution" bottom: "cv" top: "dc"
+  convolution_param { num_output: 4 kernel_size: 4 stride: 2 group: 4
+    weight_filler { type: "bilinear" } bias_term: false } }
+layer { name: "bn" type: "BatchNorm" bottom: "cv" top: "bn" }
+layer { name: "sc" type: "Scale" bottom: "bn" top: "sc"
+  scale_param { bias_term: true } }
+layer { name: "pr" type: "PReLU" bottom: "sc" top: "pr"
+  prelu_param { filler { type: "positive_unitball" } } }
+layer { name: "ip" type: "InnerProduct" bottom: "pr" top: "ip"
+  inner_product_param { num_output: 3 weight_filler { type: "gaussian"
+    std: 0.1 } bias_filler { type: "xavier" } } }
+"""
+
+
+def _leaf_types(tree):
+    """{path: (dtype name, shape)} of a tree of arrays or tensors."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        elif isinstance(node, (tuple, list)):
+            for i, v in enumerate(node):
+                walk(v, path + (i,))
+        else:
+            name = str(node.dtype).replace("torch.", "")
+            out[path] = (name, tuple(node.shape))
+
+    walk(tree, ())
+    return out
+
+
+def _init_pair(name, jdt, tdt):
+    """(JAX tree, port tree) of the init ``name`` at one dtype."""
+    import jax
+
+    from mms_answer_selection_tpu.models import caption_image as JC
+    from mms_answer_selection_tpu.models import graph_net as JG
+    from mms_answer_selection_tpu.models import mms_qa as JQ
+    from mms_answer_selection_tpu.models import pair_image as JP
+    from mms_answer_selection_tpu.ops import recurrent as JR
+    from mms_answer_selection_tpu.utils import fillers as JF
+    from mms_answer_selection_tpu_torch.models import caption_image as TC
+    from mms_answer_selection_tpu_torch.models import graph_net as TG
+    from mms_answer_selection_tpu_torch.models import mms_qa as TQ
+    from mms_answer_selection_tpu_torch.models import pair_image as TP
+    from mms_answer_selection_tpu_torch.ops import recurrent as TR
+    from mms_answer_selection_tpu_torch.utils import fillers as TF
+
+    key, gen = jax.random.PRNGKey(0), torch.Generator().manual_seed(0)
+
+    def cfgs(jcls, tcls, **kw):
+        j = jcls(**kw)
+        t = tcls(**{**kw, "blocks": tuple(tcls().blocks[0].__class__(
+            **{f: getattr(b, f) for f in b.__dataclass_fields__})
+            for b in j.blocks)})
+        return j, t
+
+    if name == "mms_qa_init":
+        j, t = cfgs(JQ.MMSQAConfig, TQ.MMSQAConfig, vocab_size=30,
+                    embed_dim=8, question_len=8, answer_len=8,
+                    sim_measures=2, sim_weight_init="xavier", sim_bias=True,
+                    blocks=(JQ.ConvBlock(3, 3, 4, "max", 2, 2),),
+                    fc1_dim=4)
+        return (JQ.mms_qa_init(key, j, dtype=jdt),
+                TQ.mms_qa_init(t, generator=gen, dtype=tdt))
+    if name == "caption_image_init":
+        j, t = cfgs(JC.CaptionImageConfig, TC.CaptionImageConfig)
+        return (JC.caption_image_init(key, j, dtype=jdt),
+                TC.caption_image_init(t, generator=gen, dtype=tdt))
+    if name == "pair_image_init":
+        j, t = cfgs(JP.PairImageConfig, TP.PairImageConfig)
+        return (JP.pair_image_init(key, j, dtype=jdt),
+                TP.pair_image_init(t, generator=gen, dtype=tdt))
+    if name == "conv_init":
+        return (jops.conv_init(key, 3, 4, 3, 3, dtype=jdt),
+                tops.conv_init(gen, 3, 4, 3, 3, dtype=tdt))
+    if name == "embed_init":
+        vecs = _np((5, 6))
+        return (jops.embed_init(key, 20, 6, pretrained=vecs, dtype=jdt),
+                tops.embed_init(gen, 20, 6, pretrained=vecs, dtype=tdt))
+    if name == "bn_init":
+        return jops.bn_init(4, dtype=jdt), tops.bn_init(4, dtype=tdt)
+    if name in ("lstm_init", "rnn_init"):
+        return (getattr(JR, name)(key, 5, 3, dtype=jdt),
+                getattr(TR, name)(gen, 5, 3, dtype=tdt))
+    if name == "GraphNet.init":
+        # the walk runs the layers: the input takes the weights' dtype
+        x = np.zeros((2, 3, 6, 6), np.float32)
+        ids = np.zeros((2, 4), np.int32)
+        jp = JG.GraphNet(GRAPH_INIT_NET).init(
+            key, {"x": jnp.asarray(x, jdt), "ids": jnp.asarray(ids)},
+            dtype=jdt)
+        tp = TG.GraphNet(GRAPH_INIT_NET).init(
+            gen, {"x": torch.from_numpy(x).to(tdt),
+                  "ids": torch.from_numpy(ids)}, dtype=tdt, device="cpu")
+        return jp, tp
+    shape = (4, 3, 2, 2)
+    return ({f: getattr(JF, f)(*([] if f == "bilinear" else [key]), shape,
+                               **({"dtype": jdt}))
+             for f in ("xavier", "gaussian", "msra", "positive_unitball",
+                       "bilinear")}
+            | {"uniform": JF.uniform(key, shape, -1.0, 1.0, dtype=jdt),
+               "constant": JF.constant(shape, 0.5, dtype=jdt)},
+            {f: getattr(TF, f)(*([] if f == "bilinear" else [gen]), shape,
+                               dtype=tdt)
+             for f in ("xavier", "gaussian", "msra", "positive_unitball",
+                       "bilinear")}
+            | {"uniform": TF.uniform(gen, shape, -1.0, 1.0, dtype=tdt),
+               "constant": TF.constant(shape, 0.5, dtype=tdt)})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", [
+    "mms_qa_init", "caption_image_init", "pair_image_init", "conv_init",
+    "embed_init", "bn_init", "lstm_init", "rnn_init", "GraphNet.init",
+    "fillers"])
+def test_inits_take_dtype_as_jax_does(name, dtype):
+    jtree, ttree = _init_pair(name, getattr(jnp, dtype),
+                              getattr(torch, dtype))
+    want = _leaf_types(jtree)
+    assert want and _leaf_types(ttree) == want
+    assert {d for d, _ in want.values()} == {dtype}
 
 
 # -- QueryEngine(scan_chunks=True), QAServer(pad_buckets=True) -----------------
@@ -248,3 +407,60 @@ def test_qaserver_pad_buckets_matches_jax(pad):
     finally:
         tsrv.close()
         jsrv.close()
+
+
+# -- departures logged in ROADMAP.md Queue 3 -----------------------------------
+
+def test_scan_train_steps_takes_no_root_key():
+    """JAX's ``scan_train_steps`` takes the root PRNG key ``fit`` uses; the
+    port's draws its dropout seeds from ``TrainerConfig.seed`` as ``fit``
+    does, so it takes none, and two trainers of one seed give the same
+    chunk."""
+    from mms_answer_selection_tpu.training import Trainer as JTrainer
+    from mms_answer_selection_tpu_torch.models import mms_qa as TQ
+    from mms_answer_selection_tpu_torch.training import (Trainer,
+                                                         TrainerConfig)
+
+    jp = list(inspect.signature(JTrainer.scan_train_steps).parameters)
+    tp = list(inspect.signature(Trainer.scan_train_steps).parameters)
+    assert jp == tp + ["root_key"]
+    cfg = TQ.MMSQAConfig(vocab_size=30, embed_dim=8, question_len=8,
+                         answer_len=8, sim_measures=2, sim_dropout=0.5,
+                         sim_weight_init="xavier",
+                         blocks=(TQ.ConvBlock(3, 3, 4, "max", 2, 2),),
+                         fc1_dim=4)
+    g = torch.Generator().manual_seed(1)
+    batches = {"question": torch.randint(0, 30, (2, 4, 8), generator=g),
+               "answer": torch.randint(0, 30, (2, 4, 8), generator=g),
+               "overlap_feat": torch.rand((2, 4, 2), generator=g),
+               "label": torch.randint(0, 2, (2, 4), generator=g)}
+    losses = []
+    for seed in (5, 5, 6):
+        tr = Trainer(cfg, TrainerConfig(seed=seed, batch_size=4),
+                     device="cpu")
+        losses.append(tr.scan_train_steps(*tr.init(), batches, 0)[3])
+    assert torch.equal(losses[0], losses[1])
+    assert not torch.equal(losses[0], losses[2])
+
+
+def test_batch_iterator_takes_device_for_device_put():
+    """JAX's ``BatchIterator(device_put=True)`` moves each batch to the
+    default device; the port names the device (``device=``), and
+    ``None`` keeps numpy batches as ``device_put=False`` does."""
+    from mms_answer_selection_tpu.data import loader as JL
+    from mms_answer_selection_tpu_torch.data import loader as TL
+
+    jp = inspect.signature(JL.BatchIterator.__init__).parameters
+    tp = inspect.signature(TL.BatchIterator.__init__).parameters
+    assert set(jp) - set(tp) == {"device_put"}
+    assert set(tp) - set(jp) == {"device"}
+    assert jp["device_put"].default is False and tp["device"].default is None
+    data = {"x": np.arange(12, dtype=np.float32).reshape(6, 2)}
+    j = next(JL.BatchIterator(JL.ArrayDataset(data), 3, shuffle=False))
+    t = next(TL.BatchIterator(TL.ArrayDataset(data), 3, shuffle=False))
+    on_cpu = next(TL.BatchIterator(TL.ArrayDataset(data), 3, shuffle=False,
+                                   device="cpu"))
+    assert isinstance(t["x"], np.ndarray)
+    np.testing.assert_array_equal(t["x"], np.asarray(j["x"]))
+    assert torch.is_tensor(on_cpu["x"]) and on_cpu["x"].device.type == "cpu"
+    np.testing.assert_array_equal(on_cpu["x"].numpy(), t["x"])

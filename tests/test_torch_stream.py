@@ -57,6 +57,21 @@ def _arrays(n=37, seed=0):
             "cube": rng.random((n, 2, 3)).astype(np.float32)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_store_library(tmp_path_factory):
+    """The JAX package's store builds its library with g++ straight onto
+    a path beside its source, and takes any file there that is newer than
+    the source as built.  Other test files in other workers build and load
+    that same file, and a loader could open it half written ("file too
+    short").  This module builds and loads its own copy, in a directory of
+    its own, for the module's life."""
+    path = str(tmp_path_factory.mktemp("jax_store") / "libpacked_store.so")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JP, "_so_path", lambda: path)
+        mp.setattr(JP, "_lib", None)
+        yield path
+
+
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     root = tmp_path_factory.mktemp("mmsp")
@@ -67,6 +82,15 @@ def files(tmp_path_factory):
 
 
 # --------------------------------------------------------------- the store
+def test_the_jax_store_library_is_this_module_s_own(
+        files, private_jax_store_library):
+    store = JP.PackedStore(str(files[0] / "j.mmsp"))
+    assert store.n_rows == len(files[1]["label"])
+    store.close()
+    assert JP._so_path() == private_jax_store_library
+    assert os.path.getsize(private_jax_store_library) > 0
+
+
 def test_write_mmsp_bytes_equal_jax(files):
     root, _ = files
     assert (root / "t.mmsp").read_bytes() == (root / "j.mmsp").read_bytes()

@@ -394,6 +394,21 @@ def test_fit_history_matches_jax(two_fits):
     _assert_trees_close(th["state"], jh["state"], **STEP_TOL)
 
 
+@pytest.mark.parametrize("donate", [False, True])
+def test_fit_with_donate_matches_jax(two_fits, donate):
+    """``Trainer(donate=)`` as the JAX package takes it: the port never
+    consumes its inputs, so either value trains as JAX's ``fit`` does."""
+    jh, _, _, tt, splits = two_fits
+    th = type(tt)(tt.model_cfg, tt.cfg, device="cpu", donate=donate).fit(
+        splits["train"], splits["dev"], test_data=splits["test"])
+    assert th["steps"] == jh["steps"]
+    assert th["best_step"] == jh["best_step"]
+    for key in ("train_loss", "dev_map", "test_map"):
+        np.testing.assert_allclose(th[key], jh[key], **STEP_TOL, err_msg=key)
+    _assert_trees_close(th["params"], jh["params"], **STEP_TOL)
+    _assert_trees_close(th["state"], jh["state"], **STEP_TOL)
+
+
 def test_fit_stops_early_by_epoch_patience(two_fits, request):
     _, th, *_ = two_fits
     # 60 rows at batch 10: 6 steps an epoch.  The epoch counter starts at
