@@ -115,7 +115,12 @@ at the V4 recipe's widths, after building the hand-written kernels from
   V4_WIDE engine of each dtype in turn, freed before the next, through
   the same checks as V4's, the pair-map kernels at (W1, W2) past 64 rows
   at D = 50 and 300, one V4_WIDE train step on the card against the CPU,
-  and its step p50 at batch 50 and 1024;
+  and V4_WIDE trained as users run it (configs[1]): ``dispatch_phase``'s
+  checks at batch 50 and 1,024 (a 5-step graph chunk against as many
+  eager steps; eager, K = 1 and K = 50 p50s in turns, a K = 50 replay
+  one ``cudaGraphLaunch`` holding 50 nodes of each pair-map kernel) and
+  a 301-step ``fit`` at K = 50 (replays = chunks, two eval graphs, the
+  pair-map kernels launched);
 * the multimodal side (configs[4]) at its published defaults: the
   pair-map kernels at (W1, W2, M) = (12, 25, 2) and the MaxSim kernels at
   R = 24 query rows, W2P = 32 against their plain versions, 200
@@ -158,13 +163,15 @@ at the V4 recipe's widths, after building the hand-written kernels from
   profiler's device time and idle share;
 * the examples (``examples_phase``): the JAX package's example scripts as
   the port's twins (``mms_answer_selection_tpu_torch/examples``), each
-  through its ``main`` on the card: the recipe rehearsal with ``--hard``
-  (3,001 steps, patience 5; its own ``trec_eval`` parity and min-gain
-  asserts), ``trec_qa_mms`` in smoke mode, ``retrieval_1m`` at 1,048,576
-  int8 candidates and at 262,144 bf16 with IVF and the coarse shortlist,
-  ``serve_load`` at its defaults, the full int8 error analysis into a
-  temporary directory and ``pair_image_metric``; a line each with its
-  wall and launches, failing unless the recipe and ``trec_qa_mms``
+  through its ``main`` on the card: the recipe rehearsal with ``--hard``,
+  with ``--model v4_wide`` (configs[1]) and with ``--format wikiqa``
+  (configs[2]) (3,001 steps each, patience 5; its own ``trec_eval``
+  parity and min-gain asserts), ``trec_qa_mms`` in smoke mode,
+  ``retrieval_1m`` at 1,048,576 int8 candidates and at 262,144 bf16 with
+  IVF and the coarse shortlist, ``serve_load`` at its defaults, the full
+  int8 error analysis into a temporary directory and
+  ``pair_image_metric``; a line each with its
+  wall and launches, failing unless the recipes and ``trec_qa_mms``
   launched the three pair-map kernels, the int8 legs ``maxsim_int8`` and
   the bf16 legs and IVF ``maxsim_bf16``;
 
@@ -742,12 +749,17 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
     return launches, splits, info
 
 
-def wide_train_phase(dev, normal, card: str, max_err: dict) -> None:
-    """Long sentences and V4_WIDE's training: the pair-map kernels against
-    their plain versions at (W1, W2) past 64 rows, at D = 50 and 300 (dW
-    bit-identical twice at each), one V4_WIDE train step on the card
-    against the CPU, and its step p50 at batch 50 and 1024 on corpus
-    batches."""
+def wide_train_phase(dev, normal, card: str, max_err: dict) -> dict:
+    """Long sentences and V4_WIDE's training (configs[1]) as users run it:
+    the pair-map kernels against their plain versions at (W1, W2) past 64
+    rows, at D = 50 and 300 (dW bit-identical twice at each), one V4_WIDE
+    train step on the card against the CPU; then ``dispatch_phase``'s
+    checks at V4_WIDE: a graph chunk against as many eager steps and the
+    step eager, at K = 1 and per step of a K = DISPATCH_K replay in turns
+    (the replay one ``cudaGraphLaunch`` holding DISPATCH_K kernel nodes of
+    each pair-map kernel) at WIDE_STEP_BATCHES, and ``fit`` at K =
+    DISPATCH_K (replays = chunks, two eval graphs).  Returns the launches
+    of the fit."""
     import dataclasses
 
     from mms_answer_selection_tpu_torch.models.mms_qa import V4_WIDE
@@ -765,8 +777,28 @@ def wide_train_phase(dev, normal, card: str, max_err: dict) -> None:
     tcfg = recipe_trainer()
     model = dataclasses.replace(V4_WIDE, vocab_size=info["vocab_size"])
     step_card_vs_cpu(model, tcfg, splits, info, dev, "V4_WIDE")
-    step_times(model, tcfg, splits, info, dev, WIDE_STEP_BATCHES, "V4_WIDE",
-               card)
+    xavier = dataclasses.replace(model, sim_weight_init="xavier")
+    for b in WIDE_STEP_BATCHES:
+        bcfg = dataclasses.replace(tcfg, batch_size=b)
+        # on the default kernels two eager runs of these 5 steps part in
+        # conv1.w by as much as a replay does (~1e-5 at batch 1,024: the
+        # atomics of the wider convs' weight gradients and of the
+        # embedding scatter, scaled by AdaDelta), so the chunk is held to
+        # eager steps on torch's deterministic kernels
+        with deterministic_algorithms():
+            graph_vs_eager(xavier, bcfg, splits, info, dev, b,
+                           "V4_WIDE, deterministic algorithms")
+        dispatch_times(model, bcfg, splits, info, dev, b, card, "V4_WIDE")
+        torch.cuda.empty_cache()
+    for name in sk.LAUNCH_COUNTS:
+        sk.LAUNCH_COUNTS[name] = 0
+    graph_fit(model, tcfg, splits, info, dev, card, "V4_WIDE")
+    launches = dict(sk.LAUNCH_COUNTS)
+    for name in CLI_TRAIN_KERNELS:
+        if launches[name] < FIT_STEPS:
+            raise AssertionError(f"the V4_WIDE fit launched {name} "
+                                 f"{launches[name]} times")
+    return launches
 
 
 def chunk_lengths(it: int, steps: int, k: int, intervals) -> list:
@@ -801,7 +833,8 @@ def capture_costs(runner, label: str, card: str) -> None:
             f"[{card}]")
 
 
-def graph_vs_eager(model, tcfg, splits, info, dev, b: int) -> None:
+def graph_vs_eager(model, tcfg, splits, info, dev, b: int,
+                   label: str = "V4") -> None:
     """A DISPATCH_CHECK_K-step chunk as one graph replay against as many
     eager ``_train_step`` calls from the same carry on the same batches,
     dropout on."""
@@ -833,7 +866,7 @@ def graph_vs_eager(model, tcfg, splits, info, dev, b: int) -> None:
             if not ok:
                 raise AssertionError(f"graph chunk at batch {b}: {name}.{k} "
                                      f"{diff:.3e} from the eager steps")
-    log(f"check graph chunk vs eager steps (V4, batch {b}, "
+    log(f"check graph chunk vs eager steps ({label}, batch {b}, "
         f"{DISPATCH_CHECK_K} steps, dropout on, xavier W): losses "
         f"{[round(float(x), 6) for x in got]}, max rel diff {loss_rel:.3e} "
         f"(tol {MM_LOSS_RTOL:g}); params max abs diff {worst:.3e} at {where}"
@@ -842,20 +875,26 @@ def graph_vs_eager(model, tcfg, splits, info, dev, b: int) -> None:
         raise AssertionError(f"graph chunk at batch {b}: losses differ")
 
 
-def dispatch_times(model, tcfg, splits, info, dev, b: int,
-                   card: str) -> None:
+def dispatch_times(model, tcfg, splits, info, dev, b: int, card: str,
+                   label: str = "V4") -> None:
     """Step p50 at batch ``b``: eager, one K = 1 replay, and a K =
     DISPATCH_K replay per step (host wall of calls each ended by a sync,
     capture off the clock), in turns; the profiler's read of one eager
-    step and one K = DISPATCH_K replay."""
+    step and one K = DISPATCH_K replay.  Fails unless the replay is one
+    ``cudaGraphLaunch`` on the host (the profiler's host records) and the
+    captured graph holds at least DISPATCH_K kernel nodes of each pair-map
+    kernel (read from the graph itself: the profiler's device records may
+    drop some, which its device-op counts only log)."""
     from torch.autograd import DeviceType
 
     from mms_answer_selection_tpu_torch.training import Trainer
+    from mms_answer_selection_tpu_torch.utils.graphs import kernel_nodes
 
     tr = Trainer(model, tcfg, device=dev)
     p, s, o = tr.init(pretrained=info["pretrained"])
     batches = corpus_batches(tr, splits, DISPATCH_K)
     runner = tr._runner_for((p, s, o))
+    runner.keep_graphs = True     # node lists for kernel_nodes
     reps = max(5, 1000 // b)
     modes = {"eager": (lambda: tr._train_step(p, s, o, batches[0], 0),
                        reps, 1),
@@ -887,23 +926,71 @@ def dispatch_times(model, tcfg, splits, info, dev, b: int,
                    "device_ms": busy, "idle": max(0.0, 1 - busy / wall),
                    "host_calls": calls, "pair_map_kernels": pair}
     replay = prof[f"K={DISPATCH_K}"]
-    log(f"time train step V4 batch {b}: eager p50 {p50['eager']:.3f} ms, "
-        f"K=1 graph p50 {p50['K=1']:.3f} ms, K={DISPATCH_K} graph "
-        f"{p50[f'K={DISPATCH_K}']:.3f} ms a step (each the mean of two "
-        f"turns: {({m: [round(x, 3) for x in t] for m, t in times.items()})}"
-        f"); profiler: eager step {prof['eager']['device_ops']} device ops, "
+    nodes = kernel_nodes(runner.graph(DISPATCH_K),
+                         [n + "_kernel" for n in CLI_TRAIN_KERNELS])
+    log(f"time train step {label} batch {b}: eager p50 "
+        f"{p50['eager']:.3f} ms, K=1 graph p50 {p50['K=1']:.3f} ms, "
+        f"K={DISPATCH_K} graph {p50[f'K={DISPATCH_K}']:.3f} ms a step "
+        f"(each the mean of two turns: "
+        f"{({m: [round(x, 3) for x in t] for m, t in times.items()})}); "
+        f"profiler: eager step {prof['eager']['device_ops']} device ops, "
         f"{prof['eager']['device_ms']:.3f} ms device time, idle "
         f"{prof['eager']['idle']:.1%}, host {prof['eager']['host_calls']}; "
         f"one K={DISPATCH_K} replay {replay['device_ops']} device ops, "
         f"{replay['device_ms']:.3f} ms device time ("
         f"{replay['device_ms'] / DISPATCH_K:.3f} ms a step), idle "
         f"{replay['idle']:.1%}, host {replay['host_calls']}, pair-map "
-        f"kernels {replay['pair_map_kernels']} [{card}]")
+        f"kernels the profiler read {replay['pair_map_kernels']}; the "
+        f"graph's kernel nodes {nodes} [{card}]")
     if replay["host_calls"].get("cudaGraphLaunch") != 1 or any(
-            n < DISPATCH_K for n in replay["pair_map_kernels"].values()):
+            n < DISPATCH_K for n in nodes.values()):
         raise AssertionError(f"a K={DISPATCH_K} chunk is not one graph "
-                             f"launch running the pair-map kernels: {replay}")
-    capture_costs(runner, f"V4 batch {b}", card)
+                             f"launch running the pair-map kernels: {replay}"
+                             f", graph nodes {nodes}")
+    capture_costs(runner, f"{label} batch {b}", card)
+
+
+def graph_fit(model, tcfg, splits, info, dev, card: str, label: str):
+    """``fit`` for FIT_STEPS at K = DISPATCH_K, dev and test evals every
+    TEST_INTERVAL steps: fails unless every chunk was one replay (replays
+    = chunks), the loss fell, and each eval was one replay a split of two
+    eval graphs.  Returns the trainer."""
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    tr = Trainer(model, tcfg, device=dev)
+    t0 = time.perf_counter()
+    hist = tr.fit(splits["train"], splits["dev"], test_data=splits["test"],
+                  pretrained=info["pretrained"],
+                  steps_per_dispatch=DISPATCH_K)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    chunks = len(chunk_lengths(0, FIT_STEPS, DISPATCH_K, [TEST_INTERVAL]))
+    losses = np.asarray(hist["train_loss"])
+    log(f"time fit {label} {FIT_STEPS} steps at batch {BATCH}, K="
+        f"{DISPATCH_K}: {fit_s:.3f} s ({FIT_STEPS / fit_s:.2f} steps/s), "
+        f"{chunks} chunks, {tr.runner.replays} graph replays; loss "
+        f"{losses[0]:.4f} -> {losses[-5:].mean():.4f}, dev MAP "
+        f"{[round(float(x), 4) for x in hist['dev_map']]} [{card}]")
+    capture_costs(tr.runner, f"fit {label} batch {BATCH}", card)
+    if tr.runner.replays != chunks or hist["steps"] != list(
+            range(0, FIT_STEPS, TEST_INTERVAL)) \
+            or not np.isfinite(losses).all() \
+            or not losses[-5:].mean() < losses[0]:
+        raise AssertionError(f"fit {label} at K={DISPATCH_K}: "
+                             f"{tr.runner.stats()}")
+    # its evals: one replay per split and eval, a graph per split shape
+    evals = len(hist["steps"])
+    log(f"fit {label}'s evals: {tr.evals.replays} replays of "
+        f"{len(tr.evals.keys())} eval graphs ({evals} evals on dev and "
+        f"test): " + "; ".join(
+            f"capture {st['capture_s']:.3f} s, graph pool +"
+            f"{st['pool_bytes'] / 2**20:.1f} MiB, a replay launches "
+            f"{st['tally']}" for st in tr.evals.stats()) + f" [{card}]")
+    if tr.evals.replays != 2 * evals or len(tr.evals.keys()) != 2:
+        raise AssertionError(f"fit {label}'s evals: {tr.evals.stats()}")
+    return tr
 
 
 def dispatch_phase(dev, card: str, splits, info) -> dict:
@@ -915,8 +1002,6 @@ def dispatch_phase(dev, card: str, splits, info) -> dict:
     and ``fit_stream`` at K = DISPATCH_K (replays = chunks).  Returns the
     launches of the fit and fit_stream runs."""
     import dataclasses
-
-    import numpy as np
 
     from mms_answer_selection_tpu_torch.models.mms_qa import V4
     from mms_answer_selection_tpu_torch.ops import sim_cross_kernels as sk
@@ -936,36 +1021,7 @@ def dispatch_phase(dev, card: str, splits, info) -> dict:
     # fit and fit_stream through K = DISPATCH_K graphs, counts from 0
     for name in sk.LAUNCH_COUNTS:
         sk.LAUNCH_COUNTS[name] = 0
-    tr = Trainer(model, tcfg, device=dev)
-    t0 = time.perf_counter()
-    hist = tr.fit(splits["train"], splits["dev"], test_data=splits["test"],
-                  pretrained=info["pretrained"],
-                  steps_per_dispatch=DISPATCH_K)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    chunks = len(chunk_lengths(0, FIT_STEPS, DISPATCH_K, [TEST_INTERVAL]))
-    losses = np.asarray(hist["train_loss"])
-    log(f"time fit {FIT_STEPS} steps at batch {BATCH}, K={DISPATCH_K}: "
-        f"{fit_s:.3f} s ({FIT_STEPS / fit_s:.2f} steps/s), {chunks} chunks, "
-        f"{tr.runner.replays} graph replays; loss {losses[0]:.4f} -> "
-        f"{losses[-5:].mean():.4f}, dev MAP "
-        f"{[round(float(x), 4) for x in hist['dev_map']]} [{card}]")
-    capture_costs(tr.runner, f"fit batch {BATCH}", card)
-    if tr.runner.replays != chunks or hist["steps"] != list(
-            range(0, FIT_STEPS, TEST_INTERVAL)) \
-            or not np.isfinite(losses).all() \
-            or not losses[-5:].mean() < losses[0]:
-        raise AssertionError(f"fit at K={DISPATCH_K}: {tr.runner.stats()}")
-    # its evals: one replay per split and eval, a graph per split shape
-    evals = len(hist["steps"])
-    log(f"fit's evals: {tr.evals.replays} replays of "
-        f"{len(tr.evals.keys())} eval graphs ({evals} evals on dev and "
-        f"test): " + "; ".join(
-            f"capture {st['capture_s']:.3f} s, graph pool +"
-            f"{st['pool_bytes'] / 2**20:.1f} MiB, a replay launches "
-            f"{st['tally']}" for st in tr.evals.stats()) + f" [{card}]")
-    if tr.evals.replays != 2 * evals or len(tr.evals.keys()) != 2:
-        raise AssertionError(f"fit's evals: {tr.evals.stats()}")
+    tr = graph_fit(model, tcfg, splits, info, dev, card, "V4")
     # the eval step alone on the last carry: replay against eager
     p, s, _ = tr.runner.carry
     tr.evals.drop()
@@ -4756,6 +4812,10 @@ def mesh_phase(dev, card: str, splits, info) -> dict:
 EXAMPLE_RUNS = (  # (label, module, argv, kernels it must launch)
     ("recipe_scale_rehearsal --hard", "recipe_scale_rehearsal", ("--hard",),
      CLI_TRAIN_KERNELS),
+    ("recipe_scale_rehearsal --model v4_wide", "recipe_scale_rehearsal",
+     ("--model", "v4_wide"), CLI_TRAIN_KERNELS),
+    ("recipe_scale_rehearsal --format wikiqa", "recipe_scale_rehearsal",
+     ("--format", "wikiqa"), CLI_TRAIN_KERNELS),
     ("trec_qa_mms", "trec_qa_mms", (), (*CLI_TRAIN_KERNELS, "maxsim_bf16")),
     ("retrieval_1m", "retrieval_1m", (), ("maxsim_int8",)),
     ("retrieval_1m --ivf-clusters", "retrieval_1m",
@@ -4832,14 +4892,14 @@ def _check_example(name: str, out: dict) -> str:
 
 def examples_phase(card: str) -> dict:
     """The JAX package's examples as the port's twins, on the card, each
-    through its ``main``: the recipe with ``--hard`` (3,001 steps,
-    patience 5, its own trec_eval parity and 0.25 min-gain asserts),
-    ``trec_qa_mms`` in smoke mode, ``retrieval_1m`` at 1,048,576 int8 and
-    at POOL with IVF and the coarse shortlist, ``serve_load``, the full
-    int8 error analysis into a temporary directory and
-    ``pair_image_metric``.  Logs each one's wall and launches and fails
-    unless each launched its kernels; returns the launches, example by
-    example."""
+    through its ``main``: the recipe with ``--hard``, ``--model v4_wide``
+    and ``--format wikiqa`` (3,001 steps each, patience 5, its own
+    trec_eval parity and 0.25 min-gain asserts), ``trec_qa_mms`` in smoke
+    mode, ``retrieval_1m`` at 1,048,576 int8 and at POOL with IVF and the
+    coarse shortlist, ``serve_load``, the full int8 error analysis into a
+    temporary directory and ``pair_image_metric``.  Logs each one's wall
+    and launches and fails unless each launched its kernels; returns the
+    launches, example by example."""
     import contextlib
     import importlib
     import io
@@ -4858,7 +4918,7 @@ def examples_phase(card: str) -> dict:
             if name == "int8_error_analysis":
                 kw["out_dir"] = f"{td}/int8"
             elif name in ("recipe_scale_rehearsal", "trec_qa_mms"):
-                argv += ["--out", f"{td}/{name}"]
+                argv += ["--out", f"{td}/{label.replace(' ', '_')}"]
             elif name == "pair_image_metric":
                 argv += ["--dir", f"{td}/pairs"]
             for k in sk.LAUNCH_COUNTS:
@@ -5049,12 +5109,13 @@ def main() -> int:
     del params, state, cand_ids, queries
     torch.cuda.empty_cache()
     wide_serving_phase(sk, normal, gen, dev, card, max_err)
-    wide_train_phase(dev, normal, card, max_err)
+    wide = wide_train_phase(dev, normal, card, max_err)
     torch.cuda.empty_cache()
     mm = multimodal_phase(sk, normal, dev, card, max_err)
     torch.cuda.empty_cache()
     examples = examples_phase(card)
     log(f"launches on the dispatch path: {json.dumps(dispatch)}")
+    log(f"launches on the V4_WIDE fit: {json.dumps(wide)}")
     log(f"launches on the generic path: {json.dumps(graph)}")
     log(f"launches on the pycaffe path: {json.dumps(pycaffe)}")
     log(f"launches on the multimodal path: {json.dumps(mm)}")

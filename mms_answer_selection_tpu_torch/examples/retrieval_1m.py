@@ -3,7 +3,9 @@ synthetic candidate pool (twin of ``examples/retrieval_1m.py``).
 
 One card holds the int8 pool and scores it in chunks through the int8
 MaxSim kernel.  ``--mesh`` splits the pool over a ``parallel.make_mesh``
-mesh of the process group's ranks (one card each; a lone process makes a
+mesh of the process group's ranks (one card each; a launcher's ranks, as
+``torchrun --nproc-per-node 4 -m ... --mesh`` starts them, join one group
+through ``parallel.multihost.initialize``; a lone process makes a
 one-rank group), with a per-rank top-k merged across ranks.  With
 ``--ivf-clusters`` / ``--coarse-shortlist`` the pool is bf16 and IVF's
 coarse stage and probes run the bf16 MaxSim kernel.
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import time
 
 import numpy as np
@@ -69,6 +72,16 @@ def main(argv=None, *, device=None) -> dict:
     from ..models.mms_qa import V4, mms_qa_init
     from ..serve import QueryEngine, ivf_recall
 
+    mesh, own_group = None, False
+    if args.mesh:
+        from ..parallel.mesh import make_mesh
+        from ..parallel.multihost import initialize
+        own_group = not dist.is_initialized()
+        # a launcher's ranks (torchrun's environment), each bound to its
+        # own card; without one, a one-rank group
+        initialize()
+        mesh = make_mesh(devices=resolve_device(device).type)
+
     dev = resolve_device(device)
     cfg = dataclasses.replace(V4, vocab_size=args.vocab)
     params, _ = mms_qa_init(cfg, generator=torch.Generator().manual_seed(0),
@@ -79,12 +92,6 @@ def main(argv=None, *, device=None) -> dict:
         rng.normal(size=(cfg.sim_measures, cfg.embed_dim,
                          cfg.embed_dim)).astype(np.float32) * 0.05,
         device=dev)
-
-    mesh, own_group = None, False
-    if args.mesh:
-        from ..parallel.mesh import make_mesh
-        own_group = not dist.is_initialized()
-        mesh = make_mesh(devices=dev.type)
 
     cand_ids = rng.integers(0, args.vocab, (args.pool, cfg.answer_len),
                             dtype=np.int32)
@@ -150,6 +157,10 @@ def main(argv=None, *, device=None) -> dict:
                   f"(16q) = {r:.3f}  [{kw}]")
             out[name] = {"ms": ms, f"recall@{args.k}": r, **kw}
     if own_group:
+        # the engine's graphs were captured with the group's NCCL
+        # collectives: free them before the group's communicators
+        engine = ivf = qfn = None
+        gc.collect()
         dist.destroy_process_group()
     return out
 

@@ -145,7 +145,11 @@ class StepRunner:
     ``carry``: (params, state, opt_state), copied into the runner's own
     buffers (``load`` copies a later carry in); ``carry`` afterwards is the
     static carry itself, which the next chunk overwrites: clone what must
-    outlive it (``snapshot``)."""
+    outlive it (``snapshot``).
+
+    ``keep_graphs``: keep each captured graph's node list, so that
+    ``utils.graphs.kernel_nodes(runner.graph(k), ...)`` can read the
+    kernel nodes of the k-step graph."""
 
     def __init__(self, step: Callable, carry, *, iter_size: int,
                  seed: Callable[[int, int], int], device, captures: bool,
@@ -161,6 +165,7 @@ class StepRunner:
         self._chunks: dict = {}
         self._stream = None
         self.outputs = None
+        self.keep_graphs = False
 
     # ---------------------------------------------------------------- carry
     @property
@@ -214,6 +219,12 @@ class StepRunner:
                  "pool_bytes": c.pool_bytes, "tally": dict(c.tally),
                  "replays": c.replays}
                 for c in self._chunks.values()]
+
+    def graph(self, k: int) -> torch.cuda.CUDAGraph:
+        """The captured graph of the chunk length ``k``."""
+        (graph,) = [c.graph for c in self._chunks.values()
+                    if c.k == k and c.graph is not None]
+        return graph
 
     # ----------------------------------------------------------------- run
     def run(self, batches, step0, *, generators=None) -> torch.Tensor:
@@ -307,7 +318,8 @@ class StepRunner:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
+        # a kept node list is instantiated below, inside the timing
+        graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graphs)
         for row in chunk.generators:
             for g in row:
                 graph.register_generator_state(g)
@@ -316,6 +328,8 @@ class StepRunner:
             with torch.cuda.graph(graph, stream=side,
                                   capture_error_mode="thread_local"):
                 self._body(chunk)
+            if self.keep_graphs:
+                graph.instantiate()
 
         collecting = gc.isenabled()
         gc.disable()

@@ -57,13 +57,17 @@ threads) do not invalidate it.
 
 The kernels' wrappers count their launches in Python, which a replay never
 runs: a capture's increments are taken back (nothing ran), kept as the
-graph's tally, and added once per replay.
+graph's tally, and added once per replay.  ``kernel_nodes`` reads what a
+captured graph launches from the graph itself (its DOT print).
 """
 
 from __future__ import annotations
 
 import gc
 import logging
+import os
+import re
+import tempfile
 import time
 import traceback
 from typing import Callable
@@ -104,6 +108,35 @@ def _origin(exc: BaseException) -> str:
         return repr(exc)
     f = frames[-1]
     return f"{f.filename}:{f.lineno} ({f.line}): {exc}"
+
+
+_DOT_NODE = re.compile(r'(?m)^\s*"graph_\d+_node_\d+"\s*\[')
+
+
+def count_kernel_nodes(dot: str, names) -> dict:
+    """name -> the nodes of a graph's DOT print (``cudaGraphDebugDotPrint``)
+    whose statement holds ``name``: with the kernel names, the kernel
+    nodes launching each."""
+    starts = [m.start() for m in _DOT_NODE.finditer(dot)] + [len(dot)]
+    nodes = [dot[a:b] for a, b in zip(starts, starts[1:])]
+    return {n: sum(n in node for node in nodes) for n in names}
+
+
+def kernel_nodes(graph: torch.cuda.CUDAGraph, names) -> dict:
+    """name -> the kernel nodes of a captured ``graph`` launching a kernel
+    whose name holds ``name``, read from the graph itself: the CUDA
+    driver's DOT print of it (``debug_dump``), so the graph must keep its
+    node list (``CUDAGraph(keep_graph=True)``, then ``instantiate()`` after
+    the capture).  The dump may release the node list (the instantiated
+    graph replays on), so read a graph once."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        if not os.path.exists(path):
+            raise RuntimeError("the graph wrote no DOT print: it kept no "
+                               "node list (keep_graph=True)")
+        with open(path) as f:
+            return count_kernel_nodes(f.read(), names)
 
 
 def _flatten(tree, leaves: list):

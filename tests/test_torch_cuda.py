@@ -2037,12 +2037,13 @@ def test_two_cards_tp2_sharded_step_replays_the_eager_step():
                        ranks[1]["replay"]["losses"])
 
 
-def test_two_cards_split_pool_query_replays_eager_and_one_process():
-    """A 262,144-candidate int8 and bf16 pool and a 262,143-candidate int8
-    pool (rows that do not divide by 2) split over two ranks: the top-10
-    of 1 and 256 queries replayed equals the eager call on the same ranks
-    and one process's engine, ids and values bit for bit; the MaxSim
-    kernel launches; p50s beside one process's."""
+def _split_pool_equals_one_process(here, ranks_n: int, pools, chunk: int,
+                                   label: str, timeout: float) -> None:
+    """``pools`` ((dtype, rows, seed) each) split over ``ranks_n`` NCCL
+    ranks: the top-10 of 1 and 256 queries replayed equals the eager call
+    on the same ranks and one process's engine, ids and values bit for
+    bit; every rank launches the pool's MaxSim kernel; prints the p50s
+    beside one process's as one JSON line keyed ``label``."""
     import json
 
     from mms_answer_selection_tpu_torch.convert import params_from_numpy
@@ -2050,17 +2051,15 @@ def test_two_cards_split_pool_query_replays_eager_and_one_process():
     from test_torch_parallel_ranks import (candidates, p50_in_turns,
                                            serving_model)
 
-    here = _two_cards()
     cfg = TM.MMSQAConfig(vocab_size=TWO_CARD_VOCAB)
     params, _ = serving_model(cfg)
-    pools = [("int8", 262_144, 1), ("int8", 262_143, 1), ("bf16", 262_144, 1)]
     queries = candidates(256, 40, TWO_CARD_VOCAB, 9).numpy()
-    nqs, k, chunk = (1, 256), 10, 65_536
-    ranks = spawn("test_torch_parallel_ranks:nccl_engine", 2,
+    nqs, k = (1, 256), 10
+    ranks = spawn("test_torch_parallel_ranks:nccl_engine", ranks_n,
                   kwargs=dict(model_cfg=cfg, params=params, pools=pools,
                               queries=queries, k=k, chunk_size=chunk,
                               timed_nq=nqs), backend="nccl", pythonpath=here,
-                  timeout=TWO_CARD_TIMEOUT)
+                  timeout=timeout)
     p = params_from_numpy(params, {}, "cuda")[0]
     q = torch.as_tensor(queries, device="cuda")
     times = {}
@@ -2087,12 +2086,54 @@ def test_two_cards_split_pool_query_replays_eager_and_one_process():
             return call
 
         times[f"{pool_dtype} {rows}"] = {
-            "two_ranks": {nq: ranks[0][pool_dtype, rows]["times"][nq]
-                          for nq in nqs},
+            label.replace("cards", "ranks"): {
+                nq: ranks[0][pool_dtype, rows]["times"][nq] for nq in nqs},
             "one_process": {nq: p50_in_turns(query(nq, False),
                                              query(nq, True), 10)
                             for nq in nqs}}
         del eng
         torch.cuda.empty_cache()
-    print(json.dumps({"two_cards": "split-pool query, V4, top-10",
+    print(json.dumps({label: "split-pool query, V4, top-10",
                       "card": _card_name(), "times": times}))
+
+
+def test_two_cards_split_pool_query_replays_eager_and_one_process():
+    """A 262,144-candidate int8 and bf16 pool and a 262,143-candidate int8
+    pool (rows that do not divide by 2) split over two ranks: the top-10
+    of 1 and 256 queries replayed equals the eager call on the same ranks
+    and one process's engine, ids and values bit for bit; the MaxSim
+    kernel launches; p50s beside one process's."""
+    _split_pool_equals_one_process(
+        _two_cards(), 2,
+        [("int8", 262_144, 1), ("int8", 262_143, 1), ("bf16", 262_144, 1)],
+        65_536, "two_cards", TWO_CARD_TIMEOUT)
+
+
+# configs[3] at its own scale (the JAX package's examples/retrieval_1m.py
+# shards 1,048,576 candidates over every device): four ranks, one card
+# each, in chunks of 131,072 rows; needs four cards:
+#
+#   python -m pytest --noconftest -p no:cacheprovider -s \
+#       tests/test_torch_cuda.py -k four_cards
+FOUR_CARD_TIMEOUT = 300
+
+
+def _four_cards():
+    """As ``_two_cards``; skips with fewer than four cards."""
+    _cuda()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    return _two_cards()
+
+
+def test_four_cards_split_pool_1m_equals_one_process():
+    """configs[3]'s 1,048,576-candidate pool, int8, int4 and bf16, and an
+    int8 pool of 1,048,573 rows (which do not divide by 4), split over
+    four NCCL ranks: the top-10 of 1 and 256 queries replayed and eager
+    equals one process's engine, ids and values bit for bit; every rank
+    launches the pool's MaxSim kernel; p50s beside one process's."""
+    _split_pool_equals_one_process(
+        _four_cards(), 4,
+        [("int8", 1_048_576, 1), ("int8", 1_048_573, 1),
+         ("int4", 1_048_576, 1), ("bf16", 1_048_576, 1)],
+        131_072, "four_cards", FOUR_CARD_TIMEOUT)

@@ -189,6 +189,23 @@ def test_recipe_corpus_equals_the_jax_scripts(extra):
     _equal(info, j_info)
 
 
+def test_recorded_wikiqa_corpus_is_the_jax_scripts():
+    """The card run ``docs/runs_torch/recipe_scale_wikiqa`` trained on the
+    corpus the JAX script builds with ``--format wikiqa`` (its pair counts
+    and vocabulary), which is not the corpus the JAX package's own
+    artifact records: that one was made from sizes its summary omits."""
+    args = recipe_scale_rehearsal.parse_args(["--format", "wikiqa"])
+    splits, info = _jax_corpus(args, 50)
+    want = {k: int(len(v["label"])) for k, v in splits.items()}
+    got = json.loads((ROOT / "docs/runs_torch/recipe_scale_wikiqa/"
+                      "summary.json").read_text())
+    assert got["corpus"] == want
+    assert got["vocab_size"] == info["vocab_size"]
+    jax_run = json.loads((ROOT / "docs/runs/recipe_scale_wikiqa/"
+                          "summary.json").read_text())
+    assert jax_run["corpus"] != want
+
+
 # ------------------------------------------------------------------ twins
 def test_recipe_twin_on_the_cpu(tmp_path):
     summary = recipe_scale_rehearsal.main(

@@ -62,6 +62,49 @@ def test_retrieval_1m_on_a_one_rank_mesh_equals_one_process():
         [i for i, _ in meshed["top_k_query0"]]
 
 
+LAUNCHED_RANK = """
+import json, os, sys
+import torch.distributed as dist
+from mms_answer_selection_tpu_torch.examples import retrieval_1m
+from mms_answer_selection_tpu_torch.serve import QueryEngine
+build, rows = QueryEngine.build_index, []
+def recorded(self, ids, **kw):
+    out = build(self, ids, **kw)
+    rows.append([dist.get_world_size(), self.pool.shape[0]])
+    return out
+QueryEngine.build_index = recorded
+out = retrieval_1m.main(sys.argv[2:], device="cpu")
+with open(os.path.join(sys.argv[1], os.environ["RANK"] + ".json"), "w") as f:
+    json.dump({"rows": rows, "top": [i for i, _ in out["top_k_query0"]],
+               "group_left": dist.is_initialized()}, f)
+"""
+
+
+def test_retrieval_1m_mesh_splits_over_a_launchers_ranks(tmp_path):
+    """Under torchrun, ``--mesh`` joins the launcher's four ranks: each
+    holds a quarter of a pool that does not divide by four, the top-10
+    is one process's, and the group is gone at the end."""
+    import os
+    import subprocess
+    import sys
+
+    script = tmp_path / "rank.py"
+    script.write_text(LAUNCHED_RANK)
+    argv = ["--pool", "2045", "--queries", "4"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", str(script), str(tmp_path), *argv,
+         "--mesh"], capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    plain = retrieval_1m.main(argv, device="cpu")
+    for rank in range(4):
+        got = json.loads((tmp_path / f"{rank}.json").read_text())
+        assert got["rows"] == [[4, 512]]
+        assert got["top"] == [i for i, _ in plain["top_k_query0"]]
+        assert not got["group_left"]
+
+
 def test_serve_load_small_interpret(tmp_path):
     out = serve_load.main(
         ["--pool", "2048", "--clients", "2", "--requests", "16",
@@ -232,3 +275,84 @@ def test_full_budget_eval_graphs_card_artifact():
     ev = trec_eval(str(d / "truth"), str(d / "result"))
     assert abs(ev["map"] - s["test_map"]) < 1e-9
     assert abs(ev["recip_rank"] - s["test_mrr"]) < 1e-9
+
+
+# the JAX package's four recorded recipe-scale runs, run on the card through
+# the twin with the JAX runs' flags (tools/recorded_runs.py): name -> the
+# chunk length K the flags give (--fused-steps, default 1)
+RECORDED_RUNS = {"recipe_scale_wide300": 1, "recipe_scale_wikiqa": 1,
+                 "recipe_scale_v4": 1, "recipe_scale_v4_hard": 100}
+# |best dev MAP - the JAX run's|, stated before the first card run
+RECORDED_BAND = 0.02
+# The JAX package's WikiQA artifact was made from corpus sizes its summary
+# does not record: with --format wikiqa the JAX script builds these pairs
+# and vocabulary, as the twin does
+# (test_torch_examples.py::test_recorded_wikiqa_corpus_is_the_jax_scripts)
+JAX_SCRIPT_CORPUS = {"recipe_scale_wikiqa": (
+    {"train": 12645, "dev": 643, "test": 679}, 19719)}
+
+
+def _run_end(s: dict, h: dict) -> int:
+    """The steps ``fit`` ran: ``max_iter``, or fewer where the recipe's
+    early stop (``_EpochStop``, patience in epochs) fired on the history's
+    dev MAPs."""
+    from mms_answer_selection_tpu_torch.training import TrainerConfig
+    from mms_answer_selection_tpu_torch.training.trainer import _EpochStop
+
+    rule = _EpochStop(TrainerConfig(
+        batch_size=50, test_interval=100,
+        early_stop_patience=s["early_stop_patience"] or s["max_iter"]),
+        s["corpus"]["train"], -1, 0)
+    evals, best = dict(zip(h["steps"], h["dev_map"])), -1.0
+    for it in range(s["max_iter"]):
+        stop = False
+        if it in evals:
+            stop |= rule.evaluated(evals[it] > best)
+            best = max(best, evals[it])
+        if stop | rule.stepped(it):
+            return it + 1
+    return s["max_iter"]
+
+
+@pytest.mark.parametrize("name", list(RECORDED_RUNS))
+def test_recorded_run_card_artifact(name):
+    """``docs/runs_torch/<name>``: the JAX run's configuration on the same
+    corpus (``corpus`` and ``vocab_size`` those of ``docs/runs/<name>``),
+    on the card, learning as the JAX test asks, its curve the summary's,
+    truth / result scoring to its MAP / MRR, every chunk the loop plans
+    until its stop one graph replay, and the best dev MAP within the band
+    of the JAX run's."""
+    from mms_answer_selection_tpu_torch.metrics import trec_eval
+    from mms_answer_selection_tpu_torch.training import Trainer
+
+    d = RUNS / name
+    s = json.loads((d / "summary.json").read_text())
+    h = json.loads((d / "history.json").read_text())
+    jax = json.loads((ROOT / "docs" / "runs" / name / "summary.json")
+                     .read_text())
+    assert (s["model"], s["format"], s["embed_dim"], s["max_iter"]) == (
+        jax.get("model", "v4"), jax.get("format", "trec"),
+        jax.get("embed_dim", 50), jax["max_iter"])
+    corpus, vocab = JAX_SCRIPT_CORPUS.get(
+        name, (jax["corpus"], jax["vocab_size"]))
+    assert s["corpus"] == corpus and s["vocab_size"] == vocab
+    assert s["backend"] == "cuda" and s["card"].endswith(" W")
+    assert s["best_dev_map"] > s["chance_dev_map_step0"] + 0.25
+    assert s["test_map"] > 0.6
+    assert h["dev_map"][0] == s["chance_dev_map_step0"]
+    assert max(h["dev_map"]) == s["best_dev_map"]
+    assert h["steps"][int(np.argmax(h["dev_map"]))] == s["best_step"]
+    ev = trec_eval(str(d / "truth"), str(d / "result"))
+    assert abs(ev["map"] - s["test_map"]) < 1e-9
+    assert abs(ev["recip_rank"] - s["test_mrr"]) < 1e-9
+    end = _run_end(s, h)
+    assert h["steps"] == list(range(0, end, 100))
+    assert s["last_eval_step"] == h["steps"][-1]
+    chunks, it = 0, 0
+    while it < end:
+        it += Trainer._plan_chunk(it, RECORDED_RUNS[name],
+                                  s["max_iter"] - it, [100, 1000])
+        chunks += 1
+    assert s["dispatch"]["graph_replays"] == chunks
+    assert s["eval_dispatch"]["graph_replays"] == 2 * len(h["steps"])
+    assert abs(s["best_dev_map"] - jax["best_dev_map"]) <= RECORDED_BAND

@@ -488,6 +488,33 @@ def test_sharded_engine_topk(serve_case, pool_dtype, chunk):
         _assert_topk_agrees(res[0]["vals"], res[0]["idx"], jv, ji)
 
 
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8", "int4"])
+def test_four_rank_split_pool_uneven_equals_one_process(serve_case,
+                                                        pool_dtype):
+    """configs[3]'s layout past two ranks: 299 rows (which do not divide
+    by four) split over four ranks, every dtype int4 included, give one
+    process's top-10 (ids exactly, scores to 1e-6 on the CPU), and the
+    JAX package's engine over a four-device mesh agrees."""
+    jcfg, params, cand, q = serve_case
+    tcfg = _tcfg(jcfg)
+    cand = cand[:299]
+    res = _ranks("engine_topk", 4, params=params, model_cfg=tcfg, cand=cand,
+                 queries=q, k=10, pool_dtype=pool_dtype, chunk_size=64)
+    tp, _ = params_from_numpy(params, {}, "cpu")
+    want_v, want_i = QueryEngine(tp, tcfg, pool_dtype=pool_dtype,
+                                 chunk_size=64, device="cpu").build_index(
+        cand).query(torch.as_tensor(q), k=10)
+    for r in res:
+        assert torch.equal(r["idx"], want_i)
+        np.testing.assert_allclose(r["vals"].numpy(), want_v.numpy(),
+                                   rtol=1e-6, atol=0)
+    jv, ji = JEngine(params, jcfg, mesh=jax.sharding.Mesh(
+        np.asarray(jax.devices()[:4]), ("c",)),
+        pool_dtype={"bf16": jnp.bfloat16}.get(pool_dtype, pool_dtype),
+        interpret=True).build_index(cand).query(q, k=10)
+    _assert_topk_agrees(res[0]["vals"], res[0]["idx"], jv, ji)
+
+
 def test_sharded_merge_keeps_lax_top_k_order():
     """Equal scores from two ranks go lower global index first, and -0.0
     sorts below +0.0, bit for bit through the gather."""
