@@ -4429,6 +4429,33 @@ def tail_phase(dev, card: str, splits) -> dict:
 # the meshed query at MESH_NQ queries
 MESH_STEPS, MESH_K = 20, 10
 MESH_TIMED = (BATCH, 1024)
+# the CLI's launcher path on one NCCL rank (mesh_cli_check): `train
+# --mesh-dp -1` under torchrun and the plain `train`, each in its own
+# process under deterministic algorithms, MESH_CLI_STEPS steps in chunks
+# of MESH_CLI_K with evals and snapshots every MESH_CLI_K
+MESH_CLI_STEPS, MESH_CLI_K = 151, 50
+# what each process runs first (its sitecustomize): torch's deterministic
+# kernels and no TF32; any sitecustomize it shadows runs before it
+DETERMINISTIC_SITE = """import os
+import sys
+
+_here = os.path.dirname(os.path.abspath(__file__))
+for _p in sys.path:
+    _f = os.path.join(os.path.abspath(_p or "."), "sitecustomize.py")
+    if os.path.dirname(_f) != _here and os.path.exists(_f):
+        with open(_f) as _src:
+            exec(compile(_src.read(), _f, "exec"), {"__name__": __name__,
+                                                    "__file__": _f})
+        break
+
+import torch
+
+torch.use_deterministic_algorithms(True, warn_only=True)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.deterministic = True
+"""
 MESH_NQ = (1, N_QUERIES)
 MESH_ENGINES = ("int8", "bf16")
 
@@ -4756,6 +4783,88 @@ def mesh_engine_check(cfg, mesh, dev, card: str) -> dict:
     return counts
 
 
+def mesh_cli_check(splits, info, root: Path, card: str) -> None:
+    """The CLI's launcher path on one NCCL rank: ``torchrun --standalone
+    --nproc-per-node 1 -m mms_answer_selection_tpu_torch.cli train
+    --mesh-dp -1`` (the rank joins through ``multihost.initialize``, the
+    mesh spans it, rank 0 evaluates and writes, the group is left at the
+    end) beside the plain ``train``, MESH_CLI_STEPS recipe steps in
+    chunks of MESH_CLI_K, each run its own process under deterministic
+    algorithms (a ``sitecustomize`` on its path): both exit 0, and their
+    snapshots, history and printed lines agree bit for bit."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from mms_answer_selection_tpu_torch import cli
+    from mms_answer_selection_tpu_torch.models.mms_qa import V4
+    from mms_answer_selection_tpu_torch.training.checkpoint import (
+        load_checkpoint)
+    from mms_answer_selection_tpu_torch.utils.config import (
+        experiment_to_json)
+
+    prep = root / "cli_prep"
+    cli.save_prepped(str(prep), splits, info, dim=D, q_len=W1, a_len=W2)
+    site = root / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(DETERMINISTIC_SITE)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(site), str(ROOT)] + [p for p in [os.environ.get(
+            "PYTHONPATH")] if p])}
+    model = dataclasses.replace(V4, vocab_size=info["vocab_size"])
+    runs = {}
+    for name, launch in (
+            ("plain", [sys.executable, "-m"]),
+            ("torchrun", [sys.executable, "-m", "torch.distributed.run",
+                          "--standalone", "--nproc-per-node", "1", "-m"])):
+        exp = root / f"cli_{name}"
+        exp.mkdir()
+        (exp / "cfg.json").write_text(experiment_to_json(
+            model, dataclasses.replace(
+                recipe_trainer(), max_iter=MESH_CLI_STEPS,
+                test_interval=MESH_CLI_K, snapshot_interval=MESH_CLI_K,
+                snapshot_dir=str(exp / "models"))))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            launch + ["mms_answer_selection_tpu_torch.cli", "train",
+                      "--data", str(prep), "--exp", str(exp), "--config",
+                      str(exp / "cfg.json"), "--fused-steps",
+                      str(MESH_CLI_K)]
+            + (["--mesh-dp", "-1"] if name == "torchrun" else []),
+            env=env, capture_output=True, text=True, timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"cli train ({name}) exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        runs[name] = (exp, proc.stdout, time.perf_counter() - t0)
+    (a, a_out, a_s), (b, b_out, b_s) = runs["plain"], runs["torchrun"]
+    snaps = sorted(p.relative_to(a) for p in [*a.glob("models/*_iter_*"),
+                                             *a.glob("best_iter_*")])
+    if snaps != sorted(p.relative_to(b) for p in [
+            *b.glob("models/*_iter_*"), *b.glob("best_iter_*")]) \
+            or len(snaps) < MESH_CLI_STEPS // MESH_CLI_K:
+        raise AssertionError(f"cli train under torchrun wrote other "
+                             f"snapshots than the plain run: {snaps}")
+    for snap in snaps:
+        got = list(_leaves(load_checkpoint(str(b / snap))[0]))
+        want = list(_leaves(load_checkpoint(str(a / snap))[0]))
+        if len(got) != len(want) or not all(
+                np.array_equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"cli train --mesh-dp -1 under torchrun: "
+                                 f"{snap} is not the plain run's")
+    if (a / "history.json").read_text() != (b / "history.json").read_text() \
+            or a_out != b_out:
+        raise AssertionError("cli train --mesh-dp -1 under torchrun: the "
+                             "history or the printed lines part from the "
+                             "plain run's")
+    best = [ln for ln in a_out.splitlines() if ln.startswith("best dev")]
+    log(f"mesh: torchrun --nproc-per-node 1 cli train --mesh-dp -1, "
+        f"{MESH_CLI_STEPS} recipe steps in chunks of {MESH_CLI_K}, = the "
+        f"plain cli train bit for bit under deterministic algorithms "
+        f"({len(snaps)} snapshots, history, {best}); process walls "
+        f"{b_s:.1f} s / plain {a_s:.1f} s [{card}]")
+
+
 def mesh_phase(dev, card: str, splits, info) -> dict:
     """The meshed programs as CUDA graph replays over one NCCL rank (see
     MESH_STEPS): the Trainer's chunks and evals, GraphSolver's iterations,
@@ -4802,6 +4911,8 @@ def mesh_phase(dev, card: str, splits, info) -> dict:
                                               mesh, dev, card)
     finally:
         dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as td:
+        mesh_cli_check(splits, info, Path(td), card)
     log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
     return launches
 

@@ -29,7 +29,8 @@ serving lifecycle), ``plot`` draws learning curves from training logs,
 matcaffe command surface to the MATLAB client.  ``train`` and ``solve``
 take ``--mesh-dp N``: data parallelism over N processes (one device each),
 launched by ``torchrun`` or any launcher that sets ``MASTER_ADDR`` /
-``WORLD_SIZE`` / ``RANK``.
+``WORLD_SIZE`` / ``RANK``; rank 0 alone prints and writes the run's files,
+and a command that joined a launcher's group leaves it before it returns.
 
 The commands that run a model take ``--device`` (default ``cuda``, which
 raises where no card is present; ``cpu`` runs the plain PyTorch paths).
@@ -60,8 +61,29 @@ _LAST_SERVER = None
 
 
 # --------------------------------------------------------------------- prep
+def save_prepped(out, splits, info, *, dim, q_len, a_len) -> None:
+    """Write a prepped data dir, what ``train``, ``eval`` and ``serve``
+    read: each split's arrays, the vocabulary and its meta."""
+    from .data import save_dataset
+
+    os.makedirs(out, exist_ok=True)
+    for name, split in splits.items():
+        save_dataset(os.path.join(out, f"{name}.npz"), split)
+        log.info("%s: %d pairs", name, len(split["label"]))
+    np.savez_compressed(
+        os.path.join(out, "vocab.npz"),
+        pretrained=info["pretrained"],
+        words=np.asarray(list(info["vocab"].keys())),
+    )
+    with open(os.path.join(out, "meta.json"), "w") as f:
+        json.dump({"vocab_size": info["vocab_size"],
+                   "unknown_idx": info["unknown_idx"],
+                   "pad_idx": info["pad_idx"],
+                   "dim": dim, "q_len": q_len, "a_len": a_len}, f)
+
+
 def cmd_prep(args):
-    from .data import prepare_trec_qa, prepare_wikiqa, save_dataset
+    from .data import prepare_trec_qa, prepare_wikiqa
     from .ops.embed import load_pretrained_vectors
 
     words, vecs = load_pretrained_vectors(args.glove, args.dim)
@@ -70,21 +92,8 @@ def cmd_prep(args):
     prepare = prepare_wikiqa if args.format == "wikiqa" else prepare_trec_qa
     splits, info = prepare(args.train_xml, args.dev_xml, args.test_xml, w2v,
                            q_len=args.q_len, a_len=args.a_len)
-    os.makedirs(args.out, exist_ok=True)
-    for name, split in splits.items():
-        save_dataset(os.path.join(args.out, f"{name}.npz"), split)
-        log.info("%s: %d pairs", name, len(split["label"]))
-    np.savez_compressed(
-        os.path.join(args.out, "vocab.npz"),
-        pretrained=info["pretrained"],
-        words=np.asarray(list(info["vocab"].keys())),
-    )
-    with open(os.path.join(args.out, "meta.json"), "w") as f:
-        json.dump({"vocab_size": info["vocab_size"],
-                   "unknown_idx": info["unknown_idx"],
-                   "pad_idx": info["pad_idx"],
-                   "dim": args.dim, "q_len": args.q_len,
-                   "a_len": args.a_len}, f)
+    save_prepped(args.out, splits, info, dim=args.dim, q_len=args.q_len,
+                 a_len=args.a_len)
     if args.hdf5:
         from .data.hdf5_compat import save_hdf5_chunks
         for name, split in splits.items():
@@ -157,7 +166,9 @@ def _mesh_from_args(args):
     from .parallel.mesh import make_mesh
     from .parallel.multihost import initialize
 
+    joined = not dist.is_initialized()
     initialize()
+    args.joined_group = joined and dist.is_initialized()
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n == -1:
         n = world
@@ -167,6 +178,20 @@ def _mesh_from_args(args):
         raise SystemExit(f"--mesh-dp {n}: {world} ranks run, and a mesh "
                          f"spans every rank")
     return make_mesh(n, 1, devices=args.device)
+
+
+def _leave_group(args) -> None:
+    """Destroy the process group ``_mesh_from_args`` joined from a
+    launcher.  The caller has dropped what held the meshed programs: a
+    graph captured with NCCL collectives must be freed before the group's
+    communicators, or the process hangs at exit."""
+    if getattr(args, "joined_group", False):
+        import gc
+
+        import torch.distributed as dist
+
+        gc.collect()
+        dist.destroy_process_group()
 
 
 def _best_checkpoint(args):
@@ -181,6 +206,11 @@ def _best_checkpoint(args):
 
 # -------------------------------------------------------------------- train
 def cmd_train(args):
+    _train(args)
+    _leave_group(args)
+
+
+def _train(args):
     from .metrics import format_trec_table, trec_eval, write_trec_files
     from .training import Trainer
     from .training.checkpoint import save_checkpoint
@@ -582,7 +612,17 @@ def cmd_solve(args):
     """The reference's `caffe train --solver=...`: any NetParameter
     prototxt through GraphSolver (test passes, smoothed-loss display,
     snapshots, resume).  Prints the last iteration, the smoothed loss and
-    each test net's last outputs as one JSON line."""
+    each test net's last outputs as one JSON line (over a mesh, rank 0
+    alone)."""
+    line = _solve(args)
+    if line is not None:
+        print(line)
+    _leave_group(args)
+
+
+def _solve(args):
+    import torch.distributed as dist
+
     from .training.graph_solver import GraphSolver
     from .training.signals import SignalHandler
 
@@ -608,8 +648,10 @@ def cmd_solve(args):
                 for k, v in rec.items() if k not in ("iter", "phase")}
     tests = (last_by_net.get("Test#0", {}) if len(last_by_net) <= 1
              else last_by_net)
-    print(json.dumps({"iter": gs.iter_, "loss": float(loss),
-                      "last_test": tests}))
+    if mesh is not None and dist.get_rank() != 0:
+        return None
+    return json.dumps({"iter": gs.iter_, "loss": float(loss),
+                       "last_test": tests})
 
 
 def _test_feeds(net, model_path: str, seed: int) -> list:

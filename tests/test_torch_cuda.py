@@ -1921,16 +1921,16 @@ def _same_tree(a, b) -> bool:
     return torch.equal(a.cpu(), b.cpu())
 
 
-def _v4_batch(g, n):
+def _v4_batch(g, n, vocab=TWO_CARD_VOCAB):
     """A V4 batch shaped as the corpus's: sentences of 5-25 (questions)
     and 5-40 (answers) tokens, the rest the pad row (the vocabulary's
     last), whose embedding gradient is most of a large step's device
     time, so uniform ids would time another step."""
     def sentences(longest):
-        ids = torch.randint(0, TWO_CARD_VOCAB - 1, (n, 40), generator=g)
+        ids = torch.randint(0, vocab - 1, (n, 40), generator=g)
         lengths = torch.randint(5, longest + 1, (n, 1), generator=g)
         return torch.where(torch.arange(40) < lengths, ids,
-                           TWO_CARD_VOCAB - 1).numpy()
+                           vocab - 1).numpy()
 
     return {"question": sentences(25), "answer": sentences(40),
             "overlap_feat": torch.rand((n, 2), generator=g).numpy(),
@@ -2137,3 +2137,378 @@ def test_four_cards_split_pool_1m_equals_one_process():
         [("int8", 1_048_576, 1), ("int8", 1_048_573, 1),
          ("int4", 1_048_576, 1), ("bf16", 1_048_576, 1)],
         131_072, "four_cards", FOUR_CARD_TIMEOUT)
+
+
+# Training over four cards (``-k four_cards``, on a host with four): the
+# JAX package's dp x tp sharded step, the dp = 4 Trainer chunk and the
+# CLI's ``--mesh-dp 4`` under torchrun.  V4 at its published widths (D =
+# 50, W1 = W2 = 40, M = 4) with the smoke's vocabulary of 50,000 rows.
+# Against one process, the band is the CPU tests': STEP_TOL on every leaf
+# but the conv biases (rounding noise ahead of a train-mode BN, which
+# AdaDelta moves by up to its step) and the BN means that follow them.
+FOUR_CARD_VOCAB = 50_000
+FOUR_CARD_TIMED = (200, 1024)
+FOUR_CARD_STEP_TOL = dict(rtol=1e-4, atol=1e-4)
+NOISE_LEAVES = ("conv0.b", "conv1.b", "bn0.mean", "bn1.mean")
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = []
+        for k, v in tree.items():
+            out += _named_leaves(v, f"{prefix}{k}.")
+        return out
+    return [(prefix[:-1], tree.detach().cpu().double())]
+
+
+def _within_band(got, want, band) -> dict:
+    """Every leaf of ``got`` against ``want``: STEP_TOL, the noise leaves
+    ``band``; returns each leaf's max |difference| (asserting after all
+    are read, so a failure shows every leaf)."""
+    diffs, bad = {}, []
+    for (name, g), (name2, w) in zip(_named_leaves(got), _named_leaves(want)):
+        assert name == name2
+        d = (g - w).abs()
+        diffs[name] = float(d.max())
+        if ".".join(name.split(".")[-2:]) in NOISE_LEAVES:
+            ok = diffs[name] <= band
+        else:
+            ok = bool(torch.all(d <= FOUR_CARD_STEP_TOL["atol"]
+                                + FOUR_CARD_STEP_TOL["rtol"] * w.abs()))
+        if not ok:
+            bad.append(name)
+    assert not bad, (bad, diffs)
+    return diffs
+
+
+def _join_tp(ranks, key, spec):
+    """dp replica 0's tp slices joined along axis 0 where ``spec`` splits
+    a leaf (the solver history mirrors the params)."""
+    by_tp = sorted((r for r in ranks if r["dp_rank"] == 0),
+                   key=lambda r: r["tp_rank"])
+
+    def join(trees, spec):
+        if isinstance(trees[0], dict):
+            return {k: join([t[k] for t in trees], spec[k]) for k in trees[0]}
+        return torch.cat(trees) if spec else trees[0]
+
+    if key == "opt":
+        return {k: join([r["replay"][key][k] for r in by_tp], spec)
+                for k in by_tp[0]["replay"][key]}
+    return join([r["replay"][key] for r in by_tp], spec)
+
+
+def test_four_cards_dp2_tp2_sharded_step_replays_eager_and_one_process():
+    """The JAX package's 2-D layout on four cards: three
+    ``build_sharded_train_step`` steps at global batch 200 (dropout on,
+    AdaDelta) on a dp = 2 x tp = 2 NCCL mesh, each rank holding half the
+    embedding rows and two of the four measures.  Replayed equals eager
+    on the same ranks bit for bit (deterministic algorithms); every
+    rank's captured step holds the three pair-map kernels; the dp
+    replicas hold the same slices and the tp ranks the same loss; the
+    joined params, BN state and history equal one process's on one card
+    within the band.  Then the step's p50 at global batch 200 and 1,024,
+    eager and replayed in turns, beside dp = 4 x tp = 1 and one process."""
+    import json
+
+    from mms_answer_selection_tpu_torch.parallel.launch import spawn
+    from mms_answer_selection_tpu_torch.training import SolverConfig
+    from test_torch_parallel_ranks import serving_model
+
+    here = _four_cards()
+    cfg = TM.MMSQAConfig(vocab_size=FOUR_CARD_VOCAB)
+    params, state = serving_model(cfg)
+    g = torch.Generator().manual_seed(5)
+    batches = [_v4_batch(g, 200, FOUR_CARD_VOCAB) for _ in range(3)]
+    kw = dict(model_cfg=cfg, solver_cfg=_recipe_trainer_cfg(200).solver,
+              batch=batches[0], batches=batches, params=params,
+              state=state, timed=[_v4_batch(g, n, FOUR_CARD_VOCAB)
+                                  for n in FOUR_CARD_TIMED])
+    assert isinstance(kw["solver_cfg"], SolverConfig)
+    runs = {}
+    for label, world, dp, tp in (("dp2_tp2", 4, 2, 2), ("dp4_tp1", 4, 4, 1),
+                                 ("one_process", 1, 1, 1)):
+        runs[label] = spawn("test_torch_parallel_ranks:nccl_sharded_step",
+                            world, kwargs=dict(kw, dp=dp, tp=tp),
+                            backend="nccl", pythonpath=here,
+                            timeout=FOUR_CARD_TIMEOUT)
+    for label, ranks in runs.items():
+        for rank in ranks:
+            assert rank["replays"] == len(batches), label
+            assert all(rank["nodes"][n + "_kernel"] >= 1
+                       for n in PAIR_KERNELS), (label, rank["nodes"])
+            for key in ("params", "state", "opt", "losses"):
+                assert _same_tree(rank["replay"][key], rank["eager"][key]), \
+                    (label, key)
+            assert torch.equal(rank["replay"]["losses"],
+                               ranks[0]["replay"]["losses"]), label
+    two = runs["dp2_tp2"]
+    assert sorted((r["dp_rank"], r["tp_rank"]) for r in two) == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
+    for r in two:             # dp replicas hold the same slices
+        twin = [t for t in two if t["tp_rank"] == r["tp_rank"]]
+        assert _same_tree(twin[0]["replay"]["params"],
+                          twin[1]["replay"]["params"])
+    one = runs["one_process"][0]["replay"]
+    spec = two[0]["spec"]
+    assert spec["embed"]["w"] == ("tp",) and spec["sim"]["w"] == ("tp",)
+    band = 2 * len(batches) * 2 * GRAPH_ADADELTA_STEP
+    torch.testing.assert_close(two[0]["replay"]["losses"], one["losses"],
+                               **FOUR_CARD_STEP_TOL)
+    diffs = {k: _within_band(_join_tp(two, k, spec), one[k], band)
+             for k in ("params", "opt")}
+    diffs["state"] = _within_band(two[0]["replay"]["state"], one["state"],
+                                  band)
+    dp4 = runs["dp4_tp1"]
+    for r in dp4:
+        _within_band(r["replay"]["params"], one["params"], band)
+    print(json.dumps({
+        "four_cards": "sharded train step, V4 at vocab 50,000, AdaDelta",
+        "card": _card_name(), "nodes": two[0]["nodes"],
+        "max_abs_vs_one_process": {k: max(v.values())
+                                   for k, v in diffs.items()},
+        "p50_ms": {label: ranks[0]["times"]
+                   for label, ranks in runs.items()}}))
+
+
+def test_four_cards_dp4_trainer_chunk_replays_eager_and_one_process():
+    """dp = 4: a K = 50 ``Trainer(mesh=)`` chunk at global batch 200 (50 a
+    card, the reference's ``-gpu 0,1,2,3``) replayed equals it run eagerly
+    on the same ranks bit for bit, its graph holds the three pair-map
+    kernels 50 times, the ranks hold one replica, and it equals one
+    process's chunk within the band.  The one-step chunk's p50 at global
+    batch 200 and 1,024, beside one card's at 50 and 1,024 (the weak and
+    strong scaling).  Then rank 0 evaluates alone, as ``cli train`` does:
+    the eval replays and equals the eager eval."""
+    import json
+
+    from mms_answer_selection_tpu_torch.parallel.launch import spawn
+    from test_torch_parallel_ranks import serving_model
+
+    here = _four_cards()
+    k = 50
+    cfg = dataclasses.replace(TM.MMSQAConfig(vocab_size=FOUR_CARD_VOCAB),
+                              sim_weight_init="xavier")
+    params, state = serving_model(cfg)
+    g = torch.Generator().manual_seed(6)
+    batches = [_v4_batch(g, 200, FOUR_CARD_VOCAB) for _ in range(k)]
+    b50, b200, b1024 = (_v4_batch(g, n, FOUR_CARD_VOCAB)
+                        for n in (50, 200, 1024))
+    alone = {**_v4_batch(g, 60, FOUR_CARD_VOCAB),
+             "group": np.repeat(np.arange(6), 10)}
+    kw = dict(model_cfg=cfg, trainer_cfg=_recipe_trainer_cfg(200),
+              batches=batches, params=params, state=state)
+    ranks = spawn("test_torch_parallel_ranks:nccl_trainer_chunk", 4,
+                  kwargs=dict(kw, timed=[b200, b1024], alone=alone),
+                  backend="nccl", pythonpath=here, timeout=FOUR_CARD_TIMEOUT)
+    (one,) = spawn("test_torch_parallel_ranks:nccl_trainer_chunk", 1,
+                   kwargs=dict(kw, timed=[b50, b1024]), backend="nccl",
+                   pythonpath=here, timeout=FOUR_CARD_TIMEOUT)
+    for rank in ranks + [one]:
+        rep, eag = rank["replay"], rank["eager"]
+        assert rep["replays"] == 1 and eag["replays"] == 0
+        assert all(rep["tally"][0].get(n, 0) >= k for n in PAIR_KERNELS)
+        assert all(rank["nodes"][n + "_kernel"] >= k for n in PAIR_KERNELS), \
+            rank["nodes"]
+        for key in ("params", "state", "opt", "losses"):
+            assert _same_tree(rep[key], eag[key]), key
+    for rank in ranks[1:]:
+        assert _same_tree(rank["replay"]["params"],
+                          ranks[0]["replay"]["params"])
+    band = 2 * k * 2 * GRAPH_ADADELTA_STEP
+    torch.testing.assert_close(ranks[0]["replay"]["losses"],
+                               one["replay"]["losses"], **FOUR_CARD_STEP_TOL)
+    diffs = {key: _within_band(ranks[0]["replay"][key], one["replay"][key],
+                               band) for key in ("params", "state", "opt")}
+    ev = ranks[0]["alone"]
+    assert ev["replays"] == 1 and all("alone" not in r for r in ranks[1:])
+    for key, want in ev["eager"].items():
+        assert np.array_equal(ev["replay"][key], want), key
+    print(json.dumps({
+        "four_cards": f"dp4 Trainer chunk (K={k}), V4 at vocab 50,000",
+        "card": _card_name(), "nodes": ranks[0]["nodes"],
+        "max_abs_vs_one_process": {key: max(v.values())
+                                   for key, v in diffs.items()},
+        "p50_ms_one_step_chunk": {"dp4_rank0": ranks[0]["times"],
+                                  "one_card": one["times"]}}))
+
+
+def _best_dev_map(stdout: str) -> float:
+    (line,) = [ln for ln in stdout.splitlines()
+               if ln.startswith("best dev MAP")]
+    return float(line.split()[3])
+
+
+def _recipe_prep(tmp_path, here):
+    """The recipe-sized corpus (``chip_smoke.recipe_xml``) through ``cli
+    prep`` into ``tmp_path/prep``; returns its meta."""
+    import json
+    import os
+    import sys
+
+    from mms_answer_selection_tpu_torch import cli
+
+    sys.path.insert(0, os.path.dirname(here[0]))
+    from chip_smoke import D, recipe_xml
+
+    xmls, w2v = recipe_xml(D)
+    for name, xml in zip(("train", "dev", "test"), xmls):
+        (tmp_path / f"{name}.xml").write_text(xml)
+    with open(tmp_path / "glove.txt", "w") as f:
+        for w, v in w2v.items():
+            f.write(w + " " + " ".join(map(repr, v)) + "\n")
+    cli.main(["prep", "--train-xml", str(tmp_path / "train.xml"),
+              "--dev-xml", str(tmp_path / "dev.xml"), "--test-xml",
+              str(tmp_path / "test.xml"), "--glove",
+              str(tmp_path / "glove.txt"), "--out", str(tmp_path / "prep")])
+    return json.loads((tmp_path / "prep" / "meta.json").read_text())
+
+
+def test_four_cards_cli_train_mesh_dp4_best_dev_map_near_one_card(tmp_path):
+    """The CLI as users start it on four cards: ``torchrun
+    --nproc-per-node 4 -m mms_answer_selection_tpu_torch.cli train
+    --mesh-dp 4`` on the recipe-sized corpus, the recipe (AdaDelta, W = 0)
+    at global batch 200 for 1,001 steps in chunks of 50, beside one
+    card's ``train`` at the same batch, steps and seed: both exit 0 (no
+    hang at exit), evaluate at the same steps, and their best dev MAPs
+    are within 0.02 (the band, set before the first run)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+
+    from mms_answer_selection_tpu_torch.utils.config import \
+        experiment_to_json
+
+    here = _four_cards()
+    meta = _recipe_prep(tmp_path, here)
+    model = dataclasses.replace(TM.V4, vocab_size=meta["vocab_size"])
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(here[0])}
+    runs = {}
+    for name, launch in (
+            ("one_card", [sys.executable, "-m"]),
+            ("dp4", [sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc-per-node", "4", "-m"])):
+        exp = tmp_path / name
+        exp.mkdir()
+        (exp / "cfg.json").write_text(experiment_to_json(
+            model, dataclasses.replace(
+                _recipe_trainer_cfg(200), max_iter=1001, test_interval=100,
+                snapshot_interval=500, early_stop_patience=99, seed=22,
+                snapshot_dir=str(exp / "models"))))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            launch + ["mms_answer_selection_tpu_torch.cli", "train",
+                      "--data", str(tmp_path / "prep"), "--exp", str(exp),
+                      "--config", str(exp / "cfg.json"), "--fused-steps",
+                      "50"] + (["--mesh-dp", "4"] if name == "dp4" else []),
+            env=env, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, (name, proc.stderr[-4000:])
+        hist = json.loads((exp / "history.json").read_text())
+        runs[name] = {"wall_s": wall, "best_dev_map":
+                      _best_dev_map(proc.stdout),
+                      "dev_map": hist["dev_map"], "steps": hist["steps"]}
+    gap = abs(runs["dp4"]["best_dev_map"] - runs["one_card"]["best_dev_map"])
+    print(json.dumps({
+        "four_cards": "cli train --mesh-dp 4 beside one card's train, V4 "
+                      "recipe corpus, global batch 200, 1,001 steps, K = 50",
+        "card": _card_name(), "train": runs, "best_dev_map_gap": gap}))
+    assert runs["dp4"]["steps"] == runs["one_card"]["steps"]
+    assert runs["dp4"]["steps"][-1] == 1000
+    assert gap <= 0.02, runs
+
+
+def test_four_cards_caffe_train_mesh_dp4_equals_one_card(tmp_path):
+    """The generic ``caffe train`` over four ranks (``solve --mesh-dp
+    4``) on the recipe's net prototxt (dropout on, a xavier SimCross
+    filler) for 300 iterations at global batch 200: rank 0 alone prints
+    and writes, and its snapshot equals ``GraphSolver`` run on one card
+    from the same ``--weights`` within the band.  The ranks run the CLI
+    through ``tests/test_torch_parallel_ranks.py cli`` under torchrun,
+    which reads the HDF5 source list as the prepped ``.npz`` beside it:
+    the card's host has no h5py."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+
+    import mms_answer_selection_tpu_torch.data.hdf5_compat as hdf5_compat
+    from mms_answer_selection_tpu_torch.training.graph_solver import \
+        GraphSolver
+    from mms_answer_selection_tpu_torch.utils.caffemodel import (
+        _parse_layers, save_caffemodel_binaryproto)
+    from mms_answer_selection_tpu_torch.utils.prototxt import (
+        net_prototxt_from_config, solver_prototxt_from_config)
+    from test_torch_parallel_ranks import npz_for_hdf5_lists
+
+    here = _four_cards()
+    meta = _recipe_prep(tmp_path, here)
+    model = dataclasses.replace(TM.V4, vocab_size=meta["vocab_size"],
+                                sim_weight_init="xavier")
+    solve = tmp_path / "solve"
+    solve.mkdir()
+    (solve / "train.prototxt").write_text(net_prototxt_from_config(
+        model, batch_size=200,
+        source=str(tmp_path / "prep" / "train.txt")).replace(
+        "sim_cross_param {", 'sim_cross_param { weight_filler { type: '
+        '"xavier" }', 1))
+    iters = 300
+    (solve / "solver.prototxt").write_text(solver_prototxt_from_config(
+        dataclasses.replace(_recipe_trainer_cfg(200), max_iter=iters,
+                            test_interval=0, snapshot_interval=iters,
+                            display=0, snapshot_prefix=str(solve / "v4")),
+        train_net="train.prototxt"))
+    real = hdf5_compat.load_hdf5_list
+    npz_for_hdf5_lists()
+    try:
+        gs = GraphSolver(str(solve / "solver.prototxt"), device="cuda")
+        init = str(tmp_path / "init.caffemodel")
+        save_caffemodel_binaryproto(
+            init, gs.params, gs.state,
+            specs=gs.net.caffemodel_specs(gs.params, gs.state))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "4",
+             os.path.join(here[0], "test_torch_parallel_ranks.py"), "cli",
+             "solve", "--solver", str(solve / "solver.prototxt"),
+             "--weights", init, "--mesh-dp", "4"],
+            env={**os.environ, "PYTHONPATH": os.path.dirname(here[0])},
+            capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        (line,) = [ln for ln in proc.stdout.splitlines()
+                   if ln.startswith("{")]
+        assert json.loads(line)["iter"] == iters
+        # read rank 0's snapshot before the one-card solver writes its own
+        # to the same prefix
+        four = _parse_layers((solve / f"v4_iter_{iters}.caffemodel")
+                             .read_bytes())
+        gs.step(iters)
+        torch.cuda.synchronize()
+        save_caffemodel_binaryproto(
+            str(tmp_path / "one.caffemodel"), gs.params, gs.state,
+            specs=gs.net.caffemodel_specs(gs.params, gs.state))
+    finally:
+        hdf5_compat.load_hdf5_list = real
+    one = dict(_parse_layers((tmp_path / "one.caffemodel").read_bytes()))
+    band = 2 * iters * 2 * GRAPH_ADADELTA_STEP
+    noise = {("conv0", 1), ("conv1", 1), ("bn0", 2), ("bn1", 2)}
+    diffs, bad = {}, []
+    for name, blobs in four:
+        assert len(blobs) == len(one[name]), name
+        for i, (got, ref) in enumerate(zip(blobs, one[name])):
+            d = np.abs(got - ref)
+            diffs[f"{name}[{i}]"] = float(d.max())
+            if not (d.max() <= band if (name, i) in noise else
+                    bool(np.all(d <= 1e-4 + 1e-4 * np.abs(ref)))):
+                bad.append(f"{name}[{i}]")
+    print(json.dumps({
+        "four_cards": "solve --mesh-dp 4 against GraphSolver on one card, "
+                      "V4 recipe net, global batch 200, 300 iterations",
+        "card": _card_name(), "solve_wall_s": wall,
+        "max_abs_vs_one_card": diffs}))
+    assert not bad, (bad, diffs)

@@ -6,6 +6,13 @@ Run as a script under torchrun, each rank joins through
 ``multihost.initialize`` and prints ``card_check()``'s JSON:
 
     torchrun --standalone --nproc-per-node 2 tests/test_torch_parallel_ranks.py
+
+or, given ``cli ARGS``, runs the port's CLI on ``ARGS`` with each HDF5Data
+source list read from the prepped ``.npz`` beside it (a host without
+h5py; ``npz_for_hdf5_lists``):
+
+    torchrun --standalone --nproc-per-node 4 \
+        tests/test_torch_parallel_ranks.py cli solve --solver S --mesh-dp 4
 """
 
 from __future__ import annotations
@@ -51,31 +58,42 @@ def trainer_steps(model_cfg, trainer_cfg, batches, params=None, state=None,
 
 
 def sharded_step(model_cfg, solver_cfg, batch, dp, tp, seed=0, steps=1,
-                 device="cpu"):
+                 device="cpu", params=None, state=None, batches=None):
     """The eval step's probabilities of the initial weights, then ``steps``
-    steps of ``build_sharded_train_step`` on a (dp, tp) mesh; returns this
-    rank's slices with its tp rank."""
+    steps of ``build_sharded_train_step`` on a (dp, tp) mesh, each on
+    ``batch`` (or one step on each of ``batches``), then the eval step's
+    probabilities of the trained weights on ``batch``; returns this
+    rank's slices (params and solver history) with its place on the
+    mesh.  ``params`` / ``state``: numpy trees to start from, else the
+    port's init from ``seed``."""
     mesh = make_mesh(dp, tp, devices=device)
-    params, state = mms_qa_init(model_cfg,
-                                generator=torch.Generator().manual_seed(seed),
-                                device=device)
+    if params is None:
+        params, state = mms_qa_init(
+            model_cfg, generator=torch.Generator().manual_seed(seed),
+            device=device)
+    else:
+        from mms_answer_selection_tpu_torch.convert import params_from_numpy
+        params, state = params_from_numpy(params, state, device)
     spec = params_pspec(params, mesh)
     params = shard_pytree(params, mesh, spec)
     solver = make_solver(solver_cfg, param_spec(params, model_cfg))
     opt = solver.init(params)
-    step = build_sharded_train_step(model_cfg, solver, mesh)(params, state,
-                                                             opt)
+    step = build_sharded_train_step(model_cfg, solver, mesh,
+                                    donate=False)(params, state, opt)
     evaluate = build_sharded_eval_step(model_cfg, mesh)
     prob = evaluate(params, state, _tensors(batch, device))
     losses = []
-    for i in range(steps):
+    for i, b in enumerate(batches if batches is not None
+                          else [batch] * steps):
         gen = torch.Generator(device=device).manual_seed(100 + i)
         params, state, opt, loss = step(params, state, opt,
-                                        _tensors(batch, device), i, gen)
+                                        _tensors(b, device), i, gen)
         losses.append(float(loss))
     return {"losses": losses, "params": params, "state": state,
-            "prob": prob, "tp_rank": mesh.get_local_rank("tp"),
-            "spec": spec}
+            "opt": opt, "prob": prob,
+            "prob_after": evaluate(params, state, _tensors(batch, device)),
+            "tp_rank": mesh.get_local_rank("tp"),
+            "dp_rank": mesh.get_local_rank("dp"), "spec": spec}
 
 
 def engine_topk(params, model_cfg, cand, queries, k, pool_dtype, chunk_size,
@@ -248,10 +266,13 @@ def nccl_trainer_chunk(model_cfg, trainer_cfg, batches, params, state,
     for mode in ("replay", "eager"):
         tr, carry = trainer(mode == "replay")
         trained[mode] = tr
+        tr._runner_for(carry).keep_graphs = True
         p, s, o, losses = tr.scan_train_steps(*carry, stacked, 0)
         out[mode] = {"params": p, "state": s, "opt": o, "losses": losses,
                      "replays": tr.runner.replays,
                      "tally": [c["tally"] for c in tr.runner.stats()]}
+    out["nodes"] = graph_kernel_nodes(trained["replay"].runner,
+                                      len(batches))
     torch.use_deterministic_algorithms(False)     # times as users run
     out["times"] = {}
     for batch in timed:
@@ -280,34 +301,89 @@ def nccl_trainer_chunk(model_cfg, trainer_cfg, batches, params, state,
     return out
 
 
+def graph_kernel_nodes(runner, k: int) -> dict:
+    """The pair-map kernels' nodes in ``runner``'s captured ``k``-step
+    graph (its ``keep_graphs`` set before the capture), read from the
+    graph itself."""
+    from mms_answer_selection_tpu_torch.utils.graphs import kernel_nodes
+
+    return kernel_nodes(runner.graph(k), [n + "_kernel" for n in (
+        "pair_maps_fwd", "pair_maps_bwd_w", "pair_maps_bwd_qa")])
+
+
 def nccl_sharded_step(model_cfg, solver_cfg, batch, params, state, tp,
-                      steps=2):
-    """``build_sharded_train_step`` on a (1, tp) NCCL mesh: ``steps`` steps
+                      steps=2, dp=1, batches=None, timed=(), reps=20):
+    """``build_sharded_train_step`` on a (dp, tp) NCCL mesh: ``steps``
+    steps on ``batch`` (or one on each of ``batches``; global batches)
     from ``params`` / ``state`` (numpy; this rank keeps its slices),
     replayed and eager (built with ``captures=False``), under
-    ``card_exact``, dropout drawn from one seed."""
+    ``card_exact``, dropout drawn from one seed; the pair-map kernels'
+    nodes in the replayed step's graph.  Then for each global batch in
+    ``timed`` the step's p50, eager and replayed in turns."""
     from mms_answer_selection_tpu_torch.convert import params_from_numpy
+    from mms_answer_selection_tpu_torch.training import dispatch
 
     card_exact()
-    mesh = make_mesh(1, tp, devices="cuda")
+    mesh = make_mesh(dp, tp, devices="cuda")
     dev = torch.device("cuda", torch.cuda.current_device())
-    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    out = {"tp_rank": mesh.get_local_rank("tp")}
-    for mode in ("replay", "eager"):
+
+    def on_card(b):
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    runners = []
+    made = dispatch.StepRunner.__init__
+
+    def keep(self, *a, **kw):       # the step's runner keeps its graphs
+        made(self, *a, **kw)
+        self.keep_graphs = True
+        runners.append(self)
+
+    def build(captures, donate=False):
         p, s = params_from_numpy(params, state, dev)
         p = shard_pytree(p, mesh, params_pspec(p, mesh))
         solver = make_solver(solver_cfg, param_spec(p, model_cfg))
         o = solver.init(p)
-        step = build_sharded_train_step(model_cfg, solver, mesh,
-                                        donate=False,
-                                        captures=mode == "replay")(p, s, o)
-        gen = torch.Generator(device=dev).manual_seed(7)
-        losses = []
-        for i in range(steps):
-            p, s, o, loss = step(p, s, o, b, i, gen)
-            losses.append(loss)
+        return build_sharded_train_step(model_cfg, solver, mesh,
+                                        donate=donate,
+                                        captures=captures)(p, s, o), (p, s, o)
+
+    out = {"tp_rank": mesh.get_local_rank("tp"),
+           "dp_rank": mesh.get_local_rank("dp"),
+           "spec": params_pspec(params_from_numpy(params, {}, "cpu")[0],
+                                mesh)}
+    for mode in ("replay", "eager"):
+        dispatch.StepRunner.__init__ = keep
+        try:
+            step, (p, s, o) = build(mode == "replay")
+            gen = torch.Generator(device=dev).manual_seed(7)
+            losses = []
+            for i, b in enumerate(batches if batches is not None
+                                  else [batch] * steps):
+                p, s, o, loss = step(p, s, o, on_card(b), i, gen)
+                losses.append(loss)
+        finally:
+            dispatch.StepRunner.__init__ = made
         out[mode] = {"params": p, "state": s, "opt": o,
                      "losses": torch.stack(losses)}
+        if mode == "replay":
+            (runner,) = runners
+            out["replays"] = runner.replays
+            out["nodes"] = graph_kernel_nodes(runner, 1)
+    torch.use_deterministic_algorithms(False)     # times as users run
+    out["times"] = {}
+    for b in timed:
+        b = on_card(b)
+        calls = {}
+        for mode in ("eager", "replay"):
+            step, carry = build(mode == "replay", donate=True)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            carry = step(*carry, b, 0, gen)[:3]     # the static carry
+
+            def call(step=step, carry=carry, gen=gen):
+                step(*carry, b, 0, gen)
+            calls[mode] = call
+        out["times"][len(b["label"])] = p50_in_turns(
+            calls["eager"], calls["replay"], reps)
     return out
 
 
@@ -377,12 +453,32 @@ def card_check() -> dict:
     return {"card": torch.cuda.current_device(), "sum": float(x)}
 
 
+def npz_for_hdf5_lists() -> None:
+    """Read an HDF5Data source list ``<name>.txt`` as the prepped
+    ``<name>.npz`` beside it (``data.load_dataset``), for a host without
+    h5py: ``cli prep`` writes ``train.npz``, whose arrays are those the
+    list's chunks would hold."""
+    import os
+
+    from mms_answer_selection_tpu_torch.data import hdf5_compat, \
+        load_dataset
+
+    hdf5_compat.load_hdf5_list = lambda path: load_dataset(
+        os.path.splitext(path)[0] + ".npz")
+
+
 if __name__ == "__main__":
     import json
     import sys
 
     from mms_answer_selection_tpu_torch.parallel import multihost
 
+    if sys.argv[1:2] == ["cli"]:
+        from mms_answer_selection_tpu_torch import cli
+
+        npz_for_hdf5_lists()
+        cli.main(sys.argv[2:])
+        sys.exit(0)
     multihost.initialize()
     # one write of the whole line: the ranks share torchrun's stdout, and
     # a print may write the text and its newline apart (unbuffered), so
