@@ -22,8 +22,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
+
+from ..utils.timer import span
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -83,9 +84,9 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float]:
     """Compile the sources unless the keyed library exists.  Returns the
-    path and the seconds spent compiling (0.0 when it was reused).  The
-    ptxas report (registers, shared memory, spills) is kept beside the
-    library as ``.log``."""
+    path and the seconds spent compiling (the ``ops.build`` span; 0.0 when
+    the library was reused).  The ptxas report (registers, shared memory,
+    spills) is kept beside the library as ``.log``."""
     so = library_path()
     if so.exists():
         return so, 0.0
@@ -93,40 +94,42 @@ def build() -> tuple[Path, float]:
     nvcc = _nvcc()
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     objs = [tmp.with_suffix(f".{src.stem}.o") for src in _sources()]
-    t0 = time.perf_counter()
-    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                   stderr=subprocess.STDOUT, text=True))
-            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                        for obj, src in zip(objs, _sources()))]
-    logs, failed = [], []
-    for cmd, proc in jobs:      # wait for every compile, failed or not
-        out, _ = proc.communicate()
-        logs.append(out)
-        if proc.returncode:
-            failed.append(f"{' '.join(cmd)}\n{out}")
-    try:
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    seconds = time.perf_counter() - t0
+    with span("ops.build") as compiled:
+        jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True))
+                for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                             str(src)]
+                            for obj, src in zip(objs, _sources()))]
+        logs, failed = [], []
+        for cmd, proc in jobs:      # wait for every compile, failed or not
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        try:
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({res.returncode}):\n"
+                    f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
     so.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    return so, seconds
+    return so, compiled.seconds
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C
-    signatures."""
-    so, _ = build()
-    lib = ctypes.CDLL(str(so))
+    signatures, under one ``ops.library`` span."""
+    with span("ops.library"):
+        so, _ = build()
+        lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -66,6 +66,7 @@ from ..ops.embed import embed_lookup
 from ..parallel.collectives import gather_exact
 from ..parallel.mesh import mesh_device
 from ..utils.graphs import GraphedCall, on_device
+from ..utils.timer import span
 from ..utils.tree import tree_map
 
 POOL_DTYPES = ("bf16", "int8", "int4")
@@ -568,12 +569,16 @@ class QueryEngine:
         chunk first among equal scores (the lower index, as unchunked).
         On a mesh every rank scores its rows so, and the ranks' top-k
         merge in rank order; every rank returns the merged top-k.  One
-        graph replay with ``scan_chunks`` (module docstring)."""
+        graph replay with ``scan_chunks`` (module docstring).  One
+        ``engine.query`` span: the host's dispatch of the call (the key's
+        lookup, the copy into the static inputs, the replay's launch and
+        the outputs' clones), which returns before the device is done."""
         if self.pool is None:
             raise RuntimeError("build_index first")
         k = min(k, self.n_live, self.chunk_size)
-        return self._dispatch(("query", k), lambda q: self._scan(q, k),
-                              torch.as_tensor(query_ids))
+        with span("engine.query"):
+            return self._dispatch(("query", k), lambda q: self._scan(q, k),
+                                  torch.as_tensor(query_ids))
 
     def _scan(self, query, k: int):
         """The chunk scan of ``query`` (on the device) for ``k``."""

@@ -11,7 +11,8 @@ stdlib ``http.server`` only.
 Endpoints (all JSON):
 
   GET  /healthz  liveness + pool facts
-  GET  /stats    rolling latency percentiles + counters
+  GET  /stats    latency percentiles over every request since start +
+                 counters
   POST /query    {"tokens": [[int,...],...]} or {"text": ["...",...]},
                  optional "k" (default 10), "rerank" (exact-model
                  rescoring shortlist; 0 = single-phase) and "shortlist"
@@ -48,6 +49,14 @@ real row's result, and the engine captures one CUDA graph per bucket and
 (k, rerank, shortlist) -- at most log2(max_batch) + 1 of them -- where
 without it every distinct batch size is a graph of its own (the JAX
 package bounds its jit compiles so).
+
+Each server keeps its own ``utils.timer.Recorder`` (``recorder``), so two
+servers in one process count apart.  Its spans: ``server.request`` (one
+query, from its validated rows to its results on the host; the latency of
+``/stats`` and of the reply), ``server.queue`` (a request's wait on the
+micro-batcher, its group's call included) and ``server.dispatch`` (the
+device call of a group, with the request's id, or the first of its
+group's).  Its counters are the counts of ``/stats``.
 """
 
 from __future__ import annotations
@@ -55,61 +64,46 @@ from __future__ import annotations
 import json
 import threading
 import time
-from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+from ..utils.timer import Recorder
 
 # the JAX package's name of each pool dtype in /healthz
 _POOL_DTYPE_NAMES = {"bf16": "bfloat16"}
 
 
-class _Stats:
-    def __init__(self, window: int = 512):
-        self.lock = threading.Lock()
-        self.latencies_ms = deque(maxlen=window)
-        self.queries = 0
-        self.rows = 0
-        self.errors = 0
-        self.dispatches = 0
-        self.dispatch_rows = 0
+# the counters of /stats, in its order
+_COUNTERS = ("queries_served", "query_rows", "errors", "device_dispatches",
+             "device_dispatch_rows")
 
-    def record(self, ms: float, rows: int):
-        with self.lock:
-            self.latencies_ms.append(ms)
-            self.queries += 1
-            self.rows += rows
 
-    def record_error(self):
-        with self.lock:
-            self.errors += 1
+class _StatsView:
+    """``QAServer.stats``: ``snapshot()`` reads the server's recorder."""
 
-    def record_dispatch(self, rows: int):
-        with self.lock:
-            self.dispatches += 1
-            self.dispatch_rows += rows
+    def __init__(self, recorder: Recorder):
+        self.recorder = recorder
 
     def snapshot(self) -> dict:
-        with self.lock:
-            lat = sorted(self.latencies_ms)
-            out = {"queries_served": self.queries,
-                   "query_rows": self.rows,
-                   "errors": self.errors,
-                   "device_dispatches": self.dispatches,
-                   "device_dispatch_rows": self.dispatch_rows}
-            if lat:
-                out["p50_ms"] = lat[len(lat) // 2]
-                out["p90_ms"] = lat[min(len(lat) - 1,
-                                        int(len(lat) * 0.9))]
-            return out
+        """The body of ``/stats``: the counters, and the median and 90th
+        percentile of ``server.request`` in ms over every request served
+        since start (to within 1%), once there is one."""
+        out = {name: self.recorder.counter(name) for name in _COUNTERS}
+        served = self.recorder.aggregate("server.request")
+        if served is not None:
+            out["p50_ms"] = served.quantile(0.5) * 1e3
+            out["p90_ms"] = served.quantile(0.9) * 1e3
+        return out
 
 
 class _Item:
-    __slots__ = ("key", "q", "done", "result", "err")
+    __slots__ = ("key", "q", "id", "done", "result", "err")
 
-    def __init__(self, key, q):
+    def __init__(self, key, q, id):
         self.key = key
         self.q = q
+        self.id = id
         self.done = threading.Event()
         self.result = None
         self.err = None
@@ -141,8 +135,10 @@ class _MicroBatcher:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
-    def submit(self, key, q):
-        item = _Item(key, q)
+    def submit(self, key, q, id=None):
+        """``q``'s results once its group's call is done; ``id``: the
+        request's, which the call's span takes for its group's first."""
+        item = _Item(key, q, id)
         with self._cv:
             if self._closed:
                 raise RuntimeError("server is shutting down")
@@ -176,7 +172,7 @@ class _MicroBatcher:
             for key, items in groups.items():
                 try:
                     qc = np.concatenate([it.q for it in items])
-                    vals, idx = self.run_group(key, qc)
+                    vals, idx = self.run_group(key, qc, items[0].id)
                     off = 0
                     for it in items:
                         n = len(it.q)
@@ -217,7 +213,8 @@ class QAServer:
         self.default_k = default_k
         self.max_batch = max_batch
         self.pad_buckets = pad_buckets
-        self.stats = _Stats()
+        self.recorder = Recorder()
+        self.stats = _StatsView(self.recorder)
         self._device_lock = threading.Lock()
         self.batch_window_ms = float(batch_window_ms)
         self._batcher = (_MicroBatcher(self._dispatch_group,
@@ -274,10 +271,10 @@ class QAServer:
                     payload = handler(req)
                     self._send(200, payload)
                 except _BadRequest as e:
-                    server.stats.record_error()
+                    server.recorder.count("errors")
                     self._send(400, {"error": str(e)})
                 except Exception as e:  # noqa: BLE001 -- keep serving
-                    server.stats.record_error()
+                    server.recorder.count("errors")
                     self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
         self.httpd = ThreadingHTTPServer((host, port), Handler)
@@ -475,14 +472,16 @@ class QAServer:
         if rerank and self.state is None:
             raise _BadRequest("rerank needs model state; server "
                               "started without it")
-        t0 = time.perf_counter()
         key = (k, rerank, shortlist)
-        if self._batcher is not None:
-            vals, idx = self._batcher.submit(key, q)
-        else:
-            vals, idx = self._dispatch_group(key, q)
-        ms = (time.perf_counter() - t0) * 1e3
-        self.stats.record(ms, len(q))
+        with self.recorder.span("server.request") as request:
+            if self._batcher is not None:
+                with self.recorder.span("server.queue"):
+                    vals, idx = self._batcher.submit(key, q, request.id)
+            else:
+                vals, idx = self._dispatch_group(key, q)
+        ms = request.seconds * 1e3
+        self.recorder.count("queries_served")
+        self.recorder.count("query_rows", len(q))
         return {
             # sentinel slots (index -1, -inf, or the kernels' -1e30
             # additive mask) mean "fewer than k live candidates in the
@@ -496,10 +495,12 @@ class QAServer:
             "k": k,
         }
 
-    def _dispatch_group(self, key, q) -> tuple:
+    def _dispatch_group(self, key, q, id=None) -> tuple:
         """One device call for ``q`` under dispatch key ``(k, rerank,
         shortlist)``, its rows padded to their bucket (``pad_buckets``);
-        the results come back to the host under the lock."""
+        the results come back to the host under the lock.  ``id``: the
+        request the ``server.dispatch`` span is of (default: the request
+        whose thread calls)."""
         k, rerank, shortlist = key
         n = n_pad = len(q)
         if self.pad_buckets and n < self.max_batch:
@@ -507,7 +508,8 @@ class QAServer:
         if n_pad > n:
             q = np.concatenate([q, np.full((n_pad - n, q.shape[1]),
                                            self.pad_idx, q.dtype)])
-        with self._device_lock:
+        with self.recorder.span("server.dispatch", id=id), \
+                self._device_lock:
             if rerank:
                 vals, idx = self.engine.query_rerank(
                     self.state, q, k=k, shortlist=rerank)
@@ -518,7 +520,8 @@ class QAServer:
                 vals, idx = self.engine.query(q, k=k)
             vals = vals.cpu().numpy()  # the host fetch fences the device work
             idx = idx.cpu().numpy()
-        self.stats.record_dispatch(n_pad)
+        self.recorder.count("device_dispatches")
+        self.recorder.count("device_dispatch_rows", n_pad)
         return vals[:n], idx[:n]
 
 

@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import gc
 import logging
-import time
 import weakref
 from typing import Callable
 
@@ -61,6 +60,7 @@ import torch
 
 from ..ops import sim_cross_kernels as sk
 from ..utils.graphs import _origin, add_tally, captures_on, record_tally
+from ..utils.timer import span
 from ..utils.tree import tree_map
 
 log = logging.getLogger("mms_tpu_torch.dispatch")
@@ -213,8 +213,9 @@ class StepRunner:
 
     def stats(self) -> list[dict]:
         """One dict per chunk length run so far: its K, capture seconds
-        (instantiation included), graph-pool bytes, the tally of kernel
-        launches one replay makes, and its replays."""
+        (instantiation included; the self time of its ``graph.capture``
+        span), graph-pool bytes, the tally of kernel launches one replay
+        makes, and its replays."""
         return [{"k": c.k, "capture_s": c.capture_s,
                  "pool_bytes": c.pool_bytes, "tally": dict(c.tally),
                  "replays": c.replays}
@@ -239,35 +240,36 @@ class StepRunner:
         draw from in place of ``seed``'s: each step's own generators take
         their states first, and give them back advanced after the run, as
         if the steps had drawn from the caller's."""
-        if isinstance(batches, dict):
-            k = next(iter(batches.values())).shape[0]
-            first = {n: v[0] for n, v in batches.items()}
-        else:
-            k, first = len(batches), batches[0]
-        iter_size = self.iter_size
-        key = (k, iter_size) + tuple(
-            (n, tuple(v.shape), v.dtype) for n, v in sorted(first.items()))
-        chunk = self._chunks.get(key)
-        if chunk is None:
-            chunk = _Chunk(first, k, iter_size, self.device)
-        for n, buf in chunk.batches.items():
+        with span("chunk.stage"):
             if isinstance(batches, dict):
-                buf.copy_(batches[n])
-            elif batches[0][n].device == buf.device:
-                torch.stack([b[n] for b in batches], out=buf)
-            else:                   # host batches: one copy to the device
-                buf.copy_(torch.stack([b[n] for b in batches]))
-        chunk.step0.fill_(step0)
-        if not self.captures:
-            self._seed(chunk, step0, generators)
-            self._body(chunk)
-        else:
-            if chunk.graph is None:
-                self._capture(chunk)
+                k = next(iter(batches.values())).shape[0]
+                first = {n: v[0] for n, v in batches.items()}
+            else:
+                k, first = len(batches), batches[0]
+            iter_size = self.iter_size
+            key = (k, iter_size) + tuple(
+                (n, tuple(v.shape), v.dtype) for n, v in sorted(first.items()))
+            chunk = self._chunks.get(key)
+            if chunk is None:
+                chunk = _Chunk(first, k, iter_size, self.device)
+            for n, buf in chunk.batches.items():
+                if isinstance(batches, dict):
+                    buf.copy_(batches[n])
+                elif batches[0][n].device == buf.device:
+                    torch.stack([b[n] for b in batches], out=buf)
+                else:               # host batches: one copy to the device
+                    buf.copy_(torch.stack([b[n] for b in batches]))
+            chunk.step0.fill_(step0)
+        if self.captures and chunk.graph is None:
+            self._capture(chunk)
+        with span("chunk.replay"):
             self._seed(chunk, step0, generators)  # after the warm-up's draws
-            chunk.graph.replay()
-            add_tally(sk.LAUNCH_COUNTS, chunk.tally)
-            chunk.replays += 1
+            if self.captures:
+                chunk.graph.replay()
+                add_tally(sk.LAUNCH_COUNTS, chunk.tally)
+                chunk.replays += 1
+            else:
+                self._body(chunk)
         if generators is not None:
             for mine, theirs in zip(chunk.generators, generators):
                 for g, t in zip(mine, theirs):
@@ -301,56 +303,62 @@ class StepRunner:
             chunk.outputs = outputs[0] if outputs else None
 
     def _capture(self, chunk: _Chunk) -> None:
-        chunk.graph = None                   # a recapture frees the old
-        dev = self.device
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-        side, current = self._stream, torch.cuda.current_stream(dev)
-        side.wait_stream(current)
-        self._seed(chunk, 0)
-        with torch.cuda.stream(side):       # warm-up, outputs discarded
-            self._step(chunk, 0)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        # no garbage collection inside the capture: a collected cycle that
-        # holds another graph destroys it mid-capture, a call the capture
-        # refuses, which invalidates it
-        gc.collect()
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        # a kept node list is instantiated below, inside the timing
-        graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graphs)
-        for row in chunk.generators:
-            for g in row:
-                graph.register_generator_state(g)
+        """The warm-up step and the capture under one ``graph.capture``
+        span; the warm-up, up to the settled card, is its ``graph.warmup``
+        span, so the capture's self time, ``capture_s``, is the capture and
+        the instantiation alone."""
+        with span("graph.capture") as timed:
+            chunk.graph = None                   # a recapture frees the old
+            dev = self.device
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+            side, current = self._stream, torch.cuda.current_stream(dev)
+            side.wait_stream(current)
+            with span("graph.warmup") as warmup:
+                self._seed(chunk, 0)
+                with torch.cuda.stream(side):   # outputs discarded
+                    self._step(chunk, 0)
+                torch.cuda.current_stream(dev).wait_stream(side)
+                # no garbage collection inside the capture: a collected
+                # cycle that holds another graph destroys it mid-capture, a
+                # call the capture refuses, which invalidates it
+                gc.collect()
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            # a kept node list is instantiated below, inside the span
+            graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graphs)
+            for row in chunk.generators:
+                for g in row:
+                    graph.register_generator_state(g)
 
-        def capture():
-            with torch.cuda.graph(graph, stream=side,
-                                  capture_error_mode="thread_local"):
-                self._body(chunk)
-            if self.keep_graphs:
-                graph.instantiate()
+            def capture():
+                with torch.cuda.graph(graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    self._body(chunk)
+                if self.keep_graphs:
+                    graph.instantiate()
 
-        collecting = gc.isenabled()
-        gc.disable()
-        t0 = time.perf_counter()
-        try:
-            chunk.tally = record_tally(sk.LAUNCH_COUNTS, capture)
-        except RuntimeError as exc:
-            raise RuntimeError(
-                f"capturing a {chunk.k}-step {self.name} as a CUDA graph "
-                f"failed at {_origin(exc)}") from exc
-        finally:
-            if collecting:
-                gc.enable()
-            # a capture_end that raises leaves the capture stream current
-            torch.cuda.set_stream(current)
-        chunk.capture_s = time.perf_counter() - t0
-        chunk.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                chunk.tally = record_tally(sk.LAUNCH_COUNTS, capture)
+            except RuntimeError as exc:
+                raise RuntimeError(
+                    f"capturing a {chunk.k}-step {self.name} as a CUDA graph "
+                    f"failed at {_origin(exc)}") from exc
+            finally:
+                if collecting:
+                    gc.enable()
+                # a capture_end that raises leaves the capture stream current
+                torch.cuda.set_stream(current)
+            chunk.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         chunk.graph = graph
-        log.info("captured a %d-step %s in %.3f s (graph pool %.1f MiB; "
-                 "kernel launches a replay %s)", chunk.k, self.name,
-                 chunk.capture_s, chunk.pool_bytes / 2**20, chunk.tally)
+        chunk.capture_s = timed.self_ns / 1e9
+        log.info("captured a %d-step %s in %.3f s after a %.3f s warm-up "
+                 "(graph pool %.1f MiB; kernel launches a replay %s)",
+                 chunk.k, self.name, chunk.capture_s, warmup.seconds,
+                 chunk.pool_bytes / 2**20, chunk.tally)
 
 
 class ChunkRunner(StepRunner):

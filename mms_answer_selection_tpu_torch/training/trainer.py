@@ -77,6 +77,7 @@ from ..parallel.mesh import mesh_device, shard_context
 from ..parallel.train_step import local_batch, loss_and_grads, reduce_grads
 from ..utils.graphs import GraphedCall, captures_on
 from ..utils.seed import derive_seed
+from ..utils.timer import span
 from ..utils.tree import tree_map
 from .dispatch import ChunkRunner, _copy_tree, _same_leaves
 from .checkpoint import (
@@ -473,31 +474,32 @@ class Trainer:
                   **meta):
         if self.mesh is not None and torch.distributed.get_rank() != 0:
             return  # replicated params: rank 0 writes them
-        save_checkpoint(
-            self.cfg.snapshot_dir, it,
-            {"params": params, "state": state, "opt_state": opt_state},
-            prefix=self.cfg.snapshot_prefix,
-            meta={"dev_map": history["dev_map"][-1]
-                  if history["dev_map"] else None,
-                  **meta, "best_step": best["step"],
-                  "best_dev_map": best["dev_map"], "history": history})
+        with span("fit.snapshot"):
+            save_checkpoint(
+                self.cfg.snapshot_dir, it,
+                {"params": params, "state": state, "opt_state": opt_state},
+                prefix=self.cfg.snapshot_prefix,
+                meta={"dev_map": history["dev_map"][-1]
+                      if history["dev_map"] else None,
+                      **meta, "best_step": best["step"],
+                      "best_dev_map": best["dev_map"], "history": history})
 
     def _record_eval(self, it, params, state, dev_batch, test_batch,
                      history) -> float:
         """Eval on dev (and test) at step ``it``, appended to the history;
-        returns the dev MAP."""
-        dev = self._eval_step(params, state, dev_batch)
-        dev_map = float(dev["map"])
-        history["dev_map"].append(dev_map)
-        history["dev_mrr"].append(float(dev["mrr"]))
-        history["dev_auc"].append(float(dev["auc"]))
+        returns the dev MAP.  One ``fit.eval`` span: each split's replay
+        (``eval.dispatch``) and its three blocking reads (``eval.read``)."""
+        with span("fit.eval"):
+            splits = [("dev", dev_batch)] + (
+                [("test", test_batch)] if test_batch is not None else [])
+            for split, batch in splits:
+                with span("eval.dispatch"):
+                    out = self._eval_step(params, state, batch)
+                with span("eval.read"):
+                    for m in ("map", "mrr", "auc"):
+                        history[f"{split}_{m}"].append(float(out[m]))
         history["steps"].append(it)
-        if test_batch is not None:
-            te = self._eval_step(params, state, test_batch)
-            history["test_map"].append(float(te["map"]))
-            history["test_mrr"].append(float(te["mrr"]))
-            history["test_auc"].append(float(te["auc"]))
-        return dev_map
+        return history["dev_map"][-1]
 
     @staticmethod
     def _finish(history, best, params, state):
@@ -527,6 +529,11 @@ class Trainer:
         snapshot step; each is one ``ChunkRunner.run`` on the runner's
         static carry (one graph replay on the card), its losses copied to
         the host once.  The best params are copies taken at their eval.
+        Each chunk is one ``fit.chunk`` span, its first step the id of
+        every span inside: ``fit.pull`` (its batches), the runner's
+        ``chunk.stage`` and ``chunk.replay``, ``fit.read`` (the losses'
+        copy) and ``fit.steps`` (the bookkeeping, around any ``fit.eval``,
+        ``fit.callback`` and ``fit.snapshot``).
         Returns the history dict."""
         from .signals import Action, SignalHandler
         cfg = self.cfg
@@ -538,68 +545,84 @@ class Trainer:
         t0 = time.time()
         stop = exhausted = False
         sig_ctx = SignalHandler() if handle_signals else None
+
+        def pull_chunk(n: int) -> list:
+            nonlocal exhausted
+            batches = []
+            for _ in range(n):
+                try:
+                    batches.append(pull())
+                except StopIteration:
+                    exhausted = True
+                    break
+            return batches
+
+        def bookkeep(losses: list) -> None:
+            """The per-step bookkeeping over a chunk; the planner puts
+            every eval and snapshot step at a chunk's end, where the
+            params are that step's."""
+            nonlocal it, stop
+            last_j = len(losses) - 1
+            for j, loss in enumerate(losses):
+                if it % cfg.train_loss_record_interval == 0:
+                    history["train_loss"].append(loss)
+                if log_every and it % log_every == 0:
+                    log.info("%s %d loss %.4f (%.1fs)", what, it,
+                             loss, time.time() - t0)
+                if eval_interval and it % eval_interval == 0:
+                    assert j == last_j, "chunk planner missed a boundary"
+                    dev_map = self._record_eval(it, params, state,
+                                                dev_batch, test_batch,
+                                                history)
+                    improved = dev_map > best["dev_map"]
+                    if improved:
+                        # copies: the next chunk overwrites the carry
+                        best.update(dev_map=dev_map, step=it,
+                                    params=tree_map(torch.clone, params),
+                                    state=tree_map(torch.clone, state))
+                    stop |= stop_rule.evaluated(improved)
+                    if callback:
+                        with span("fit.callback"):
+                            callback({"step": it, "dev_map": dev_map,
+                                      "loss": loss})
+                stop |= stop_rule.stepped(it)
+
+                # snapshots after the stop rule's bookkeeping, so their
+                # meta resumes exactly; signals are polled once a chunk
+                snap_meta = stop_rule.meta()
+                if sig_ctx is not None and j == last_j:
+                    action = sig_ctx.get_requested_action()
+                    if action != Action.NONE and cfg.snapshot_dir:
+                        self._snapshot(it, params, state, opt_state,
+                                       history, best, **snap_meta,
+                                       signal=action.name)
+                    if action == Action.STOP:
+                        log.info("SIGINT: stop at %s %d", what, it)
+                        stop = True
+                if (cfg.snapshot_dir and cfg.snapshot_interval
+                        and it % cfg.snapshot_interval == 0):
+                    assert j == last_j, "chunk planner missed a boundary"
+                    self._snapshot(it, params, state, opt_state, history,
+                                   best, **snap_meta)
+                it += 1
+                if it >= steps or stop:
+                    break
+
         if sig_ctx is not None:
             sig_ctx.__enter__()
         try:
             while it < steps and not stop and not exhausted:
-                batches = []
-                for _ in range(self._plan_chunk(it, steps_per_dispatch,
-                                                steps - it, intervals)):
-                    try:
-                        batches.append(pull())
-                    except StopIteration:
-                        exhausted = True
+                with span("fit.chunk", id=it):
+                    with span("fit.pull"):
+                        batches = pull_chunk(self._plan_chunk(
+                            it, steps_per_dispatch, steps - it, intervals))
+                    if not batches:
                         break
-                if not batches:
-                    break
-                losses = runner.run(batches, it).tolist()
-                # per-step bookkeeping over the chunk; the planner puts
-                # every eval and snapshot step at a chunk's end, where the
-                # params are that step's
-                last_j = len(losses) - 1
-                for j, loss in enumerate(losses):
-                    if it % cfg.train_loss_record_interval == 0:
-                        history["train_loss"].append(loss)
-                    if log_every and it % log_every == 0:
-                        log.info("%s %d loss %.4f (%.1fs)", what, it,
-                                 loss, time.time() - t0)
-                    if eval_interval and it % eval_interval == 0:
-                        assert j == last_j, "chunk planner missed a boundary"
-                        dev_map = self._record_eval(it, params, state,
-                                                    dev_batch, test_batch,
-                                                    history)
-                        improved = dev_map > best["dev_map"]
-                        if improved:
-                            # copies: the next chunk overwrites the carry
-                            best.update(dev_map=dev_map, step=it,
-                                        params=tree_map(torch.clone, params),
-                                        state=tree_map(torch.clone, state))
-                        stop |= stop_rule.evaluated(improved)
-                        if callback:
-                            callback({"step": it, "dev_map": dev_map,
-                                      "loss": loss})
-                    stop |= stop_rule.stepped(it)
-
-                    # snapshots after the stop rule's bookkeeping, so their
-                    # meta resumes exactly; signals are polled once a chunk
-                    snap_meta = stop_rule.meta()
-                    if sig_ctx is not None and j == last_j:
-                        action = sig_ctx.get_requested_action()
-                        if action != Action.NONE and cfg.snapshot_dir:
-                            self._snapshot(it, params, state, opt_state,
-                                           history, best, **snap_meta,
-                                           signal=action.name)
-                        if action == Action.STOP:
-                            log.info("SIGINT: stop at %s %d", what, it)
-                            stop = True
-                    if (cfg.snapshot_dir and cfg.snapshot_interval
-                            and it % cfg.snapshot_interval == 0):
-                        assert j == last_j, "chunk planner missed a boundary"
-                        self._snapshot(it, params, state, opt_state, history,
-                                       best, **snap_meta)
-                    it += 1
-                    if it >= steps or stop:
-                        break
+                    losses = runner.run(batches, it)
+                    with span("fit.read"):
+                        losses = losses.tolist()
+                    with span("fit.steps"):
+                        bookkeep(losses)
         finally:
             if sig_ctx is not None:
                 sig_ctx.__exit__(None, None, None)
@@ -643,13 +666,15 @@ class Trainer:
             raise ValueError("resume_from and weights are mutually exclusive "
                              "(tools/caffe.cpp:208-210 has the same CHECK)")
         cfg = self.cfg
-        params, state, opt_state = self.init(pretrained=pretrained)
+        with span("fit.init"):
+            params, state, opt_state = self.init(pretrained=pretrained)
         if weights:
             params, state = self._load_weights(params, state, weights)
-        train = self._full_batch({k: v for k, v in train_data.items()
-                                  if k != "group"})
-        dev_batch = self._full_batch(dev_data)
-        test_batch = self._full_batch(test_data) if test_data else None
+        with span("fit.upload"):
+            train = self._full_batch({k: v for k, v in train_data.items()
+                                      if k != "group"})
+            dev_batch = self._full_batch(dev_data)
+            test_batch = self._full_batch(test_data) if test_data else None
 
         history = _new_history(cfg)
         best = {"dev_map": -1.0, "step": 0, "params": None, "state": None}
@@ -723,12 +748,14 @@ class Trainer:
             raise ValueError("resume_from and weights are mutually exclusive")
         cfg = self.cfg
         if params is None:
-            params, state, opt_state = self.init(pretrained=pretrained)
+            with span("fit.init"):
+                params, state, opt_state = self.init(pretrained=pretrained)
         if weights:
             params, state = self._load_weights(params, state, weights)
         eval_interval = eval_interval or cfg.test_interval
-        dev_batch = self._full_batch(dev_data)
-        test_batch = self._full_batch(test_data) if test_data else None
+        with span("fit.upload"):
+            dev_batch = self._full_batch(dev_data)
+            test_batch = self._full_batch(test_data) if test_data else None
         history = _new_history(cfg)
         best = {"dev_map": -1.0, "step": 0, "params": None, "state": None}
         waited = 0

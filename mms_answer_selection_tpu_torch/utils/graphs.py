@@ -68,13 +68,13 @@ import logging
 import os
 import re
 import tempfile
-import time
 import traceback
 from typing import Callable
 
 import torch
 
 from ..ops import sim_cross_kernels as sk
+from .timer import span
 
 log = logging.getLogger("mms_tpu_torch.graphs")
 
@@ -253,9 +253,10 @@ class GraphedCall:
 
     def stats(self) -> list[dict]:
         """One dict per key kept: the key, capture seconds (instantiation
-        included), the growth of the card's reserved memory across the
-        capture (the shared pool's share of this key), the tally of kernel
-        launches one replay makes, replays and calls."""
+        included; the self time of its ``graph.capture`` span), the growth
+        of the card's reserved memory across the capture (the shared pool's
+        share of this key), the tally of kernel launches one replay makes,
+        replays and calls."""
         return [{"key": k[0], "capture_s": e.capture_s,
                  "pool_bytes": e.pool_bytes, "tally": dict(e.tally),
                  "replays": e.replays, "calls": e.calls}
@@ -314,54 +315,60 @@ class GraphedCall:
         return out
 
     def _capture(self, entry: _Entry, key, call) -> None:
-        dev = self.device
-        entry.graph = entry.outputs = None    # a recapture frees the old
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-            self._pool = torch.cuda.graph_pool_handle()
-        side, current = self._stream, torch.cuda.current_stream(dev)
-        side.wait_stream(current)
-        _seed(entry.generators, [0] * len(entry.generators))
-        with torch.no_grad(), torch.cuda.stream(side):
-            call()                          # warm-up, outputs discarded
-        current.wait_stream(side)
-        # no garbage collection inside the capture: a collected cycle that
-        # holds another graph destroys it mid-capture, a call the capture
-        # refuses, which invalidates it
-        gc.collect()
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
-        for g in entry.generators:
-            graph.register_generator_state(g)
-        held = []
+        """The warm-up call and the capture under one ``graph.capture``
+        span; the warm-up, up to the settled card, is its ``graph.warmup``
+        span, so the capture's self time, ``capture_s``, is the capture and
+        the instantiation alone."""
+        with span("graph.capture") as timed:
+            dev = self.device
+            entry.graph = entry.outputs = None    # a recapture frees the old
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+                self._pool = torch.cuda.graph_pool_handle()
+            side, current = self._stream, torch.cuda.current_stream(dev)
+            side.wait_stream(current)
+            with span("graph.warmup") as warmup:
+                _seed(entry.generators, [0] * len(entry.generators))
+                with torch.no_grad(), torch.cuda.stream(side):
+                    call()                      # outputs discarded
+                current.wait_stream(side)
+                # no garbage collection inside the capture: a collected
+                # cycle that holds another graph destroys it mid-capture, a
+                # call the capture refuses, which invalidates it
+                gc.collect()
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            for g in entry.generators:
+                graph.register_generator_state(g)
+            held = []
 
-        def capture():
-            # thread-local: a server's other threads may use the card
-            with torch.no_grad(), torch.cuda.graph(
-                    graph, pool=self._pool, stream=side,
-                    capture_error_mode="thread_local"):
-                held.append(call())
+            def capture():
+                # thread-local: a server's other threads may use the card
+                with torch.no_grad(), torch.cuda.graph(
+                        graph, pool=self._pool, stream=side,
+                        capture_error_mode="thread_local"):
+                    held.append(call())
 
-        collecting = gc.isenabled()
-        gc.disable()
-        t0 = time.perf_counter()
-        try:
-            entry.tally = record_tally(sk.LAUNCH_COUNTS, capture)
-        except RuntimeError as exc:
-            self._pool = torch.cuda.graph_pool_handle()
-            raise RuntimeError(
-                f"capturing {self.name} {key} as a CUDA graph failed at "
-                f"{_origin(exc)}") from exc
-        finally:
-            if collecting:
-                gc.enable()
-            # a capture_end that raises leaves the capture stream current
-            torch.cuda.set_stream(current)
-        entry.capture_s = time.perf_counter() - t0
-        entry.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                entry.tally = record_tally(sk.LAUNCH_COUNTS, capture)
+            except RuntimeError as exc:
+                self._pool = torch.cuda.graph_pool_handle()
+                raise RuntimeError(
+                    f"capturing {self.name} {key} as a CUDA graph failed at "
+                    f"{_origin(exc)}") from exc
+            finally:
+                if collecting:
+                    gc.enable()
+                # a capture_end that raises leaves the capture stream current
+                torch.cuda.set_stream(current)
+            entry.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         entry.graph, entry.outputs = graph, held[0]
-        log.info("captured %s %s in %.3f s (graph pool +%.1f MiB; kernel "
-                 "launches a replay %s)", self.name, key, entry.capture_s,
+        entry.capture_s = timed.self_ns / 1e9
+        log.info("captured %s %s in %.3f s after a %.3f s warm-up (graph "
+                 "pool +%.1f MiB; kernel launches a replay %s)", self.name,
+                 key, entry.capture_s, warmup.seconds,
                  entry.pool_bytes / 2**20, entry.tally)

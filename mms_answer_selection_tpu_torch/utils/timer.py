@@ -14,17 +14,233 @@ wall-clock over N iterations with CUDA-event timers
   the host clock.  ``sim_cross`` runs through the pair-map kernels.
 * ``trace(path)``: a ``torch.profiler`` trace of the enclosed block,
   written as a Chrome trace to ``path``.
+* ``span(name)`` / ``count(name)``: the program's own spans and counters,
+  kept by a ``Recorder`` (``default``, the process's; a ``QAServer`` keeps
+  its own).  Spans sit at the boundaries that happen once a chunk, an
+  eval, a call, a capture, a request or a build, never once a step and
+  never inside a captured region.
+
+A span records its name, start and end, its parent (the span open around
+it in the same thread and recorder), the id of its unit of work (given,
+else its parent's, else its own sequence number) and its self time: its
+duration less what its child spans cover.  With no profiler running a
+span only updates its name's aggregate: count, total, self total and a
+histogram of durations in log buckets 2% wide, over every span since
+start.  While a ``torch.profiler`` session runs (``trace``, a benchmark's
+traced window) each span is also kept whole (``Recorder.spans``) and
+mirrored as a ``record_function`` of its name, so the profiler's host
+timeline carries it beside the device's kernels.  The spans kept whole
+are those of the latest session: the first span opened under a profiler
+after one opened with none running starts the list anew.  Spans are
+stamped on the Unix clock in nanoseconds, the clock the profiler stamps
+its host events with.  A span left by an exception joins no aggregate.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import math
+import threading
 import time
 
 import numpy as np
 import torch
 
 from ..utils.tree import tree_leaves
+
+# a bucket holds durations within a factor of _RATIO: 2% wide
+_RATIO = 1.02
+_LOG_RATIO = math.log(_RATIO)
+# the monotonic clock shifted once onto the Unix clock
+_UNIX_NS = time.time_ns() - time.perf_counter_ns()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class Aggregate:
+    """One span name's durations since its recorder started: count, total
+    and self total, least and most, and how many fell in each log bucket
+    (so no sample is dropped, whatever the run's length)."""
+
+    __slots__ = ("count", "total_ns", "self_ns", "min_ns", "max_ns",
+                 "buckets")
+
+    def __init__(self):
+        self.count = self.total_ns = self.self_ns = 0
+        self.min_ns = self.max_ns = None
+        self.buckets: dict = {}
+
+    def add(self, ns: int, self_ns: int) -> None:
+        self.count += 1
+        self.total_ns += ns
+        self.self_ns += self_ns
+        self.min_ns = ns if self.min_ns is None else min(self.min_ns, ns)
+        self.max_ns = ns if self.max_ns is None else max(self.max_ns, ns)
+        b = int(math.log(max(ns, 1)) / _LOG_RATIO)
+        self.buckets[b] = self.buckets.get(b, 0) + 1
+
+    def copy(self) -> "Aggregate":
+        out = Aggregate()
+        out.count, out.total_ns, out.self_ns = (self.count, self.total_ns,
+                                                self.self_ns)
+        out.min_ns, out.max_ns = self.min_ns, self.max_ns
+        out.buckets = dict(self.buckets)
+        return out
+
+    @property
+    def total_s(self) -> float:
+        return self.total_ns / 1e9
+
+    @property
+    def self_s(self) -> float:
+        return self.self_ns / 1e9
+
+    def quantile(self, q: float) -> float:
+        """Seconds of the sample at rank ``min(count - 1, int(count *
+        q))`` in ascending order, to within 1%: its bucket's geometric
+        middle, kept between the least and most durations seen."""
+        rank = min(self.count - 1, int(self.count * q))
+        for b in sorted(self.buckets):
+            rank -= self.buckets[b]
+            if rank < 0:
+                ns = _RATIO ** (b + 0.5)
+                return min(max(ns, self.min_ns), self.max_ns) / 1e9
+        raise ValueError("no spans")
+
+
+class Span:
+    """An open span (a context manager), then its record: ``name``,
+    ``start_ns`` and ``end_ns`` on the Unix clock, ``seq`` (its own
+    number), ``parent`` (the enclosing span's ``seq``, or None), ``id``
+    (its unit of work) and ``self_ns``."""
+
+    __slots__ = ("_rec", "_mirror", "_child_ns", "name", "id", "seq",
+                 "parent", "start_ns", "end_ns")
+
+    def __init__(self, rec: "Recorder", name: str, id):
+        self._rec = rec
+        self.name, self.id = name, id
+        self._mirror = None
+        self._child_ns = 0
+        self.seq = next(rec._seq)
+        self.parent = None
+        self.start_ns = self.end_ns = None
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+    @property
+    def self_ns(self) -> int:
+        return self.end_ns - self.start_ns - self._child_ns
+
+    def __enter__(self) -> "Span":
+        rec = self._rec
+        stack = rec._stack()
+        if stack:
+            up = stack[-1]
+            self.parent = up.seq
+            if self.id is None:
+                self.id = up.id
+        if self.id is None:
+            self.id = self.seq
+        stack.append(self)
+        if _profiling():
+            if not rec._session:
+                rec._new_session()
+            self._mirror = torch.autograd.profiler.record_function(self.name)
+            self.start_ns = time.perf_counter_ns() + _UNIX_NS
+            self._mirror.__enter__()
+        else:
+            rec._session = False
+            self.start_ns = time.perf_counter_ns() + _UNIX_NS
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        mirror, self._mirror = self._mirror, None
+        if mirror is not None:
+            mirror.__exit__(exc_type, exc, tb)
+        self.end_ns = time.perf_counter_ns() + _UNIX_NS
+        stack = self._rec._stack()
+        stack.pop()
+        if stack:
+            stack[-1]._child_ns += self.end_ns - self.start_ns
+        if exc_type is None:
+            self._rec._close(self, mirror is not None)
+        return False
+
+
+class Recorder:
+    """Spans' aggregates and counters by name, and while a profiler runs
+    the spans themselves (module docstring).  Safe across threads."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._seq = itertools.count()
+        self._aggregates: dict = {}
+        self._counters: dict = {}
+        self._spans: list = []
+        # the last span opened found a profiler running
+        self._session = False
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _new_session(self) -> None:
+        with self._lock:
+            self._spans = []
+            self._session = True
+
+    def _close(self, span: Span, whole: bool) -> None:
+        with self._lock:
+            agg = self._aggregates.get(span.name)
+            if agg is None:
+                agg = self._aggregates[span.name] = Aggregate()
+            agg.add(span.end_ns - span.start_ns, span.self_ns)
+            if whole:
+                self._spans.append(span)
+
+    def span(self, name: str, id=None) -> Span:
+        """A span of ``name`` around a ``with`` block; ``id``: its unit of
+        work (default: the enclosing span's, else its own ``seq``)."""
+        return Span(self, name, id)
+
+    def count(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + n
+
+    def counter(self, name: str) -> int:
+        return self._counters.get(name, 0)
+
+    def aggregate(self, name: str) -> Aggregate | None:
+        """A copy of the aggregate of the spans named ``name`` (other
+        threads may be adding to it); None before one closed."""
+        with self._lock:
+            agg = self._aggregates.get(name)
+            return None if agg is None else agg.copy()
+
+    def spans(self) -> list:
+        """The spans opened while the latest profiler session ran, in the
+        order they closed."""
+        with self._lock:
+            return list(self._spans)
+
+
+default = Recorder()
+
+
+def span(name: str, id=None) -> Span:
+    """A span of the process's recorder (``Recorder.span``)."""
+    return default.span(name, id)
+
+
+def count(name: str, n: int = 1) -> None:
+    """A counter of the process's recorder."""
+    default.count(name, n)
 
 
 def _fence(out):
