@@ -19,12 +19,14 @@ at the V4 recipe's widths, after building the hand-written kernels from
   and the three dtypes at 1,048,576 candidates scored in chunks;
 * training: holds the pair-map forward and backward kernels against their
   plain versions at V4 and V4_WIDE widths and at every batch size the
-  main paths give them (and dW against itself, bit for bit), one train
-  step on the card against the same step on the CPU, then ``Trainer.fit``
-  on a synthetic corpus of the recipe's size (AdaDelta, batch 50, dev MAP
-  every 100 steps), holding the best params' test-split probabilities
-  against the CPU's and scoring them through ``trec_eval`` against the
-  in-process MAP/MRR;
+  main paths give them (and dW against itself, bit for bit), the table's
+  gradient kernel (``embed_grad``) on the corpus's padded question and
+  answer ids against ``index_add_`` at D = 50 and 300 (and against
+  itself, bit for bit), one train step on the card against the same step
+  on the CPU, then ``Trainer.fit`` on a synthetic corpus of the recipe's
+  size (AdaDelta, batch 50, dev MAP every 100 steps), holding the best
+  params' test-split probabilities against the CPU's and scoring them
+  through ``trec_eval`` against the in-process MAP/MRR;
 * the trainer's dispatch (``dispatch_phase``): every chunk of K steps of
   ``fit``, ``fit_stream`` and ``scan_train_steps`` is one CUDA graph
   replay (``training/dispatch.py``); a 5-step graph chunk against 5 eager
@@ -274,8 +276,8 @@ DISPATCH_CHECK_BATCHES = (BATCH, 1024)
 CLI_SPLIT, CLI_STEPS, SNAP_EVERY, HTTP_REPS = 201, 401, 100, 30
 STREAM_STEP_REPS = 200
 # a resumed run on the card against the uninterrupted one: the runs part by
-# rounding (the embedding-gradient scatter sums in the order its atomics
-# land), so dev MAP is held to RESUME_MAP_ATOL and each param (but the conv
+# rounding (the convolutions' weight gradients sum in the order cuDNN's
+# atomics land), so dev MAP is held to RESUME_MAP_ATOL and each param (but the conv
 # biases, rounding noise under train-mode BN) to RESUME_PARAM_RTOL of its
 # max |value| (an H100 run read 0 and 3.1e-6).  The held runs start from
 # a xavier W: from the recipe's W = 0 the first step's scores are near-ties
@@ -655,6 +657,7 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
         check_pair_kernels(sk, pairs, pair_operands(normal, n, d), max_err)
     log("check pair_maps_bwd_w: dW bit-identical across two runs at every "
         "shape")
+    check_embed_grad(sk, normal, splits, info, D)
 
     tcfg = recipe_trainer()
     model = dataclasses.replace(V4, vocab_size=info["vocab_size"])
@@ -675,6 +678,7 @@ def train_phase(dev, normal, card: str, max_err: dict, timed: dict) -> dict:
     for name in pairs:
         if launches[name] < 1:
             raise AssertionError(f"the training path never launched {name}")
+    check_lookup_grads(launches, "the training path")
     chunks = len(chunk_lengths(0, FIT_STEPS, 1, [TEST_INTERVAL]))
     capture_costs(trainer.runner, f"fit batch {BATCH}", card)
     if trainer.runner.replays != chunks:
@@ -774,6 +778,7 @@ def wide_train_phase(dev, normal, card: str, max_err: dict) -> dict:
         f"{WIDE_D}: every pair-map kernel matches plain, dW bit-identical "
         f"across two runs at each")
     splits, info, _ = recipe_corpus(WIDE_D)
+    check_embed_grad(sk, normal, splits, info, WIDE_D)
     tcfg = recipe_trainer()
     model = dataclasses.replace(V4_WIDE, vocab_size=info["vocab_size"])
     step_card_vs_cpu(model, tcfg, splits, info, dev, "V4_WIDE")
@@ -782,9 +787,9 @@ def wide_train_phase(dev, normal, card: str, max_err: dict) -> dict:
         bcfg = dataclasses.replace(tcfg, batch_size=b)
         # on the default kernels two eager runs of these 5 steps part in
         # conv1.w by as much as a replay does (~1e-5 at batch 1,024: the
-        # atomics of the wider convs' weight gradients and of the
-        # embedding scatter, scaled by AdaDelta), so the chunk is held to
-        # eager steps on torch's deterministic kernels
+        # atomics of the wider convs' weight gradients, scaled by
+        # AdaDelta), so the chunk is held to eager steps on torch's
+        # deterministic kernels
         with deterministic_algorithms():
             graph_vs_eager(xavier, bcfg, splits, info, dev, b,
                            "V4_WIDE, deterministic algorithms")
@@ -798,7 +803,54 @@ def wide_train_phase(dev, normal, card: str, max_err: dict) -> dict:
         if launches[name] < FIT_STEPS:
             raise AssertionError(f"the V4_WIDE fit launched {name} "
                                  f"{launches[name]} times")
+    check_lookup_grads(launches, "the V4_WIDE fit")
     return launches
+
+
+def check_embed_grad(sk, normal, splits, info, d: int) -> None:
+    """``embed_grad`` on the lookups the training path gives it: the
+    question and the answer ids, padded as the recipe pads them, of a
+    train batch and of the dev and test splits, with a random dL/dout of
+    width ``d``.  Each against ``index_add_`` in float64 on the same
+    operands, within ``KERNEL_VS_PLAIN_RTOL`` of the gradient's max
+    |value|, zero in every row no id touches, and twice, bit for bit."""
+    from mms_answer_selection_tpu_torch.ops.embed import embed_grad
+
+    rtol, v = sk.KERNEL_VS_PLAIN_RTOL["embed_grad"], info["vocab_size"]
+    for split, n in (("train", BATCH), ("dev", None), ("test", None)):
+        for side in ("question", "answer"):
+            rows = torch.as_tensor(splits[split][side][:n])
+            ids = rows.reshape(-1).long().clamp(0, v - 1).cuda()
+            g = normal(ids.numel(), d)
+            got = embed_grad(ids, g, v)
+            want = torch.zeros((v, d), dtype=torch.float64,
+                               device=g.device).index_add_(0, ids, g.double())
+            rel = float((got.double() - want).abs().max()
+                        / want.abs().max())
+            untouched = torch.ones(v, dtype=torch.bool, device=g.device)
+            untouched[ids] = False
+            pad = float((ids == info["pad_idx"]).double().mean())
+            log(f"check embed_grad {split} {side} {tuple(rows.shape)} ids "
+                f"(pad share {pad:.3f}) D={d} V={v}: max_rel_err {rel:.3e} "
+                f"(rtol {rtol:g} of the gradient's max |value|)")
+            if rel > rtol:
+                raise AssertionError(f"embed_grad disagrees with index_add_: "
+                                     f"{rel:.3e} > {rtol:g}")
+            if got[untouched].any():
+                raise AssertionError("embed_grad wrote a row no id touches")
+            if not torch.equal(got, embed_grad(ids, g, v)):
+                raise AssertionError(f"embed_grad differs between two runs "
+                                     f"at {split} {side} D={d}")
+
+
+def check_lookup_grads(launches: dict, label: str) -> None:
+    """A V4 step looks up the question and the answer, and its backward
+    takes each lookup's table gradient: ``embed_grad`` launches twice as
+    often as ``pair_maps_bwd_w``, which launches once a step."""
+    if launches["embed_grad"] != 2 * launches["pair_maps_bwd_w"]:
+        raise AssertionError(f"{label}: embed_grad launched "
+                             f"{launches['embed_grad']} times for "
+                             f"{launches['pair_maps_bwd_w']} steps")
 
 
 def chunk_lengths(it: int, steps: int, k: int, intervals) -> list:
@@ -1053,6 +1105,7 @@ def dispatch_phase(dev, card: str, splits, info) -> dict:
         if launches[name] < FIT_STEPS:
             raise AssertionError(f"the dispatch path launched {name} "
                                  f"{launches[name]} times")
+    check_lookup_grads(launches, "the dispatch path")
     log(f"dispatch phase: {time.perf_counter() - started:.1f} s")
     return launches
 
@@ -1154,9 +1207,9 @@ def capture_off(calls, call):
 
 @contextlib.contextmanager
 def deterministic_algorithms():
-    """torch's deterministic kernels: the embedding gradient's scatter then
-    sums in one order, so two runs of a step agree bit for bit (by default
-    two eager steps part in the last bits)."""
+    """torch's deterministic kernels: the convolutions' weight gradients
+    then sum in one order, so two runs of a step agree bit for bit (by
+    default two eager steps part in the last bits)."""
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         yield

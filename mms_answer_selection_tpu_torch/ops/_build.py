@@ -41,7 +41,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # geometry..., device, stream), the geometry (rows, te, w2 tile, threads)
 # for the forward, (te, measures per group, then samples, x rows and output
 # rows for dQ and for dA) for dQ/dA, (samples per chunk, d_rows, te, w1
-# tile, threads) for dW
+# tile, threads) for dW; the embedding gradient: (ids, g, out, scratch...,
+# t, d, v, tile, device, stream)
 _SIGNATURES = {
     "maxsim_bf16": [_P] * 3 + [_I] * 14 + [_P],
     "maxsim_int8": [_P] * 5 + [_I] * 14 + [_P],
@@ -49,6 +50,7 @@ _SIGNATURES = {
     "pair_maps_fwd": [_P] * 5 + [_I] * 10 + [_P],
     "pair_maps_bwd_qa": [_P] * 6 + [_I] * 14 + [_P],
     "pair_maps_bwd_w": [_P] * 5 + [_I] * 11 + [_P],
+    "embed_grad": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 

@@ -1,5 +1,5 @@
-"""Embedding lookup and pretrained-vector loading (counterpart of
-``ops/embed.py``)."""
+"""Embedding lookup, the table's gradient and pretrained-vector loading
+(counterpart of ``ops/embed.py``)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from ..utils import fillers
+from . import sim_cross_kernels as sk
 
 
 def embed_init(generator: torch.Generator, vocab_size: int, dim: int, *,
@@ -34,14 +35,70 @@ def embed_init(generator: torch.Generator, vocab_size: int, dim: int, *,
     return params
 
 
+# positions a block of csrc/embed_grad.cu's first pass takes, which sizes
+# the scratch below; the kernel is built for this tile and refuses another
+_TILE = 256
+
+
+def embed_grad(ids: torch.Tensor, g: torch.Tensor,
+               vocab_size: int) -> torch.Tensor:
+    """The table's gradient (V, D) float32 for ids (T,) int64 already
+    clamped into [0, V) and g = dL/dout (T, D) float32, on one card: the
+    ``embed_grad`` kernel, each id's rows of g summed in a fixed order (two
+    runs give the same bits), zero rows elsewhere."""
+    if sk._on_cpu(ids, g):
+        raise ValueError("embed_grad takes CUDA tensors; on the CPU the "
+                         "lookup keeps the autograd of w[ids]")
+    ids, g = ids.contiguous(), g.contiguous()
+    sk._check_cuda_operands(align=8, ids=(ids, torch.int64))
+    sk._check_cuda_operands(align=4, g=(g, torch.float32))
+    t, d = g.shape
+    if ids.shape != (t,) or not 0 < vocab_size < 2**31 - 1 \
+            or t >= 2**31 - _TILE:
+        raise ValueError(f"embed_grad: ids {tuple(ids.shape)}, g "
+                         f"{tuple(g.shape)}, V={vocab_size}")
+    tiles = -(-t // _TILE)
+    out = torch.empty((vocab_size, d), dtype=torch.float32, device=g.device)
+    part = torch.empty(tiles * _TILE * d, dtype=torch.float32,
+                       device=g.device)
+    meta = torch.empty(tiles * (_TILE + 1), dtype=torch.int32,
+                       device=g.device)
+    sk._launch("embed_grad", g, ids.data_ptr(), g.data_ptr(), out.data_ptr(),
+               part.data_ptr(), meta.data_ptr(), t, d, vocab_size, _TILE)
+    return out
+
+
+class _EmbedLookup(torch.autograd.Function):
+    """``w[ids]`` whose backward is ``embed_grad``."""
+
+    @staticmethod
+    def forward(ctx, w, ids):
+        ctx.save_for_backward(ids)
+        ctx.vocab_size = w.shape[0]
+        return w[ids]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return embed_grad(ids.reshape(-1), g.reshape(-1, g.shape[-1]),
+                          ctx.vocab_size), None
+
+
 def embed_lookup(params, ids: torch.Tensor) -> torch.Tensor:
     """ids: int (..., W) -> (..., W, D), plus the shared bias if present.
 
     Out-of-range ids clamp into [0, V-1], as ``jnp.take(mode="clip")``
-    does in the reference."""
+    does in the reference.  A float32 table on a card that needs its
+    gradient takes it from the ``embed_grad`` kernel; everywhere else the
+    lookup is ``w[ids]`` with its own autograd."""
     w = params["w"]
     ids = ids.to(device=w.device, dtype=torch.int64).clamp(0, w.shape[0] - 1)
-    out = w[ids]
+    if w.is_cuda and w.dtype == torch.float32 and w.requires_grad \
+            and torch.is_grad_enabled():
+        out = _EmbedLookup.apply(w, ids)
+    else:
+        out = w[ids]
     if "b" in params:
         out = out + params["b"]
     return out

@@ -52,10 +52,11 @@ from . import _build
 
 NEG_INF = -1e30
 
-# kernel name -> launches since the counter was last reset
+# kernel name -> launches since the counter was last reset (the embedding
+# gradient of ``ops/embed.py`` counts here too)
 LAUNCH_COUNTS = {"maxsim_bf16": 0, "maxsim_int8": 0, "maxsim_int4": 0,
                  "pair_maps_fwd": 0, "pair_maps_bwd_qa": 0,
-                 "pair_maps_bwd_w": 0}
+                 "pair_maps_bwd_w": 0, "embed_grad": 0}
 
 # How far a kernel may stray from its plain version on the same operands.
 # MaxSim, as a fraction of the row's largest |score|: int8 and int4, each
@@ -67,9 +68,13 @@ LAUNCH_COUNTS = {"maxsim_bf16": 0, "maxsim_int8": 0, "maxsim_int4": 0,
 # M and the batch differs; the forward's first product runs as 3xTF32
 # (hi and lo TF32 parts, three tensor-core products), whose error is below
 # float32's rounding (no single-pass TF32, no reduced precision).
+# The embedding table's gradient (``ops/embed.embed_grad``), as a fraction
+# of the gradient's largest |value|: float32 additions of the same rows,
+# only the order of the sum over an id's duplicates differs.
 KERNEL_VS_PLAIN_RTOL = {"maxsim_bf16": 1e-4, "maxsim_int8": 1e-5,
                         "maxsim_int4": 1e-5, "pair_maps_fwd": 1e-5,
-                        "pair_maps_bwd_qa": 1e-5, "pair_maps_bwd_w": 1e-5}
+                        "pair_maps_bwd_qa": 1e-5, "pair_maps_bwd_w": 1e-5,
+                        "embed_grad": 1e-5}
 
 INT4_BOUND = 7.0
 INT4_CLIP_QUANTILE = 0.995  # the reference's candidate-scale percentile

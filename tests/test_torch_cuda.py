@@ -499,6 +499,124 @@ def test_pair_map_backward_launches_only_what_is_needed():
     assert T.LAUNCH_COUNTS["pair_maps_fwd"] == n0["pair_maps_fwd"] + 2
 
 
+# (name, rows, tokens, D, V, kind) of the embedding gradient's lookups:
+# V4's batch padded as the recipe pads (5-28 real tokens a row, about 60%
+# of the ids the pad row V - 1), at D 50 and 300; batch 1,024; every id
+# one row; ids below 0 and at or past V; 259 ids, one past a tile of 256,
+# at D 7
+EMBED_GRAD_CASES = [("v4", 50, 40, 50, 50000, "pad"),
+                    ("d300", 50, 40, 300, 50000, "pad"),
+                    ("b1024", 1024, 40, 50, 50000, "pad"),
+                    ("one_id", 50, 40, 50, 500, "one"),
+                    ("clamped", 50, 40, 50, 500, "clamp"),
+                    ("ragged", 7, 37, 7, 300, "pad")]
+
+
+def _embed_operands(dev, rows, tokens, d, v, kind, seed=0):
+    """A table (V, D), raw ids (rows, tokens) and a cotangent of the
+    lookup's output."""
+    g = torch.Generator(device=dev).manual_seed(seed + rows * 31 + d)
+    w = torch.randn((v, d), generator=g, device=dev) * 0.08
+    words = torch.randint(0, v - 2, (rows, tokens), generator=g, device=dev)
+    if kind == "pad":           # 5-28 real tokens a row, centred, then pad
+        real = torch.randint(5, 29, (rows, 1), generator=g, device=dev)
+        col = torch.arange(tokens, device=dev)
+        lo = (tokens - real) // 2
+        ids = torch.where((col >= lo) & (col < lo + real), words, v - 1)
+    elif kind == "one":
+        ids = torch.full_like(words, 17)
+    else:
+        ids = words * 3 - v     # below 0, inside [0, V) and past V
+    cot = torch.randn((rows, tokens, d), generator=g, device=dev)
+    return w, ids, cot
+
+
+def _embed_table_grad(w, ids, cot):
+    from mms_answer_selection_tpu_torch.ops.embed import embed_lookup
+
+    tw = w.clone().requires_grad_(True)
+    (embed_lookup({"w": tw}, ids) * cot).sum().backward()
+    return tw.grad
+
+
+@pytest.mark.parametrize("case", EMBED_GRAD_CASES, ids=lambda c: c[0])
+def test_embed_grad_kernel_matches_float64(case):
+    dev = _cuda()
+    w, ids, cot = _embed_operands(dev, *case[1:])
+    n0 = T.LAUNCH_COUNTS["embed_grad"]
+    got = _embed_table_grad(w, ids, cot)
+    assert T.LAUNCH_COUNTS["embed_grad"] == n0 + 1
+    d = w.shape[1]
+    flat = ids.clamp(0, w.shape[0] - 1).reshape(-1)
+    want = torch.zeros(w.shape, dtype=torch.float64, device=dev).index_add_(
+        0, flat, cot.reshape(-1, d).double())
+    _assert_close_to_max(got.double(), want, T.KERNEL_VS_PLAIN_RTOL[
+        "embed_grad"])
+    untouched = torch.ones(w.shape[0], dtype=torch.bool, device=dev)
+    untouched[flat] = False
+    assert not got[untouched].any()
+
+
+def test_embed_grad_is_deterministic():
+    dev = _cuda()
+    w, ids, cot = _embed_operands(dev, 50, 40, 50, 50000, "pad")
+    runs = [_embed_table_grad(w, ids, cot) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_embed_grad_refuses_another_tile(monkeypatch):
+    """The wrapper sizes the kernel's scratch by its tile; a launch whose
+    tile is not the one the kernel is built for fails, and counts none."""
+    from mms_answer_selection_tpu_torch.ops import embed as E
+
+    dev = _cuda()
+    ids = torch.zeros(300, dtype=torch.int64, device=dev)
+    g = torch.ones((300, 5), device=dev)
+    monkeypatch.setattr(E, "_TILE", E._TILE // 2)
+    n0 = T.LAUNCH_COUNTS["embed_grad"]
+    with pytest.raises(RuntimeError, match="embed_grad launch failed"):
+        E.embed_grad(ids, g, 7)
+    assert T.LAUNCH_COUNTS["embed_grad"] == n0
+
+
+def test_embed_grad_replays_its_eager_bits():
+    """A CUDA graph of two lookups (question and answer, as the model
+    makes them) and their backward: each lookup counts one launch, and a
+    replay gives the eager table gradient bit for bit."""
+    from mms_answer_selection_tpu_torch.ops.embed import embed_lookup
+
+    dev = _cuda()
+    w, q, cq = _embed_operands(dev, 50, 40, 50, 50000, "pad", seed=1)
+    _, a, ca = _embed_operands(dev, 50, 40, 50, 50000, "pad", seed=2)
+    tw = w.clone().requires_grad_(True)
+
+    def step():
+        p = {"w": tw, "b": torch.zeros(50, device=dev)}
+        loss = (embed_lookup(p, q) * cq).sum() + (embed_lookup(p, a)
+                                                  * ca).sum()
+        return torch.autograd.grad(loss, tw)[0]
+
+    n0 = T.LAUNCH_COUNTS["embed_grad"]
+    eager = step()
+    assert T.LAUNCH_COUNTS["embed_grad"] == n0 + 2
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()                                       # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n1 = T.LAUNCH_COUNTS["embed_grad"]
+    with torch.cuda.graph(graph):
+        out = step()
+    assert T.LAUNCH_COUNTS["embed_grad"] == n1 + 2   # the capture's two
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
 def test_train_step_on_cuda_matches_cpu():
     """One V4 train step (dropout off, xavier W, batch 50) on the card and
     on the CPU from the same params and batch.  Loss within 1e-5 relative;
@@ -1281,7 +1399,7 @@ def test_launch_counts_are_replays_times_the_tally():
     carry = tr.scan_train_steps(*carry, stacked, 0)[:3]   # captures K = 4
     (stats,) = tr.runner.stats()
     assert stats["tally"] == {"pair_maps_fwd": 4, "pair_maps_bwd_qa": 4,
-                              "pair_maps_bwd_w": 4}
+                              "pair_maps_bwd_w": 4, "embed_grad": 8}
     before = dict(T.LAUNCH_COUNTS)
     for step in (4, 8, 12):
         carry = tr.scan_train_steps(*carry, stacked, step)[:3]
@@ -1401,7 +1519,7 @@ def test_caption_model_chunk_captures_and_matches_eager():
     gp, _, _, got = tr.scan_train_steps(p0, s0, o0, stacked, 0)
     assert tr.runner.replays == 1
     assert set(tr.runner.stats()[0]["tally"]) == {
-        "pair_maps_fwd", "pair_maps_bwd_qa", "pair_maps_bwd_w"}
+        "pair_maps_fwd", "pair_maps_bwd_qa", "pair_maps_bwd_w", "embed_grad"}
     # within 1e-5 relative; a hinge loss of exactly 0 (every positive
     # past the margin) must be 0 in both
     assert torch.allclose(got, torch.stack(want), rtol=1e-5, atol=0.0), \
@@ -1723,7 +1841,7 @@ def test_generic_launches_are_replays_times_the_tally(tmp_path):
     gs.step(1)                                       # captures
     (stats,) = gs.runner.stats()
     assert stats["tally"] == {"pair_maps_fwd": 2, "pair_maps_bwd_qa": 2,
-                              "pair_maps_bwd_w": 2}
+                              "pair_maps_bwd_w": 2, "embed_grad": 4}
     before = dict(T.LAUNCH_COUNTS)
     gs.step(4)
     assert {k: T.LAUNCH_COUNTS[k] - before[k] for k in before} == {

@@ -193,6 +193,11 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
     assert res.returncode != 0 and '"ok": true' not in res.stdout
 
 
+# the kernels' sources nvcc compiles, one object each
+SOURCES = ["embed_grad.cu", "maxsim_bf16.cu", "maxsim_int8.cu",
+           "pair_maps.cu"]
+
+
 def test_library_key_covers_headers(tmp_path, monkeypatch):
     """An edited header (csrc/*.cuh) names a new library, so a build never
     reuses one compiled from the old header."""
@@ -205,7 +210,7 @@ def test_library_key_covers_headers(tmp_path, monkeypatch):
     header = tmp_path / "maxsim_wgmma.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build.library_path() != before
-    assert len(_build._sources()) == 3        # headers are not compiled
+    assert [p.name for p in _build._sources()] == SOURCES  # no headers
 
 
 def test_load_library_raises_without_nvcc():
@@ -213,7 +218,7 @@ def test_load_library_raises_without_nvcc():
 
     # importing builds nothing, and the library name is keyed on the sources
     assert _build.library_path().parent == _build.BUILD_DIR
-    assert len(_build._sources()) == 3
+    assert [p.name for p in _build._sources()] == SOURCES
     if shutil.which("nvcc") is None and not torch.cuda.is_available():
         res = _run("from mms_answer_selection_tpu_torch.ops import _build\n"
                    "_build.load_library()", env_extra={"CUDA_HOME": "",

@@ -40,6 +40,53 @@ def test_embed_lookup_clamps_and_adds_bias():
     assert got.shape == (2, 3, 6)
 
 
+# ids of (4, 10) lookups into a table of 13 rows: some rows repeated;
+# ids below 0 and at or past V, which clamp onto rows 0 and 12; the
+# recipe's padding, where most ids are the last row
+EMBED_GRAD_IDS = {
+    "repeated": np.array([[3, 1, 3, 7, 3, 1, 0, 3, 5, 3]] * 4, np.int32),
+    "clamped": np.array([[-5, -1, 0, 12, 13, 40, 6, -2, 12, 99]] * 4,
+                        np.int32),
+    "pad_heavy": np.concatenate(
+        [np.random.default_rng(7).integers(0, 12, (4, 4)),
+         np.full((4, 6), 12)], 1
+    ).astype(np.int32),
+}
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("ids", sorted(EMBED_GRAD_IDS))
+def test_embed_lookup_gradient_is_jaxs(ids, with_bias):
+    """The table's (and the bias') gradient of a lookup, each id's rows
+    of the cotangent summed, against ``jax.grad`` of the JAX lookup."""
+    ids = EMBED_GRAD_IDS[ids]
+    draw = np.random.default_rng(8)
+    normal = lambda *s: draw.normal(size=s).astype(np.float32)  # noqa: E731
+    params = {"w": normal(13, 6)}
+    if with_bias:
+        params["b"] = normal(6)
+    cot = normal(*ids.shape, 6)
+    tparams = {k: torch.from_numpy(v).requires_grad_(True)
+               for k, v in params.items()}
+    (tops.embed_lookup(tparams, torch.from_numpy(ids))
+     * torch.from_numpy(cot)).sum().backward()
+    want = jax.grad(lambda p: (jops.embed_lookup(p, jnp.asarray(ids))
+                               * cot).sum())(
+        {k: jnp.asarray(v) for k, v in params.items()})
+    assert sorted(want) == sorted(tparams)
+    for k in want:
+        _close(tparams[k].grad, want[k])
+
+
+def test_embed_grad_kernel_refuses_cpu_tensors():
+    # the CPU lookup takes the autograd of w[ids]; the kernel's wrapper
+    # never hands a host pointer to the card
+    from mms_answer_selection_tpu_torch.ops.embed import embed_grad
+
+    with pytest.raises(ValueError):
+        embed_grad(torch.zeros(4, dtype=torch.int64), torch.zeros(4, 3), 5)
+
+
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_sim_cross_bilinear(with_bias):
     q, a, w = _np((3, 5, 6)), _np((3, 7, 6)), _np((4, 6, 6))
