@@ -6,7 +6,9 @@ data_reader.cpp:79-117), and pushes each through the DataTransformer
 (scale / mean / crop / mirror — data_transformer.cpp:19-162).  Here the
 cursor is `utils.lmdb_io.LmdbReader`, the transform is the shared
 `data.pair_image.transform` (HWC convention), and batches come out
-NHWC float32 — the framework's device layout.
+NHWC float32 — the framework's device layout.  Each batch opens two
+spans (``utils/timer.py``): ``feed.read``, the Datums' get and parse, then
+``feed.transform``, their transform into the batch.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 
 from ..utils.io import datum_label, datum_to_array
 from ..utils.lmdb_io import LmdbReader
+from ..utils.timer import span
 from .pair_image import transform
 
 __all__ = ["LmdbDatumDataset", "LevelDbDatumDataset", "open_datum_dataset"]
@@ -49,24 +52,26 @@ class LmdbDatumDataset:
     def __len__(self):
         return len(self._rows)
 
-    def _one(self, datum: bytes):
-        chw = datum_to_array(datum)
-        hwc = np.transpose(chw, (1, 2, 0)).astype(np.float32)
-        return transform(hwc, rng=self._rng, **self._tf), \
-            datum_label(datum)
-
     def __iter__(self):
         return self
 
     def __next__(self):
-        imgs, labels = [], []
-        for _ in range(self.batch_size):
-            img, lab = self._one(self._rows[self._pos])
-            imgs.append(img)
-            labels.append(lab)
-            self._pos = (self._pos + 1) % len(self._rows)
-        return {"data": np.stack(imgs),
-                "label": np.asarray(labels, np.int32)}
+        with span("feed.read"):
+            chws, labels = [], []
+            for _ in range(self.batch_size):
+                datum = self._rows[self._pos]
+                chws.append(datum_to_array(datum))
+                labels.append(datum_label(datum))
+                self._pos = (self._pos + 1) % len(self._rows)
+        with span("feed.transform"):
+            crop = self._tf["crop_size"]
+            c, h, w = chws[0].shape
+            data = np.empty((len(chws),) + ((crop, crop) if crop else (h, w))
+                            + (c,), np.float32)
+            for i, chw in enumerate(chws):
+                data[i] = transform(np.transpose(chw, (1, 2, 0)),
+                                    rng=self._rng, **self._tf)
+            return {"data": data, "label": np.asarray(labels, np.int32)}
 
 
 class LevelDbDatumDataset(LmdbDatumDataset):

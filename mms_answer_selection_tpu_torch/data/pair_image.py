@@ -73,9 +73,14 @@ def load_image(path: str, *, new_height: int = 0, new_width: int = 0,
 def transform(arr, *, scale: float = 1.0, mean=None, crop_size: int = 0,
               mirror: bool = False, rng=None, train: bool = True):
     """DataTransformer subset (src/caffe/data_transformer.cpp): mean
-    subtract -> crop (random at train, center at test) -> mirror -> scale."""
-    if mean is not None:
-        arr = arr - mean
+    subtract -> crop (random at train, center at test) -> mirror -> scale.
+
+    The crop and the mirror are taken first, of the image and of a
+    per-pixel mean alike, so only the kept pixels are converted to
+    float32, subtracted and scaled (in place, in float32, as Caffe's
+    float transform computes): the values are those of the order
+    above."""
+    per_pixel = mean is not None and np.ndim(mean) == np.ndim(arr)
     if crop_size:
         h, w = arr.shape[:2]
         if train and rng is not None:
@@ -84,9 +89,18 @@ def transform(arr, *, scale: float = 1.0, mean=None, crop_size: int = 0,
         else:
             y, x = (h - crop_size) // 2, (w - crop_size) // 2
         arr = arr[y: y + crop_size, x: x + crop_size]
+        if per_pixel:
+            mean = mean[y: y + crop_size, x: x + crop_size]
     if mirror and rng is not None and rng.random() < 0.5:
         arr = arr[:, ::-1]
-    return arr * scale
+        if per_pixel:
+            mean = mean[:, ::-1]
+    arr = arr.astype(np.float32)        # a copy, of the kept pixels alone
+    if mean is not None:
+        arr -= mean
+    if scale != 1.0:
+        arr *= scale
+    return arr
 
 
 class PairImageDataset:

@@ -28,6 +28,14 @@ weights and the solver history in the reference's files
   Each test batch is one replay too (``utils/graphs.GraphedCall``),
   reading the static carry in place.  ``_train_step`` and
   ``_test_outputs_eager`` are the plain versions, run eagerly.
+* Spans (``utils/timer.py``): each iteration is a ``solver.step`` holding
+  ``solver.pull`` (the host batch), the runner's ``chunk.stage`` and
+  ``chunk.replay`` and ``solver.read`` (the loss and the outputs read
+  back); ``solver.display``, ``solver.test`` and ``solver.snapshot``
+  where those run.  The ``Data`` feed opens ``feed.read`` and
+  ``feed.transform`` once a batch (``data/lmdb_data.py``), on the feed's
+  worker thread (``_Feed``), which a profiler started by the caller does
+  not see: they join their aggregates.
 * Data layers declare inputs; the host-side feed of each is built from its
   prototxt message: ``feeds=`` arrays, HDF5Data through
   ``data/hdf5_compat.py`` (h5py), ImageData / PairImageData through
@@ -64,6 +72,7 @@ from __future__ import annotations
 import logging
 import os
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -73,6 +82,7 @@ from ..models.graph_net import DATA_TYPES, GraphNet
 from ..utils.prototxt import parse_prototxt, solver_config_from_prototxt
 from ..utils.graphs import GraphedCall, captures_on, on_device
 from ..utils.seed import derive_seed
+from ..utils.timer import span
 from ..utils.tree import tree_leaves, tree_map
 from ..parallel.mesh import mesh_device, shard_context
 from ..parallel.train_step import local_batch, reduce_grads
@@ -124,19 +134,33 @@ def _resolve(path: str, base_dir: str) -> str:
 
 class _Feed:
     """Host-side batch source for one data layer: each ``next()`` yields
-    {top: array} for the layer's tops."""
+    {top: array} for the layer's tops.
+
+    As the reference's data layers prefetch on a thread of their own
+    (base_data_layer.cpp, ``BasePrefetchingDataLayer``), the batch after
+    the one handed out is read on a worker thread while the caller steps:
+    the same batches in the same order, one read ahead.  The worker exits
+    once the feed is dropped."""
 
     def __init__(self, it, tops):
         self.it = it
         self.tops = tops
+        self._worker = ThreadPoolExecutor(1, thread_name_prefix="feed")
+        self._ahead = None
 
-    def __next__(self):
+    def _read(self):
         batch = next(self.it)
         return {t: batch[t] for t in self.tops}
 
+    def __next__(self):
+        ahead = self._ahead or self._worker.submit(self._read)
+        batch = ahead.result()
+        self._ahead = self._worker.submit(self._read)
+        return batch
+
     def skip(self, n: int):
         for _ in range(n):
-            next(self.it)
+            next(self)
 
 
 def _mean_from(tf: dict, t: str, name: str, base_dir: str):
@@ -582,31 +606,44 @@ class GraphSolver:
                     log.info("Optimization stopped early (signal).")
                     self._early_exit = True
                     break
-            if (self.test_interval
-                    and self.iter_ % self.test_interval == 0
-                    and (self.iter_ > 0 or self.test_initialization)):
-                self.test_all()
-            for cb in self.callbacks:
-                cb[0]()  # on_start
-            runner = self._static_carry()   # after what may rebind weights
+            with span("solver.step", id=self.iter_):
+                self._iteration()
+        return self._smoothed
+
+    def _iteration(self):
+        """One iteration of ``step``: the test pass due at it, the pull,
+        the step's replay, the read of its loss and outputs, the display
+        and the snapshot due after it."""
+        if (self.test_interval
+                and self.iter_ % self.test_interval == 0
+                and (self.iter_ > 0 or self.test_initialization)):
+            self.test_all()
+        for cb in self.callbacks:
+            cb[0]()  # on_start
+        runner = self._static_carry()   # after what may rebind weights
+        with span("solver.pull"):
             batch = self._pull_train_batch()
-            losses = runner.run([batch], self.iter_)
+        # a one-step chunk of the host batch as it is (a net without a
+        # feed has none): the stage copies it to the card unstacked
+        losses = runner.run({k: v[None] for k, v in batch.items()}
+                            if batch else [batch], self.iter_)
+        with span("solver.read"):
             # host copies: the next replay overwrites the static outputs
             outs = {k: v.clone() for k, v in runner.outputs.items()}
-            self._update_smoothed(float(losses[0]))
-            self.last_outs = outs
-            for cb in self.callbacks:
-                cb[1]()  # on_gradients_ready
-            if self.display and self.iter_ % self.display == 0:
+            loss = float(losses[0])
+        self._update_smoothed(loss)
+        self.last_outs = outs
+        for cb in self.callbacks:
+            cb[1]()  # on_gradients_ready
+        if self.display and self.iter_ % self.display == 0:
+            with span("solver.display"):
                 self._display_outputs("Train", outs)
                 # sgd_solver.cpp:105's companion line; parse_log reads it
                 log.info("Iteration %d, lr = %g", self.iter_,
                          float(learning_rate(self.cfg, self.iter_)))
-            self.iter_ += 1
-            if (self.snapshot_every
-                    and self.iter_ % self.snapshot_every == 0):
-                self.snapshot()
-        return self._smoothed
+        self.iter_ += 1
+        if self.snapshot_every and self.iter_ % self.snapshot_every == 0:
+            self.snapshot()
 
     def solve(self, *, action_fn=None):
         """Solver::Solve: run to max_iter, final snapshot, final test pass
@@ -721,13 +758,14 @@ class GraphSolver:
         DummyData refills each pass; Dropout is a no-op)."""
         i = test_net_id
         tnet = self.test_nets[i]
-        self._static_carry()
-        mean = self._test_means(i, self._test_outputs)
-        # solver.cpp:330's announce line, so the log parses like caffe's
-        log.info("Iteration %d, Testing net (#%d)", self.iter_, i)
-        self._display_outputs(f"Test#{i}", mean, net=tnet,
-                              weights=tnet.blob_loss_weights(),
-                              log_tag="Test")
+        with span("solver.test"):
+            self._static_carry()
+            mean = self._test_means(i, self._test_outputs)
+            # solver.cpp:330's announce line, so the log parses like caffe's
+            log.info("Iteration %d, Testing net (#%d)", self.iter_, i)
+            self._display_outputs(f"Test#{i}", mean, net=tnet,
+                                  weights=tnet.blob_loss_weights(),
+                                  log_tag="Test")
         return mean
 
     # ------------------------------------------------------------------
@@ -741,6 +779,10 @@ class GraphSolver:
         """Solver::Snapshot: the learned net and the solver state, named
         ``{prefix}_iter_{N}`` (solver.cpp:406-457), in the solver's
         snapshot_format."""
+        with span("solver.snapshot"):
+            return self._snapshot()
+
+    def _snapshot(self):
         from ..utils.caffemodel import (save_caffemodel_binaryproto,
                                         save_caffemodel_h5,
                                         save_solverstate_binaryproto,

@@ -16,9 +16,10 @@ wall-clock over N iterations with CUDA-event timers
   written as a Chrome trace to ``path``.
 * ``span(name)`` / ``count(name)``: the program's own spans and counters,
   kept by a ``Recorder`` (``default``, the process's; a ``QAServer`` keeps
-  its own).  Spans sit at the boundaries that happen once a chunk, an
-  eval, a call, a capture, a request or a build, never once a step and
-  never inside a captured region.
+  its own).  Spans sit at the boundaries that happen once a chunk (a
+  ``GraphSolver`` iteration is a chunk of one step), an eval, a call, a
+  capture, a request, a build or a fed batch, never once a step of a
+  longer chunk and never inside a captured region.
 
 A span records its name, start and end, its parent (the span open around
 it in the same thread and recorder), the id of its unit of work (given,
@@ -31,9 +32,14 @@ traced window) each span is also kept whole (``Recorder.spans``) and
 mirrored as a ``record_function`` of its name, so the profiler's host
 timeline carries it beside the device's kernels.  The spans kept whole
 are those of the latest session: the first span opened under a profiler
-after one opened with none running starts the list anew.  Spans are
-stamped on the Unix clock in nanoseconds, the clock the profiler stamps
-its host events with.  A span left by an exception joins no aggregate.
+after one opened with none running, in the same thread, starts the list
+anew (a profiler sees the thread that started it: spans of another
+thread, such as a data feed's worker, only join their aggregates).
+Spans are stamped on the Unix clock in nanoseconds, the clock the
+profiler stamps its host events with; under a profiler each end is read
+just after the mirror's call at that end returns, a few microseconds
+after the profiler's own stamp.  A span left by an exception joins no
+aggregate.
 """
 
 from __future__ import annotations
@@ -145,14 +151,20 @@ class Span:
         if self.id is None:
             self.id = self.seq
         stack.append(self)
+        me = threading.get_ident()
         if _profiling():
-            if not rec._session:
-                rec._new_session()
+            if rec._session != me:
+                rec._new_session(me)
             self._mirror = torch.autograd.profiler.record_function(self.name)
-            self.start_ns = time.perf_counter_ns() + _UNIX_NS
+            # read after the mirror opens, as the end is read after it
+            # closes: the profiler stamps late in each call, and a thread
+            # held up inside the call (descheduled on a loaded host) would
+            # otherwise put the stall between the two clocks
             self._mirror.__enter__()
+            self.start_ns = time.perf_counter_ns() + _UNIX_NS
         else:
-            rec._session = False
+            if rec._session == me:
+                rec._session = None
             self.start_ns = time.perf_counter_ns() + _UNIX_NS
         return self
 
@@ -181,8 +193,10 @@ class Recorder:
         self._aggregates: dict = {}
         self._counters: dict = {}
         self._spans: list = []
-        # the last span opened found a profiler running
-        self._session = False
+        # the thread whose last span found a profiler running (a profiler
+        # session is its thread's: spans of other threads, a data feed's
+        # worker say, run outside it and end nothing), else None
+        self._session = None
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -190,10 +204,10 @@ class Recorder:
             stack = self._local.stack = []
         return stack
 
-    def _new_session(self) -> None:
+    def _new_session(self, thread: int) -> None:
         with self._lock:
             self._spans = []
-            self._session = True
+            self._session = thread
 
     def _close(self, span: Span, whole: bool) -> None:
         with self._lock:

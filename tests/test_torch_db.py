@@ -160,6 +160,15 @@ TRANSFORMS = {
     "crop_test": dict(crop_size=6, train=False),
     "crop_train": dict(crop_size=5, train=True),
     "skip": dict(rand_skip=7),
+    # the transform crops and mirrors before it subtracts: a channel mean
+    # and a per-pixel (H, W, C) mean, cropped and flipped with the image
+    "mirror_crop_mean": dict(crop_size=5, mirror=True, scale=0.5,
+                             mean=np.asarray([10.0, 20.0, 30.0],
+                                             np.float32)),
+    "mirror_crop_pixel_mean": dict(
+        crop_size=6, mirror=True, mean=np.random.default_rng(8).uniform(
+            0, 255, (10, 8, 3)).astype(np.float32)),
+    "mirror_test": dict(crop_size=6, mirror=True, train=False),
 }
 
 

@@ -174,6 +174,33 @@ def test_sources_name_no_jax():
         assert not pat.search(path.read_text()), path
 
 
+# the plain GoogLeNet reference, in the tests and in the benchmark: numpy
+# and torch only, no JAX, nothing of the port, no prototxt parser
+_REFERENCES = [ROOT / "tests" / "googlenet_reference.py",
+               ROOT / "h100_bench" / "reference" / "googlenet.py"]
+_ALONE = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("reference", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(sorted({m.split(".")[0] for m in sys.modules}))
+"""
+
+
+@pytest.mark.parametrize("path", _REFERENCES, ids=lambda p: p.parent.name)
+def test_the_googlenet_reference_stands_alone(path):
+    res = subprocess.run([sys.executable, "-c", _ALONE, str(path)],
+                         cwd=path.parent, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    loaded = set(eval(res.stdout.strip().splitlines()[-1]))
+    assert not loaded & {"jax", "jaxlib", "flax", "mms_answer_selection_tpu",
+                         "mms_answer_selection_tpu_torch", "h100_bench"}
+    imports = re.findall(r"^\s*(?:import|from)\s+([\w.]+)",
+                         path.read_text(), re.M)
+    assert sorted(set(imports)) == ["__future__", "numpy", "torch",
+                                    "torch.nn.functional"]
+
+
 def test_cuda_paths_raise_without_cuda():
     res = _run(_NO_FALLBACK, env_extra={"CUDA_HOME": "", "PATH": "/bin"})
     assert res.returncode == 0 and "raised" in res.stdout, res.stderr

@@ -1,8 +1,9 @@
 """The port's spans and counters (``utils/timer.py``'s ``Recorder``) on the
 CPU: aggregates alone without a profiler, the spans whole and on the
 profiler's clock under one, and where the port opens them: ``Trainer.fit``'s
-chunk, read and eval boundaries, ``QueryEngine.query``'s dispatch and
-``QAServer``'s requests, each server counting on its own recorder."""
+chunk, read and eval boundaries, ``GraphSolver.step``'s iterations and the
+Data feed's batches, ``QueryEngine.query``'s dispatch and ``QAServer``'s
+requests, each server counting on its own recorder."""
 
 import statistics
 import sys
@@ -140,6 +141,25 @@ def test_a_new_profiler_session_starts_the_spans_anew():
     assert [s.name for s in rec.spans()] == ["second"]
     assert rec.aggregate("first").count == 3            # aggregates stay
     assert all(s._mirror is None for s in rec.spans())  # handles let go
+
+
+def test_another_threads_spans_leave_the_session_whole():
+    """A profiler sees only the thread that started it: spans another
+    thread opens meanwhile (a data feed's worker) join their aggregates
+    and neither end the session nor enter its list."""
+    rec = Recorder()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with rec.span("first"):
+            pass
+        worker = threading.Thread(target=lambda: rec.span("worker")
+                                  .__enter__().__exit__(None, None, None))
+        worker.start()
+        worker.join(timeout=60)
+        with rec.span("second"):
+            pass
+    assert not worker.is_alive()
+    assert [s.name for s in rec.spans()] == ["first", "second"]
+    assert rec.aggregate("worker").count == 1
 
 
 def test_threads_keep_their_own_stacks_and_lose_no_update():
@@ -352,3 +372,113 @@ def test_batched_requests_wait_in_the_queue_span():
             >= rec.aggregate("server.dispatch").total_ns
     finally:
         srv.close()
+
+
+# ------------------------------------------------------------ GraphSolver
+_SOLVER_NET = """
+layer { name: "data" type: "Data" top: "data" top: "label"
+  include { phase: TRAIN }
+  transform_param { crop_size: 6 mirror: true mean_value: 100 }
+  data_param { source: "train_lmdb" batch_size: 3 backend: LMDB } }
+layer { name: "data" type: "Data" top: "data" top: "label"
+  include { phase: TEST }
+  transform_param { crop_size: 6 mean_value: 100 }
+  data_param { source: "train_lmdb" batch_size: 2 backend: LMDB } }
+layer { name: "conv" type: "Convolution" bottom: "data" top: "conv"
+  convolution_param { num_output: 4 kernel_size: 3
+    weight_filler { type: "xavier" } } }
+layer { name: "relu" type: "ReLU" bottom: "conv" top: "conv" }
+layer { name: "fc" type: "InnerProduct" bottom: "conv" top: "fc"
+  inner_product_param { num_output: 5 weight_filler { type: "xavier" } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "fc" bottom: "label"
+  top: "loss" }
+"""
+
+
+def _graph_solver(tmp_path):
+    from mms_answer_selection_tpu_torch.training.graph_solver import \
+        GraphSolver
+    from mms_answer_selection_tpu_torch.utils.io import array_to_datum
+    from mms_answer_selection_tpu_torch.utils.lmdb_io import write_lmdb
+
+    rng = np.random.default_rng(0)
+    write_lmdb(str(tmp_path / "train_lmdb"), (
+        (b"%08d" % i, array_to_datum(
+            rng.integers(0, 256, (3, 8, 8), np.uint8), int(i % 5)))
+        for i in range(7)))
+    (tmp_path / "net.prototxt").write_text(_SOLVER_NET)
+    (tmp_path / "solver.prototxt").write_text(
+        'net: "net.prototxt" base_lr: 0.01 momentum: 0.9 lr_policy: "fixed" '
+        'max_iter: 100 display: 2 snapshot: 3 snapshot_prefix: "snap" '
+        'test_iter: 2 test_interval: 2 test_initialization: false')
+    return GraphSolver(str(tmp_path / "solver.prototxt"), device="cpu",
+                       seed=3)
+
+
+def test_solver_step_opens_its_spans_once_an_iteration(recorder, tmp_path):
+    """``solver.step`` holds the iteration's pull, the runner's stage and
+    replay and the read, in that order, and the test pass, display and
+    snapshot due in it."""
+    gs = _graph_solver(tmp_path)
+    gs.step(1)                         # outside the profiler: counts only
+    assert recorder.spans() == []
+    assert recorder.aggregate("solver.step").count == 1
+    assert recorder.aggregate("solver.display").count == 1    # iteration 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        gs.step(3)
+    spans = recorder.spans()
+    steps = [s for s in spans if s.name == "solver.step"]
+    assert [s.id for s in steps] == [1, 2, 3]
+    inner = {s.seq: [] for s in steps}
+    for s in spans:
+        if s.parent in inner:
+            inner[s.parent].append(s)
+    order = ["solver.pull", "chunk.stage", "chunk.replay", "solver.read"]
+    # iteration 2 tests before its pull, displays after its read, and
+    # snapshots once the count reaches 3
+    want = {1: order, 2: ["solver.test"] + order + ["solver.display",
+                                                    "solver.snapshot"],
+            3: order}
+    for step in steps:
+        names = [s.name for s in sorted(inner[step.seq],
+                                        key=lambda s: s.start_ns)]
+        assert names == want[step.id], (step.id, names)
+        assert all(step.start_ns <= s.start_ns and s.end_ns <= step.end_ns
+                   for s in inner[step.seq])
+    # the feed reads and transforms on its worker thread, which the
+    # profiler does not see: aggregates only, a read and a transform a
+    # batch (4 train and 2 test batches handed out, and some read ahead)
+    assert not any(s.name.startswith("feed.") for s in spans)
+    reads = recorder.aggregate("feed.read").count
+    assert reads >= 6 and recorder.aggregate("feed.transform").count in (
+        reads, reads - 1)
+    assert recorder.aggregate("solver.read").count == 4
+    assert (tmp_path / "snap_iter_3.caffemodel").exists()
+
+
+def test_the_feed_reads_its_next_batch_on_a_worker(tmp_path):
+    """A data layer's feed hands out its batches in order, each read on
+    its worker thread, the next one while the caller steps."""
+    from mms_answer_selection_tpu_torch.data.lmdb_data import \
+        open_datum_dataset
+
+    gs = _graph_solver(tmp_path)
+    (feed,) = gs._feeds
+    plain = open_datum_dataset(str(tmp_path / "train_lmdb"), 3,
+                               crop_size=6, mirror=True, seed=gs.seed,
+                               mean=np.asarray([100.0], np.float32))
+    readers, inner = [], feed.it
+
+    def watched():
+        for batch in inner:
+            readers.append(threading.current_thread().name)
+            yield batch
+
+    feed.it = watched()
+    for n in range(1, 6):
+        got, want = next(feed), next(plain)
+        for k in ("data", "label"):
+            np.testing.assert_array_equal(got[k], want[k])
+        feed._ahead.result(timeout=60)          # the next one, read ahead
+        assert len(readers) == n + 1
+    assert all(name.startswith("feed") for name in readers)
